@@ -9,8 +9,9 @@ where ``TpuArena`` / ``TpuLib`` / ``make_tpu_arena`` stood.  Arena
 mutations route through the batched op queue
 (:class:`repro_torch.core.pim_queue.PimOpQueue`) onto the RowClone
 kernels; ``Blocking.FIN`` synchronises the card.  The model face
-(``DeviceLib`` over the simulated DDR3 device), D-RaNGe ``rand`` and the
-Ambit ``bitwise`` ops come with later slices.
+(``DeviceLib`` over the simulated DDR3 device) and the Ambit
+``bitwise`` ops come with later slices.  ``rand`` and ``rand_u32`` draw
+from the D-RaNGe generator kernel.
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ from __future__ import annotations
 import abc
 import enum
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.kernels.drange import ops as dr_ops
 from .allocator import Allocation, SubarrayAllocator, arena_groups
 from .pim_queue import PimOpQueue
 
@@ -52,9 +55,9 @@ class PimLib(abc.ABC):
     """The pimolib protocol: ``copy``/``init``/``write`` mutate pages
     named by :class:`Allocation` handles and return an
     :class:`OpReceipt`; ``read`` returns page contents (flushing
-    deferred work first); ``flush`` drains the backlog.  ``Blocking.FIN``
-    is a full synchronisation point.  (``rand`` and ``bitwise`` join the
-    protocol with the D-RaNGe and Ambit slices.)"""
+    deferred work first); ``flush`` drains the backlog; ``rand`` returns
+    random bits.  ``Blocking.FIN`` is a full synchronisation point.
+    (``bitwise`` joins the protocol with the Ambit slice.)"""
 
     face: str = "?"
 
@@ -74,6 +77,10 @@ class PimLib(abc.ABC):
 
     @abc.abstractmethod
     def flush(self, blocking: Blocking = Blocking.ACK) -> OpReceipt: ...
+
+    @abc.abstractmethod
+    def rand(self, n_bits: int, seed=None) -> Tuple[np.ndarray, OpReceipt]:
+        ...
 
 
 @dataclass
@@ -103,7 +110,8 @@ class TorchLib(PimLib):
     :class:`TorchArena` (pages on axis 0) or a list of layered
     ``(L, P, ...)`` buffers (the KV cache's (k, v) pair, pages on axis
     1).  Flushes update the buffers in place, so every holder of a
-    buffer sees them.
+    buffer sees them.  ``rand``/``rand_u32`` draw on the bound buffers'
+    device, or on ``device`` (None: the card) while none is bound.
     """
 
     face = FACE_TORCH
@@ -113,7 +121,8 @@ class TorchLib(PimLib):
                  layered: Optional[bool] = None,
                  allocator: Optional[SubarrayAllocator] = None,
                  deferred: bool = False,
-                 queue: Optional[PimOpQueue] = None) -> None:
+                 queue: Optional[PimOpQueue] = None,
+                 device: DeviceLike = None) -> None:
         if arena is not None and buffers is not None:
             raise ValueError("pass either arena= or buffers=, not both")
         self.arena = arena
@@ -124,7 +133,10 @@ class TorchLib(PimLib):
                 "PimOpQueue is already driven by another lib; share ONE lib "
                 "across clients for joint accounting instead")
         self.queue.owner = self
-        self.stats = {"copies": 0, "inits": 0, "reads": 0, "writes": 0}
+        self.stats = {"copies": 0, "inits": 0, "reads": 0, "writes": 0,
+                      "rand_bits": 0}
+        self._rand_ctr = 0   # advances the default rand() seed per call
+        self._device = device
         if arena is not None:
             self.buffers: List[torch.Tensor] = [arena.buffer]
             self.allocator = arena.allocator
@@ -194,6 +206,34 @@ class TorchLib(PimLib):
                 synchronize(b.device)
         return OpReceipt(True, "flush", face=self.face, n_ops=0,
                          launches=self.queue.stats["launches"] - before)
+
+    def _rand_device(self) -> torch.device:
+        if self.buffers:
+            return self.buffers[0].device
+        return resolve_device(self._device)
+
+    def rand(self, n_bits: int, seed=None) -> Tuple[np.ndarray, OpReceipt]:
+        """Random bits from the D-RaNGe kernel (one launch).  With no
+        explicit seed the stream advances per call; pass ``seed`` (two
+        uint32 words) for a reproducible draw."""
+        if seed is None:
+            self._rand_ctr += 1
+            seed = (0x9E3779B9 + self._rand_ctr, 0x85EBCA6B ^ self._rand_ctr)
+        words = dr_ops.pim_random_u32(seed, 1, -(-n_bits // 32),
+                                      self._rand_device())
+        self.stats["rand_bits"] += n_bits   # logical bits
+        self.queue.count_external("drange_rand")
+        bits = np.unpackbits(words.cpu().numpy().view(np.uint8),
+                             bitorder="little")[:n_bits]
+        return bits, OpReceipt(True, "drange_rand", face=self.face,
+                               n_ops=n_bits, launches=1)
+
+    def rand_u32(self, seed, n_rows: int, n_cols: int) -> torch.Tensor:
+        """Raw (n_rows, n_cols) uint32 words from ``seed``."""
+        self.stats["rand_bits"] += n_rows * n_cols * 32
+        self.queue.count_external("drange_rand")
+        return dr_ops.pim_random_u32(seed, n_rows, n_cols,
+                                     self._rand_device())
 
     def read(self, alloc: Allocation, buffer: int = 0) -> torch.Tensor:
         """Page contents of ``buffers[buffer]`` after deferred work

@@ -20,6 +20,9 @@ LAUNCHES: Dict[str, int] = {
     "page_init_batched": 0,
     "paged_attention": 0,
     "flash_attention": 0,
+    # the same kernel in its prefix-KV mode (chunked prefill)
+    "flash_attention_prefix": 0,
+    "random_u32": 0,
 }
 
 

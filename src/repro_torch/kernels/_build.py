@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("rowclone", "paged_attention", "flash_attention")
+SOURCES = ("rowclone", "paged_attention", "flash_attention", "drange")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -49,8 +49,11 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _F, _I, _P],
     },
     "flash_attention": {
-        "fa_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _F, _I, _P],
+        "fa_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _I, _L, _L, _L, _P],
+    },
+    "drange": {
+        "dr_random_u32": [_U, _U, _P, _L, _P],
     },
 }
 

@@ -1,4 +1,4 @@
-"""Serving entry point: batched greedy requests through the port's paged
+"""Serving entry point: batched requests through the port's paged
 engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
@@ -7,9 +7,10 @@ engine.
 The port's counterpart of the JAX package's ``launch/serve.py``, with
 the same flags plus ``--device`` (default: the CUDA card).  The command
 line serves the reduced model of ``--arch`` with weights drawn from a
-seeded generator; :func:`serve` is the reusable body, which callers give
-any config and parameters (``chip_smoke.py`` gives it granite-3-8b at
-full width).
+seeded generator, its requests sampled at the default temperature of
+1.0 as the JAX script's are; :func:`serve` is the reusable body, which
+callers give any config, parameters and engine settings
+(``chip_smoke.py`` gives it granite-3-8b at full width).
 """
 
 from __future__ import annotations
@@ -34,32 +35,42 @@ def serve(cfg: ModelConfig, params, requests: List[Request], *,
           page_size: int = 16, num_pages: int = 256,
           device: DeviceLike = None,
           between_rounds: Optional[Callable[[PagedEngine, int], None]] = None,
-          ) -> Dict:
-    """Serve ``requests`` to completion, one engine round at a time.
+          **engine_kw) -> Dict:
+    """Serve ``requests`` to completion, one engine step at a time.
 
-    ``between_rounds(engine, round_index)`` runs after each round (the
-    smoke test forks and frees a live sequence there).  Returns the
-    finished token lists, the engine, and host-clock seconds per round
-    (each round ends in its device-to-host token transfer and a device
-    synchronise, so the seconds include the device's work)."""
+    ``engine_kw`` go to :class:`PagedEngine` (chunking, mixed rounds,
+    K-block decode, ``seed``).  A step is one engine round, or, when
+    nothing waits for admission, up to ``decode_block_rounds`` rounds so
+    that a K-block engine runs its blocks.  ``between_rounds(engine,
+    step_index)`` runs after each step (the smoke test forks, frees and
+    submits there).  Returns the finished token lists, the engine,
+    host-clock seconds per step (each step ends in its device-to-host
+    token transfer and a device synchronise, so the seconds include the
+    device's work) and each step's ``launches_by_kind`` delta."""
     dev = resolve_device(device)
     engine = PagedEngine(cfg, params, page_size=page_size,
-                         num_pages=num_pages, device=dev)
+                         num_pages=num_pages, device=dev, **engine_kw)
     for r in requests:
         engine.submit(r)
     results: Dict[int, List[int]] = {}
     round_seconds: List[float] = []
+    round_launches: List[Dict[str, int]] = []
+    queue = engine.cache.queue
     t0 = time.perf_counter()
     while engine.has_work:
+        rounds = (engine.decode_block_rounds
+                  if engine.prefill_backlog_tokens() == 0 else 1)
+        before = queue.snapshot()
         t = time.perf_counter()
-        results.update(engine.step())
+        results.update(engine.run(max_rounds=rounds))
         synchronize(dev)
         round_seconds.append(time.perf_counter() - t)
+        round_launches.append(queue.delta(before))
         if between_rounds is not None:
             between_rounds(engine, len(round_seconds) - 1)
     seconds = time.perf_counter() - t0
     return {"results": results, "engine": engine, "seconds": seconds,
-            "round_seconds": round_seconds,
+            "round_seconds": round_seconds, "round_launches": round_launches,
             "tokens": sum(len(v) for v in results.values())}
 
 

@@ -17,8 +17,10 @@ over the KV arena:
 The arenas are (layers, pages, page_size, kvh, hd) tensors on one
 device.  Every mutation routes through a :class:`TorchLib` and its
 batched op queue, one coalesced launch per op kind; the engine's fused
-decode round and fused prefill batch scatter their KV themselves and
-report it with :meth:`PagedKVCache.commit_fused_round` /
+decode round, K-round decode block and fused prefill or chunk batch
+scatter their KV themselves and report it with
+:meth:`PagedKVCache.commit_fused_round`,
+:meth:`PagedKVCache.commit_fused_block` and
 :meth:`PagedKVCache.commit_fused_prefill`.
 
 Not in this slice (the constructor raises for them): the radix prefix
@@ -252,26 +254,50 @@ class PagedKVCache:
             self._release_page(p)
         self.flush_pending()
 
-    def commit_fused_round(self, seq_ids: List[int]) -> None:
+    def commit_fused_round(self, seq_ids: List[int], *,
+                           kind: Optional[str] = "fused_decode") -> None:
         """The engine's fused decode round scattered each sequence's new
         token KV into the arenas itself: advance the lengths and count
-        the round's one ``fused_decode`` launch."""
+        the round's one launch under ``kind`` (``None``: the mixed
+        round, which the engine counts once as ``fused_mixed``)."""
         for sid in seq_ids:
             self.seqs[sid].length += 1
-        self.queue.count_external("fused_decode")
+        if kind is not None:
+            self.queue.count_external(kind)
 
-    def commit_fused_prefill(self) -> None:
-        """The engine's fused prefill batch scattered its prompt KV
-        itself (lengths were set at ``create``): count the batch's one
-        ``fused_prefill`` launch."""
-        self.queue.count_external("fused_prefill")
+    def commit_fused_block(self, seq_ids: List[int], counts: List[int], *,
+                           kind: Optional[str] = "fused_decode_block",
+                           ) -> None:
+        """The engine's K-round decode block scattered its KV itself:
+        advance each sequence by the ``counts[i]`` tokens it emitted
+        before its in-block stop (EOS or budget) and count the block's
+        one launch.  Capacity for the whole block was reserved with
+        :meth:`reserve_tokens`; slots past a row's count hold what they
+        held before the block (the masked write-back)."""
+        for sid, n in zip(seq_ids, counts):
+            self.seqs[sid].length += n
+        if kind is not None:
+            self.queue.count_external(kind)
+
+    def commit_fused_prefill(self, *,
+                             kind: Optional[str] = "fused_prefill") -> None:
+        """The engine's fused prefill or chunk batch scattered its prompt
+        KV itself (lengths were set at ``create``): count the batch's
+        one launch under ``kind`` (``None``: the chunk half of a mixed
+        round)."""
+        if kind is not None:
+            self.queue.count_external(kind)
 
     def block_table(self, seq_ids: List[int],
+                    lengths: Optional[List[int]] = None,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Block tables (B, width) and lengths (B,) as int32 tensors on
         the cache's device.  The width is the widest sequence's page
         count rounded up to a power of two; padding columns point at
-        page 0 and are never attended."""
+        page 0 and are never attended.  ``lengths`` overrides each
+        sequence's valid length: chunked prefill exposes only the
+        committed prefix of a sequence mid-prefill, over a table that
+        still spans its full page list."""
         width = _bucket_pow2(max(len(self.seqs[sid].pages)
                                  for sid in seq_ids))
         bt = np.zeros((len(seq_ids), width), np.int32)
@@ -279,7 +305,7 @@ class PagedKVCache:
         for i, sid in enumerate(seq_ids):
             seq = self.seqs[sid]
             bt[i, :len(seq.pages)] = seq.pages
-            lens[i] = seq.length
+            lens[i] = seq.length if lengths is None else lengths[i]
         return (torch.from_numpy(bt).to(self.device),
                 torch.from_numpy(lens).to(self.device))
 

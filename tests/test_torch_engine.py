@@ -121,10 +121,10 @@ class _Forced(PagedEngine):
         self.ref_calls = ref_calls
         self.logits = []
 
-    def _choose(self, rids, logits):
+    def _choose(self, logits, temps, seed, rowmap=None):
         ref = self.ref_calls[len(self.logits)]
         self.logits.append(logits.float().numpy())
-        return np.argmax(ref, axis=-1)
+        return torch.from_numpy(np.argmax(ref, axis=-1))
 
 
 def _run_port(model, ref_calls, fused=True):
@@ -178,25 +178,23 @@ def test_eos_stops_a_request(model):
     _, cfg, _, params = model
     prompt = np.arange(1, 9, dtype=np.int32)
     free = PagedEngine(cfg, params, page_size=PAGE, device="cpu")
-    free.submit(Request(0, prompt, max_new_tokens=4))
+    free.submit(Request(0, prompt, max_new_tokens=4, temperature=0.0))
     stream = free.run()[0]
     eng = PagedEngine(cfg, params, page_size=PAGE, device="cpu")
     eos = stream[1]
-    eng.submit(Request(0, prompt, max_new_tokens=4, eos_token_id=eos))
+    eng.submit(Request(0, prompt, max_new_tokens=4, temperature=0.0,
+                       eos_token_id=eos))
     assert eng.run()[0] == stream[:stream.index(eos) + 1]
     assert eng.cache.pages_in_use == 0
 
 
 def test_engine_refuses_what_is_not_ported(model):
     _, cfg, _, params = model
-    for kw in (dict(decode_block_rounds=2), dict(max_prefill_chunk=8),
-               dict(prefix_cache=True), dict(mesh=object()),
-               dict(lib=object()), dict(fused_prefill=False)):
+    for kw in (dict(prefix_cache=True), dict(mesh=object()),
+               dict(lib=object()), dict(fused_prefill=False),
+               dict(record_trace=True), dict(compressed_collectives=True)):
         with pytest.raises(NotImplementedError):
             PagedEngine(cfg, params, device="cpu", **kw)
-    eng = PagedEngine(cfg, params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(0, np.zeros(3, np.int32), temperature=1.0))
     ssm = reduced(ARCHS["mamba2-1.3b"])
     with pytest.raises(NotImplementedError):
         PagedEngine(ssm, params, device="cpu")

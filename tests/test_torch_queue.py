@@ -202,6 +202,46 @@ def test_cache_ledger_matches_jax():
     assert torch.count_nonzero(c.k_arena) == 0    # init-on-free
 
 
+def test_block_reservation_and_fused_commits_match_jax():
+    """The K-block's bookkeeping: a multi-page reservation with a CoW of
+    a shared partial tail, block tables over the reserved pages with a
+    committed-length override (the chunked prefix table), and the fused
+    block / round / prefill commits with and without their launch."""
+    c, jc = _caches()
+
+    def both(fn, *args, **kw):
+        getattr(c, fn)(*args, **kw)
+        getattr(jc, fn)(*args, **kw)
+
+    both("create", 0, 6)
+    both("create", 1, 13)
+    both("fork", 0, 2)                  # 2 shares 0's full page
+    for cache in (c, jc):
+        cache.reserve_tokens(cache.seqs[1], 9)
+        cache.reserve_tokens(cache.seqs[2], 8)
+        cache.flush_pending()
+    _assert_same_cache(c, jc, [0, 1, 2])
+    bt, lens = c.block_table([1, 2, 1], lengths=[4, 0, 12])
+    jbt, jlens = jc.block_table([1, 2, 1], lengths=[4, 0, 12])
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(jbt))
+    np.testing.assert_array_equal(lens.numpy(), [4, 0, 12])
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
+    c.commit_fused_block([1, 2], [9, 3])
+    jc.commit_fused_block([1, 2], [9, 3], jc.k_arena, jc.v_arena, rounds=9)
+    c.commit_fused_round([0], kind=None)
+    jc.commit_fused_round([0], jc.k_arena, jc.v_arena, kind=None)
+    c.commit_fused_prefill(kind=None)
+    jc.commit_fused_prefill(jc.k_arena, jc.v_arena, [], [], kind=None)
+    c.commit_fused_prefill()
+    jc.commit_fused_prefill(jc.k_arena, jc.v_arena, [], [])
+    _assert_same_cache(c, jc, [0, 1, 2])
+    assert _nonzero(c.queue.launches_by_kind)["fused_decode_block"] == 1
+    for sid in (1, 0, 2):
+        both("free", sid)
+    _assert_same_cache(c, jc, [])
+    assert c.pages_in_use == 0
+
+
 def test_cache_refuses_what_is_not_ported():
     cfg = reduced(ARCHS["granite-3-8b"], num_layers=2)
     for kw in (dict(prefix_cache=True), dict(record_trace=True),
