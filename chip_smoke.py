@@ -13,7 +13,10 @@ exits nonzero:
    card, at the shapes the serving path gives it, with its time, the
    plain version's, the least time the card could take (``bound_ms``)
    and one PyTorch call computing the same function where there is one
-   (``library_ms``, a yardstick the port never calls);
+   (``library_ms``, a yardstick the port never calls); the Ambit
+   kernels on the KV arena's layout, bit for bit, including a batch
+   whose destination is another op's source and a page holding only a
+   ``-0.0``;
 3. serving: granite-3-8b at full width and depth (40 layers, random
    bf16 weights from a seeded generator) answers 8 greedy requests
    through ``repro_torch.launch.serve.serve``, with a CoW fork of a live
@@ -33,7 +36,16 @@ exits nonzero:
    with every ``wq`` scaled by 0.01 (see the function);
 7. cross-check: the same engine at full width and 2 layers on the card
    and on the CPU (plain versions) from identical weights, then the
-   card's sampled token choice against the CPU's on identical logits.
+   card's sampled token choice against the CPU's on identical logits;
+8. prefix-cache serving (run after phase 4, before phase 5's profiler
+   and phase 6, which scales the weights):
+   the same model under chunked prefill, mixed rounds, 8-round blocks,
+   the radix prefix cache and the Ambit zero scan — 4 tenants in turn
+   on a 96-page arena that forces LRU evictions, then 16 requests of one
+   system prompt through ``AsyncServer`` under Poisson arrivals — each
+   ending in ``clear_prefix()`` and its zero audit;
+9. ``TorchLib.bitwise`` through the op queue on a full-size arena pair:
+   OR, AND and NOT batches, one launch per kind per arena, bit for bit.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels' JSON summary, and ``{"ok": true, "device": {...}}``.  Without a
@@ -362,6 +374,109 @@ def parity(dev) -> dict:
                  plain_ms=time_ms(lambda: dr_ref.random_u32(seed, *shape,
                                                             dev)),
                  bound_ms=nb, bound_by=by, library_ms=None)
+    rows.update(ambit_parity(dev, randn, L, P, S, E))
+    return rows
+
+
+def ambit_parity(dev, randn, L, P, S, E) -> dict:
+    """The Ambit kernels on the KV arena's layout (40, 1024, 16 x 8 x
+    128) bf16, batches of 16 pages, bit for bit against their plain
+    versions: AND, OR and NOT on a disjoint batch and on a batch whose
+    last op writes the page its first op reads (the wrapper stages that
+    one through scratch, two launches); the scan over pages holding
+    zeros, one planted ``-0.0`` (nonzero bits) and random values.  Times
+    are the disjoint batch's (``staged_ms`` the other's); a wrapper call
+    includes uploading its page list from the host, and
+    ``kernel_only_ms`` times the bare launch on page lists already on the
+    card.  Bounds: 3 page reads or writes per op for AND/OR, 2 for NOT, 1
+    for the scan.
+    Library: ``torch.bitwise_and``/``_or``/``_not`` over the 16 pages
+    gathered beforehand (no gather, no write-back), and ``(x != 0)``
+    reduced per page over the gathered pages for the scan."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ambit import ops as amb_ops
+    from repro_torch.kernels.ambit import ref as amb_ref
+
+    rows = {}
+    arena = randn(L, P, S, E)
+    page_bytes = S * E * 2
+    lib = _build.load("ambit")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    src = list(range(300, 316))
+    disjoint = list(range(400, 416))
+    staged = list(range(500, 515)) + [300]   # op 15 writes what op 0 reads
+    lib_fn = {"and": torch.bitwise_and, "or": torch.bitwise_or}
+    bits = arena.view(torch.int16)
+    gs = bits[:, src].contiguous()
+    gd = bits[:, disjoint].contiguous()
+    for op, name in (("and", "page_bitwise_batched"),
+                     ("or", "page_bitwise_batched_or"),
+                     ("not", "page_not_batched")):
+        for dst in (disjoint, staged):
+            s_t, d_t = torch.tensor(src, device=dev), \
+                torch.tensor(dst, device=dev)
+            want = (amb_ref.page_not_batched(arena.clone(), s_t, d_t)
+                    if op == "not" else amb_ref.page_bitwise_batched(
+                        arena.clone(), s_t, d_t, op))
+            got = amb_ops.pim_page_bitwise_batched(arena.clone(), src, dst,
+                                                   op=op)
+            torch.cuda.synchronize()
+            if not same_bits(got, want):
+                raise AssertionError(f"{name} ({op}, {len(set(dst))} pages) "
+                                     "disagrees with its plain version")
+            del want, got
+        work = arena.clone()
+        d_t = torch.tensor(disjoint, dtype=torch.int32, device=dev)
+        s_t = torch.tensor(src, dtype=torch.int32, device=dev)
+        n_rw = 2 if op == "not" else 3
+        nb, by = bound(n_rw * len(src) * L * page_bytes + 8 * len(src), 0)
+        plain = (lambda: amb_ref.page_not_batched(work, s_t, d_t)) \
+            if op == "not" else \
+            (lambda: amb_ref.page_bitwise_batched(work, s_t, d_t, op))
+        library = (lambda: torch.bitwise_not(gs)) if op == "not" else \
+            (lambda: lib_fn[op](gs, gd))
+        rows[name] = dict(
+            max_abs_err=0.0, pages=len(src), op=op,
+            ms=time_ms(lambda: amb_ops.pim_page_bitwise_batched(
+                work, src, disjoint, op=op)),
+            staged_ms=time_ms(lambda: amb_ops.pim_page_bitwise_batched(
+                work, src, staged, op=op)),
+            kernel_only_ms=time_ms(lambda: lib.am_bitwise_rows(
+                work.data_ptr(), s_t.data_ptr(), P, work.data_ptr(),
+                d_t.data_ptr(), P, len(src), L, page_bytes,
+                amb_ops._OP_CODE[op], stream)),
+            plain_ms=time_ms(plain), bound_ms=nb, bound_by=by,
+            library_ms=time_ms(library))
+        del work
+    # the scan: zero pages, a planted -0.0, random pages
+    zero = torch.zeros_like(arena)
+    pages = list(range(600, 616))
+    zero[:, pages[8:]] = arena[:, pages[8:]]
+    zero[L - 1, pages[3], S - 1, E - 1] = -0.0
+    assert zero[L - 1, pages[3]].view(torch.int16).ne(0).any()
+    want = amb_ref.page_zero_scan(zero, torch.tensor(pages, device=dev))
+    got = amb_ops.pim_page_zero_scan(zero, pages)
+    torch.cuda.synchronize()
+    expect = [i < 8 and i != 3 for i in range(16)]
+    if not (torch.equal(got, want) and want.tolist() == expect):
+        raise AssertionError(f"page_zero_scan {got.tolist()} disagrees with "
+                             f"its plain version {want.tolist()} or with "
+                             f"{expect}")
+    p_t = torch.tensor(pages, dtype=torch.int32, device=dev)
+    gz = zero.view(torch.int16)[:, pages].contiguous()
+    flags = torch.zeros(len(pages), dtype=torch.int32, device=dev)
+    nb, by = bound(len(pages) * L * page_bytes + 5 * len(pages), 0)
+    rows["page_zero_scan"] = dict(
+        max_abs_err=0.0, pages=len(pages), planted_negative_zero=True,
+        ms=time_ms(lambda: amb_ops.pim_page_zero_scan(zero, pages)),
+        kernel_only_ms=time_ms(lambda: lib.am_zero_scan(
+            zero.data_ptr(), p_t.data_ptr(), P, len(pages), L, page_bytes,
+            flags.data_ptr(), stream)),
+        plain_ms=time_ms(lambda: amb_ref.page_zero_scan(zero, p_t)),
+        bound_ms=nb, bound_by=by,
+        library_ms=time_ms(lambda: gz.ne(0).transpose(0, 1).reshape(
+            len(pages), -1).any(dim=1)))
+    del zero, arena, gs, gd, gz
     return rows
 
 
@@ -694,6 +809,245 @@ def _nonzero(d):
 
 
 # ---------------------------------------------------------------------- #
+# Phase 8: prefix-cache serving with the zero scan, closed and open loop
+# ---------------------------------------------------------------------- #
+
+PREFIX_KW = dict(page_size=16, max_prefill_chunk=256, mixed_rounds=True,
+                 decode_block_rounds=8, prefix_cache=True)
+SYS_LEN, TAIL_LEN = 512, 40
+
+
+def tenant_prompts(cfg, n_tenants, per_tenant, seed):
+    """``n_tenants`` lists of prompts: each tenant's 512-token system
+    prompt (32 pages) followed by a fresh 40-token tail per request."""
+    from repro_torch.launch.serve_async import shared_prefix_prompts
+
+    return [shared_prefix_prompts(per_tenant, cfg.vocab_size,
+                                  prefix_len=SYS_LEN, tail_len=TAIL_LEN,
+                                  seed=seed + t)
+            for t in range(n_tenants)]
+
+
+def _timed_scans(engine, log):
+    """Turn the zero scan on and time each scan on the host clock: a
+    scan returns its flags to the host, so it waits for the card."""
+    cache = engine.cache
+    cache.enable_zero_scan()
+    scan = cache.scan_zero_pages
+
+    def timed(pages):
+        t0 = time.perf_counter()
+        out = scan(pages)
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    cache.scan_zero_pages = timed
+
+
+def _clear_and_audit(engine, what):
+    """clear_prefix() with the audit: every freed page zero, none in
+    use."""
+    before = engine.cache.queue.snapshot()
+    evicted = engine.cache.clear_prefix()
+    st = engine.cache.stats
+    if st["zero_audit_failures"] or not st["zero_audit_pages"]:
+        raise AssertionError(f"{what}: zero audit {st}")
+    if engine.cache.pages_in_use:
+        raise AssertionError(f"{what}: {engine.cache.pages_in_use} pages "
+                             "in use after clear_prefix")
+    return {"nodes_evicted": evicted,
+            "launches": engine.cache.queue.delta(before)}
+
+
+def serving_prefix(dev, cfg, params) -> dict:
+    """Phase 8 (a): 4 tenants one after another on a 96-page arena, each
+    a 512-token system prompt and 4 requests with 40-token tails, all
+    greedy with 32 new tokens; a tenant's first request runs until its
+    prompt is committed, then its other three arrive and hit the cached
+    system prompt.  A tenant's live requests need about 52 pages and
+    leave 40 indexed, so the third tenant must evict the first's cold
+    prefix.  (b): 16 requests of one system prompt through AsyncServer
+    under Poisson arrivals at 4 requests/s on a fresh 1024-page engine,
+    with a TTFT SLO that sheds nothing.  Both run the zero scan and end
+    with clear_prefix()'s audit."""
+    import asyncio
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve_async import (poisson_open_loop,
+                                                shared_prefix_prompts)
+    from repro_torch.serving.engine import PagedEngine, Request
+    from repro_torch.serving.server import AsyncServer
+
+    tenants = [[Request(10 * t + i, p, max_new_tokens=32, temperature=0.0)
+                for i, p in enumerate(ps)]
+               for t, ps in enumerate(tenant_prompts(cfg, 4, 4, 100))]
+    state = {"t": 0, "others": False}
+
+    def between_rounds(engine, i):
+        reqs = tenants[state["t"]]
+        if not state["others"]:
+            if reqs[0].req_id in engine.active or reqs[0].done:
+                for r in reqs[1:]:      # the system prompt is committed
+                    engine.submit(r)
+                state["others"] = True
+        elif not engine.has_work and state["t"] + 1 < len(tenants):
+            state["t"] += 1
+            state["others"] = False
+            engine.submit(tenants[state["t"]][0])
+
+    scans_a = []
+    reset_launches()
+    out = serve(cfg, params, [tenants[0][0]], num_pages=96, device=dev,
+                between_rounds=between_rounds,
+                setup=lambda e: _timed_scans(e, scans_a), **PREFIX_KW)
+    engine = out["engine"]
+    cleared = _clear_and_audit(engine, "closed loop")
+    counts = launch_counts()
+    results = out["results"]
+    check_streams(cfg, {i: results[r.req_id] for i, r in
+                        enumerate(r for ts in tenants for r in ts)}, 16)
+    st, cst = engine.stats, engine.cache.stats
+    if not (st["prefix_hits"] > 0 and st["prefix_evictions"] > 0):
+        raise AssertionError(f"closed loop: no prefix hit or eviction {st}")
+    if engine.cache.queue.launches_by_kind.get("page_zero_scan", 0) == 0:
+        raise AssertionError("closed loop: no page_zero_scan launch")
+    missing = [k for k in PREFIX_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the path: {missing}")
+    kinds = [_round_kind(d) for d in out["round_launches"]]
+    ms = {}
+    for k, sec in zip(kinds, out["round_seconds"]):
+        ms.setdefault(k, []).append(sec * 1e3)
+    closed = {
+        "tenants": 4, "requests_per_tenant": 4, "num_pages": 96,
+        "prompt_len": SYS_LEN + TAIL_LEN,
+        "tokens": out["tokens"], "seconds": out["seconds"],
+        "tokens_per_s": out["tokens"] / out["seconds"],
+        "steps": len(kinds),
+        "step_kinds": {k: len(v) for k, v in ms.items()},
+        "step_ms_median": {k: float(np.median(v)) for k, v in ms.items()},
+        "prefix": {k: st[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                      "prefix_evictions")},
+        "zero_scan": {k: cst[k] for k in ("init_skips_zero",
+                                          "zero_audit_pages",
+                                          "zero_audit_failures")},
+        "scans": len(scans_a),
+        "scan_host_ms_median": float(np.median(scans_a)),
+        "scan_host_ms_total": float(np.sum(scans_a)),
+        "launches_by_kind": _nonzero(engine.cache.queue.launches_by_kind),
+        "saved_by_kind": dict(engine.cache.queue.saved_by_kind),
+        "clear_prefix": cleared, "kernel_launches": dict(counts),
+        "pages_in_use": engine.cache.pages_in_use}
+    del engine, out
+
+    # (b) the open loop on a fresh engine
+    scans_b = []
+    reset_launches()
+    eng = PagedEngine(cfg, params, num_pages=1024, device=dev, **PREFIX_KW)
+    _timed_scans(eng, scans_b)
+    prompts = shared_prefix_prompts(16, cfg.vocab_size, prefix_len=SYS_LEN,
+                                    tail_len=TAIL_LEN, seed=200)
+
+    async def go():
+        async with AsyncServer(eng, ttft_slo_ms=120e3) as srv:
+            return await poisson_open_loop(srv, prompts, rate_rps=4.0,
+                                           max_new_tokens=32), dict(srv.stats)
+
+    res, srv_stats = asyncio.run(asyncio.wait_for(go(), timeout=600))
+    streams = res.pop("streams")
+    if res["rejected"] or res["completed"] != len(prompts) \
+            or any(len(s.tokens) != 32 for s in streams):
+        raise AssertionError(f"open loop: {res}")
+    cleared_b = _clear_and_audit(eng, "open loop")
+    counts_b = launch_counts()
+    if eng.stats["prefix_hits"] == 0 or counts_b["page_zero_scan"] == 0:
+        raise AssertionError(f"open loop: {eng.stats} {counts_b}")
+    open_loop = {
+        "requests": len(prompts), "rate_rps": 4.0, "ttft_slo_ms": 120e3,
+        **{k: res[k] for k in ("rejected", "completed", "good",
+                               "goodput_rps", "goodput_tok_s", "wall_s",
+                               "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+                               "itl_p99_ms")},
+        "server": srv_stats,
+        "prefix": {k: eng.stats[k] for k in ("prefix_hits",
+                                             "prefix_hit_tokens",
+                                             "prefix_evictions")},
+        "zero_scan": {k: eng.cache.stats[k] for k in (
+            "init_skips_zero", "zero_audit_pages", "zero_audit_failures")},
+        "scans": len(scans_b),
+        "scan_host_ms_median": float(np.median(scans_b)),
+        "launches_by_kind": _nonzero(eng.cache.queue.launches_by_kind),
+        "saved_by_kind": dict(eng.cache.queue.saved_by_kind),
+        "clear_prefix": cleared_b, "kernel_launches": dict(counts_b),
+        "pages_in_use": eng.cache.pages_in_use}
+    del eng
+    total = {k: counts[k] + counts_b[k] for k in counts}
+    return {"phase": "serve_prefix", "arch": cfg.name,
+            "layers": cfg.num_layers, **{k: v for k, v in PREFIX_KW.items()},
+            "zero_scan": True, "closed_loop": closed, "open_loop": open_loop,
+            "kernel_launches": total}
+
+
+# ---------------------------------------------------------------------- #
+# Phase 9: TorchLib.bitwise through the op queue at full size
+# ---------------------------------------------------------------------- #
+
+
+def ambit_lib(dev, shape=(40, 1024, 16, 8, 128)) -> tuple:
+    """``TorchLib.bitwise`` on a deferred lib bound to a full-size (k, v)
+    arena pair (40 layers, 1024 pages of 16 x 8 x 128 bf16): an OR, an
+    AND and a NOT batch of 16 page pairs in one slab, each one launch per
+    arena for its kind, the arenas held bit for bit against the plain
+    versions."""
+    from repro_torch.core.allocator import SubarrayAllocator, arena_groups
+    from repro_torch.core.pimolib import Blocking, TorchLib
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.ambit import ref as amb_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    arenas = [torch.randn(shape, generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2)]
+    alloc = SubarrayAllocator(arena_groups(4, shape[1] // 4))
+    lib = TorchLib(buffers=arenas, layered=True, allocator=alloc,
+                   deferred=True)
+    g = alloc.group_ids()[1]
+    src, dst = alloc.alloc(16, group=g), alloc.alloc(16, group=g)
+    s_t = torch.tensor(src.rows, device=dev)
+    d_t = torch.tensor(dst.rows, device=dev)
+    reset_launches()
+    deltas = {}
+    for op in ("or", "and", "not"):
+        want = [a.clone() for a in arenas]
+        for w in want:
+            if op == "not":
+                amb_ref.page_not_batched(w, s_t, d_t)
+            else:
+                amb_ref.page_bitwise_batched(w, s_t, d_t, op)
+        before = lib.queue.snapshot()
+        t0 = time.perf_counter()
+        rec = lib.bitwise(op, src, dst, blocking=Blocking.FIN)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        delta = lib.queue.delta(before)
+        if delta != {f"page_{op}": 2} or rec.launches != 2:
+            raise AssertionError(f"bitwise {op}: launches {delta}")
+        for a, w in zip(arenas, want):
+            if not same_bits(a, w):
+                raise AssertionError(f"bitwise {op} disagrees with the "
+                                     "plain version")
+        deltas[op] = {"launches": delta, "host_ms": host_ms}
+        del want
+    counts = launch_counts()
+    missing = [k for k in LIB_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the path: {missing}")
+    out = {"phase": "ambit_lib", "arena": list(shape), "pages": 16,
+           "ops": deltas, "bitwises": lib.stats["bitwises"],
+           "kernel_launches": dict(counts)}
+    del arenas, lib
+    return out, counts
+
+
+# ---------------------------------------------------------------------- #
 # Phase 7: full width, 2 layers, card against CPU
 # ---------------------------------------------------------------------- #
 
@@ -847,12 +1201,21 @@ KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py:118"),
     "random_u32": ("src/repro_torch/kernels/csrc/drange.cu",
                    "src/repro/kernels/drange/drange.py:68"),
+    "page_bitwise_batched": ("src/repro_torch/kernels/csrc/ambit.cu",
+                             "src/repro/kernels/ambit/ambit.py:48"),
+    "page_not_batched": ("src/repro_torch/kernels/csrc/ambit.cu",
+                         "src/repro/kernels/ambit/ambit.py:91"),
+    "page_zero_scan": ("src/repro_torch/kernels/csrc/ambit.cu",
+                       "src/repro/kernels/ambit/ambit.py:135"),
 }
 # the kernels each serving phase must launch
 PHASE3_KERNELS = ("kv_scatter", "page_copy_batched", "page_init_batched",
                   "paged_attention", "flash_attention")
 CHUNKED_KERNELS = ("kv_scatter", "page_init_batched", "paged_attention",
                    "flash_attention_prefix", "random_u32")
+PREFIX_KERNELS = ("kv_scatter", "page_init_batched", "paged_attention",
+                  "flash_attention_prefix", "page_zero_scan")
+LIB_KERNELS = ("page_bitwise_batched", "page_not_batched")
 
 
 def main() -> int:
@@ -885,18 +1248,25 @@ def main() -> int:
     cfg, params, init_s = granite_params(dev)
     counts, greedy = serving(dev, cfg, params, init_s)
     counts_chunked = serving_chunked(dev, cfg, params, greedy)
+    # phase 8 before phase 6, which scales the weights in place, and
+    # before phase 5's profiler
+    prefix = serving_prefix(dev, cfg, params)
+    emit(prefix)
     emit(trace(dev, cfg, params))
     emit(chunked_vs_monolithic(dev, cfg, params))
     del params
     torch.cuda.empty_cache()
     emit(cross_check(dev))
+    lib_line, counts_lib = ambit_lib(dev)
+    emit(lib_line)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
+        launches = (counts[name] + counts_chunked[name]
+                    + prefix["kernel_launches"][name] + counts_lib[name])
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": counts[name] + counts_chunked[name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

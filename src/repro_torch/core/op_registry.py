@@ -7,11 +7,14 @@ The port's counterpart of the JAX face of the JAX package's
   arena for the whole pending batch;
 * ``page_init`` — RowClone-Init (init-on-free), one launch per arena per
   distinct fill value;
+* ``page_and`` / ``page_or`` / ``page_not`` — Ambit bulk bitwise ops
+  (``dst <- src OP dst``, ``dst <- ~src``), one launch per arena per
+  kind for the whole pending batch;
 * ``kv_write`` — token KV slot writes, one scatter launch per arena.
 
 A flush executor is ``(queue, arenas, ops) -> arenas``: it updates the
-arenas in place and counts its launches on the queue.  The Ambit,
-D-RaNGe and SSM-state kinds come with their slices.
+arenas in place and counts its launches on the queue.  The SSM-state
+kinds come with their slice.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from repro_torch.kernels.ambit import ops as amb_ops
 from repro_torch.kernels.rowclone import ops as rc_ops
 
 
@@ -65,6 +69,19 @@ def _flush_page_init(q, arenas, ops):
             rc_ops.pim_page_init_batched(a, pages, value)
         q._count_launch("page_init", len(arenas))
     return arenas
+
+
+def _make_flush_bitwise(op: str, kind: str) -> Callable:
+    """Flush executor of an Ambit kind: one layer-batched launch per
+    arena for the whole pending (src, dst) batch, on bit patterns."""
+    def _flush(q, arenas, ops):
+        src = [s for s, _ in ops]
+        dst = [d for _, d in ops]
+        for a in arenas:
+            amb_ops.pim_page_bitwise_batched(a, src, dst, op=op)
+        q._count_launch(kind, len(arenas))
+        return arenas
+    return _flush
 
 
 def last_writer(pages: List[int], slots: List[int]) -> np.ndarray:
@@ -114,5 +131,8 @@ def _flush_kv_write(q, arenas, ops: List[KVWriteBatch]):
 QUEUE_KINDS: Dict[str, Callable] = {
     "page_copy": _flush_page_copy,
     "page_init": _flush_page_init,
+    "page_and": _make_flush_bitwise("and", "page_and"),
+    "page_or": _make_flush_bitwise("or", "page_or"),
+    "page_not": _make_flush_bitwise("not", "page_not"),
     "kv_write": _flush_kv_write,
 }

@@ -4,14 +4,16 @@ The port's counterpart of the JAX package's ``core/pim_queue.py``.
 PiDRAM's end-to-end lesson is that in-DRAM ops only win when the
 dispatch path is amortised: one POC handshake per *batch* of row
 operations, not per row.  This queue collects arena mutations (CoW page
-copies, init-on-free page inits, token KV writes) as light records and
-flushes them as ONE coalesced launch per op kind per arena — a constant
-number of launches whatever the layer count or batch size.
+copies, init-on-free page inits, Ambit bitwise ops, token KV writes) as
+light records and flushes them as ONE coalesced launch per op kind per
+arena — a constant number of launches whatever the layer count or batch
+size.
 
 Flush order is fixed: ``page_copy`` first (CoW sources are duplicated
-before anything overwrites them), then ``page_init``, then
-``kv_write``.  Within a kind, ops keep enqueue order, and duplicate
-destinations resolve to the last op enqueued.
+before anything overwrites them), then ``page_init``, the Ambit kinds
+``page_and``, ``page_or`` and ``page_not``, then ``kv_write``.  Within a
+kind, ops keep enqueue order, and duplicate destinations resolve to the
+last op enqueued.
 
 :meth:`PimOpQueue.admit` keeps program order for deferred clients:
 enqueueing an op whose kind differs from the backlog's, or that touches

@@ -8,10 +8,10 @@ The port's counterpart of the JAX face of the JAX package's
 where ``TpuArena`` / ``TpuLib`` / ``make_tpu_arena`` stood.  Arena
 mutations route through the batched op queue
 (:class:`repro_torch.core.pim_queue.PimOpQueue`) onto the RowClone
-kernels; ``Blocking.FIN`` synchronises the card.  The model face
-(``DeviceLib`` over the simulated DDR3 device) and the Ambit
-``bitwise`` ops come with later slices.  ``rand`` and ``rand_u32`` draw
-from the D-RaNGe generator kernel.
+kernels, and the Ambit ``bitwise`` ops onto the Ambit kernels;
+``Blocking.FIN`` synchronises the card.  The model face (``DeviceLib``
+over the simulated DDR3 device) comes with a later slice.  ``rand`` and
+``rand_u32`` draw from the D-RaNGe generator kernel.
 """
 
 from __future__ import annotations
@@ -52,12 +52,11 @@ class OpReceipt:
 
 
 class PimLib(abc.ABC):
-    """The pimolib protocol: ``copy``/``init``/``write`` mutate pages
-    named by :class:`Allocation` handles and return an
+    """The pimolib protocol: ``copy``/``init``/``bitwise``/``write``
+    mutate pages named by :class:`Allocation` handles and return an
     :class:`OpReceipt`; ``read`` returns page contents (flushing
     deferred work first); ``flush`` drains the backlog; ``rand`` returns
-    random bits.  ``Blocking.FIN`` is a full synchronisation point.
-    (``bitwise`` joins the protocol with the Ambit slice.)"""
+    random bits.  ``Blocking.FIN`` is a full synchronisation point."""
 
     face: str = "?"
 
@@ -133,8 +132,8 @@ class TorchLib(PimLib):
                 "PimOpQueue is already driven by another lib; share ONE lib "
                 "across clients for joint accounting instead")
         self.queue.owner = self
-        self.stats = {"copies": 0, "inits": 0, "reads": 0, "writes": 0,
-                      "rand_bits": 0}
+        self.stats = {"copies": 0, "inits": 0, "bitwises": 0, "reads": 0,
+                      "writes": 0, "rand_bits": 0}
         self._rand_ctr = 0   # advances the default rand() seed per call
         self._device = device
         if arena is not None:
@@ -189,6 +188,26 @@ class TorchLib(PimLib):
             self.queue.enqueue_init(d, value)
         self.stats["inits"] += dst.nrows
         return self._receipt("rowclone_init", dst.nrows, blocking)
+
+    _BITWISE_KIND = {"and": "page_and", "or": "page_or", "not": "page_not"}
+
+    def bitwise(self, op: str, src: Allocation, dst: Allocation,
+                blocking: Blocking = Blocking.ACK) -> OpReceipt:
+        """Ambit ``dst <- src OP dst`` (or ``~src`` for "not") on pages:
+        one coalesced bitwise launch per bound arena at flush.  ``admit``
+        registers the source pages as reads, so a pending op that wrote
+        either operand flushes first."""
+        kind = self._BITWISE_KIND.get(op)
+        if kind is None:
+            raise ValueError(f"unknown bitwise op {op!r}")
+        if src.group != dst.group or src.nrows != dst.nrows:
+            raise ValueError(
+                "bitwise operands must be same-slab, same size")
+        self.queue.admit(kind, dst.rows, self.flush, reads=src.rows)
+        for s, d in zip(src.rows, dst.rows):
+            self.queue.enqueue(kind, (s, d))
+        self.stats["bitwises"] += src.nrows
+        return self._receipt(f"ambit_{op}", src.nrows, blocking)
 
     def flush(self, blocking: Blocking = Blocking.ACK) -> OpReceipt:
         """Drain pending ops: one coalesced launch per op kind across

@@ -23,6 +23,9 @@ LAUNCHES: Dict[str, int] = {
     # the same kernel in its prefix-KV mode (chunked prefill)
     "flash_attention_prefix": 0,
     "random_u32": 0,
+    "page_bitwise_batched": 0,
+    "page_not_batched": 0,
+    "page_zero_scan": 0,
 }
 
 

@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("rowclone", "paged_attention", "flash_attention", "drange")
+SOURCES = ("rowclone", "paged_attention", "flash_attention", "drange",
+           "ambit")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -54,6 +55,10 @@ SIGNATURES = {
     },
     "drange": {
         "dr_random_u32": [_U, _U, _P, _L, _P],
+    },
+    "ambit": {
+        "am_bitwise_rows": [_P, _P, _L, _P, _P, _L, _I, _I, _L, _I, _P],
+        "am_zero_scan": [_P, _P, _L, _I, _I, _L, _P, _P],
     },
 }
 

@@ -61,9 +61,16 @@ them.  ``fused=False`` keeps the eager decode oracle: the same forward,
 with the round's KV written through the op queue's ``kv_write`` kind
 instead of inside the step.
 
-Not in this slice (the constructor raises): the radix prefix cache,
-caller-supplied libs, trace recording, device meshes, the eager prefill
-oracle, and the ssm/hybrid/moe families.
+Prefix cache (``prefix_cache=True``): every prompt is created with its
+tokens, so the cache's radix tree attaches the longest committed
+full-page prefix; a prompt's full pages are indexed once they hold its
+KV (after its prefill batch, or when its last chunk lands), and cold
+prefixes evict LRU when the arena runs out.  The eviction inits are
+only enqueued and land before the next step reads the arenas.
+
+Not in this slice (the constructor raises): caller-supplied libs, trace
+recording, device meshes, the eager prefill oracle, and the
+ssm/hybrid/moe families.
 """
 
 from __future__ import annotations
@@ -145,8 +152,7 @@ class PagedEngine:
                          ("lib", lib is not None),
                          ("record_trace", record_trace),
                          ("mesh", mesh is not None),
-                         ("compressed_collectives", compressed_collectives),
-                         ("prefix_cache", prefix_cache)):
+                         ("compressed_collectives", compressed_collectives)):
             if on:
                 raise NotImplementedError(
                     f"PagedEngine({name}) is not ported yet")
@@ -168,7 +174,8 @@ class PagedEngine:
                                            remat="none")
         self.params = params
         self.cache = PagedKVCache(cfg, num_pages=num_pages,
-                                  page_size=page_size, device=self.device)
+                                  page_size=page_size, device=self.device,
+                                  prefix_cache=prefix_cache)
         self.fused = fused
         self.max_prefill_chunk = max_prefill_chunk
         self.decode_block_rounds = decode_block_rounds
@@ -191,6 +198,7 @@ class PagedEngine:
                       "prefill_chunks": 0, "decode_stall_rounds": 0,
                       "multi_round_blocks": 0, "mixed_dispatches": 0,
                       "prefix_hits": 0, "prefix_hit_tokens": 0,
+                      "prefix_evictions": 0,
                       # host seconds of the prefill steps (a mixed round
                       # counts here) and of the decode rounds and blocks;
                       # each ends in its device-to-host token transfer,
@@ -281,7 +289,8 @@ class PagedEngine:
         return results
 
     def _finish_done(self, results: Dict[int, List[int]]) -> None:
-        for key in ("prefix_hits", "prefix_hit_tokens"):
+        # mirror the cache's prefix counters
+        for key in ("prefix_hits", "prefix_hit_tokens", "prefix_evictions"):
             self.stats[key] = self.cache.stats[key]
         for rid in list(self.active):
             r = self.active[rid]
@@ -325,11 +334,12 @@ class PagedEngine:
         batch, in bucket order.  Returns the prompt tokens processed."""
         reqs, self.queue = self.queue, []
         # create every sequence in submission order first, so shared
-        # prefixes resolve across bucket groups
+        # prefixes resolve across bucket groups; the radix cache matches
+        # against prompts already committed (a batch cannot hit itself)
         for r in reqs:
             self.cache.create(r.req_id, len(r.prompt),
                               share_with=r.share_with,
-                              shared_len=r.shared_len)
+                              shared_len=r.shared_len, tokens=r.prompt)
         groups: Dict[int, List[Request]] = {}
         for r in reqs:
             groups.setdefault(_bucket_pow2(len(r.prompt)), []).append(r)
@@ -355,7 +365,8 @@ class PagedEngine:
             start = seq.shared_prefix_pages * self.cache.page_size
             plan.append((i, seq, start, seq.length, 0))
         scatter = self._scatter_plan(plan, sp, Bp)
-        # the step reads the arena (shared prefixes): land the backlog
+        # the step reads the arena (shared prefixes): land the backlog,
+        # eviction inits from create-time arena pressure included
         self.cache.flush_pending()
         logits = _fused_prefill_step(
             self.cfg, self.pcfg, self.params, self._tensor(toks),
@@ -368,6 +379,7 @@ class PagedEngine:
             r.out_tokens.append(int(toks_np[i]))
             self.active[r.req_id] = r
             self.stats["prefills"] += 1
+            self.cache.commit_prefix(r.req_id, r.prompt)
         self.stats["fused_prefill_dispatches"] += 1
 
     def _scatter_plan(self, plan, sp: int, Bp: int):
@@ -469,7 +481,8 @@ class PagedEngine:
         for r in reqs:
             seq = self.cache.create(r.req_id, len(r.prompt),
                                     share_with=r.share_with,
-                                    shared_len=r.shared_len)
+                                    shared_len=r.shared_len,
+                                    tokens=r.prompt)
             off = seq.shared_prefix_pages * self.cache.page_size
             n = len(r.prompt)
             if off >= n:
@@ -531,6 +544,8 @@ class PagedEngine:
                 self.active[st.req.req_id] = st.req
                 self.stats["prefills"] += 1
                 del self._chunk_by_id[st.req.req_id]
+                # the prompt's full pages now hold its KV: index them
+                self.cache.commit_prefix(st.req.req_id, st.req.prompt)
             else:
                 unfinished.append(st)
         return unfinished

@@ -10,9 +10,17 @@ over the KV arena:
   the source's slab, so the copy is a RowClone page copy;
 * **init-on-free** — freed pages are zeroed with a RowClone-Init page
   init, so no request can read another's KV;
-* **pairwise prefix sharing** — refcounted pages let a request share
-  another's page-aligned prompt prefix (``share_with``/``shared_len``);
-  CoW forking copies only the partial tail.
+* **prefix sharing** — refcounted pages let requests share a prompt
+  prefix: automatically through the radix prefix cache
+  (``prefix_cache=True``, ``create(..., tokens=)``, ``commit_prefix``,
+  LRU eviction of cold prefixes under arena pressure, ``clear_prefix``),
+  or pairwise by naming a live source (``share_with``/``shared_len``);
+  CoW forking copies only the partial tail;
+* **Ambit zero-compare** (``zero_scan=True`` or
+  :meth:`PagedKVCache.enable_zero_scan`) — ``free()`` scans a dying
+  sequence's exclusive pages and skips the init of pages already zero,
+  and ``clear_prefix()`` audits that every page it freed holds zero
+  bits.
 
 The arenas are (layers, pages, page_size, kvh, hd) tensors on one
 device.  Every mutation routes through a :class:`TorchLib` and its
@@ -23,15 +31,15 @@ scatter their KV themselves and report it with
 :meth:`PagedKVCache.commit_fused_block` and
 :meth:`PagedKVCache.commit_fused_prefill`.
 
-Not in this slice (the constructor raises for them): the radix prefix
-cache, trace recording, the SSM state arena, the Ambit zero scan and
-device meshes.
+Not in this slice (the constructor raises for them): trace recording,
+the SSM state arena and device meshes.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence as Seq, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +49,8 @@ from repro_torch.core.allocator import (PimAllocError, SubarrayAllocator,
                                         arena_groups)
 from repro_torch.core.pimolib import TorchLib
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ambit import ops as amb_ops
+from .prefix_cache import RadixPrefixCache
 
 
 @dataclass
@@ -61,8 +71,6 @@ class PagedKVCache:
                  state_slots: Optional[int] = None):
         for name, on in (("record_trace", record_trace),
                          ("mesh", mesh is not None),
-                         ("prefix_cache", prefix_cache),
-                         ("zero_scan", zero_scan),
                          ("state_slots", state_slots is not None)):
             if on:
                 raise NotImplementedError(
@@ -95,7 +103,21 @@ class PagedKVCache:
         self.page_alloc: Dict[int, object] = {}
         self.seqs: Dict[int, Sequence] = {}
         self.stats = {"cow_copies": 0, "pages_zeroed": 0, "prefix_hits": 0,
-                      "prefix_hit_tokens": 0}
+                      "prefix_hit_tokens": 0, "prefix_evictions": 0,
+                      "init_skips_zero": 0, "zero_audit_pages": 0,
+                      "zero_audit_failures": 0}
+        # the Ambit zero-compare paths (off by default: the scans add
+        # read-only launches); _known_zero holds pages a scan found
+        # all-zero, whose init-on-free is skipped
+        self.zero_scan = zero_scan
+        self._known_zero: set = set()
+        # the radix prefix cache holds its own reference on every page
+        # it indexes; eviction releases it through init-on-free
+        self.prefix: Optional[RadixPrefixCache] = None
+        if prefix_cache:
+            self.prefix = RadixPrefixCache(
+                page_size, retain=self._retain_page,
+                release=self._release_evicted_prefix_page)
 
     # the arenas live on the lib (a shared lib sees every mutation)
     @property
@@ -108,28 +130,65 @@ class PagedKVCache:
 
     # ------------------------- page management ------------------------ #
 
-    def _alloc_page(self, near: Optional[int] = None) -> int:
-        a = None
+    def _try_alloc(self, near: Optional[int] = None):
         if near is not None and near in self.page_alloc:
             try:
-                a = self.allocator.alloc(1, group=self.page_alloc[near].group)
+                return self.allocator.alloc(
+                    1, group=self.page_alloc[near].group)
             except PimAllocError:
                 pass
-        if a is None:
-            a = self.allocator.alloc(1)
+        return self.allocator.alloc(1)
+
+    def _alloc_page(self, near: Optional[int] = None) -> int:
+        try:
+            a = self._try_alloc(near)
+        except PimAllocError:
+            # arena full: evict cold prefix-cache leaves (LRU) until a
+            # page frees up.  Evicting a node whose page a live sequence
+            # still shares only drops the tree's reference, so keep
+            # evicting until the allocator yields or the tree runs dry.
+            if self.prefix is None:
+                raise
+            while True:
+                if self.prefix.evict_lru(1) == 0:
+                    raise
+                try:
+                    a = self._try_alloc(near)
+                    break
+                except PimAllocError:
+                    continue
         page = a.rows[0]
         self.page_alloc[page] = a
         self.refcount[page] = 1
         return page
 
+    def _retain_page(self, page: int) -> None:
+        """Prefix-tree retain hook: the tree takes its own reference."""
+        self.refcount[page] += 1
+
+    def _release_evicted_prefix_page(self, page: int) -> None:
+        """Prefix-tree release hook (a node evicted): drop the tree's
+        reference; an unshared page zeroes and frees through the batched
+        init-on-free path.  The init is only enqueued: the next flush
+        point (every step flushes before it reads the arenas) coalesces a
+        whole eviction sweep into one launch."""
+        self.stats["prefix_evictions"] += 1
+        self._release_page(page)
+
     def _release_page(self, page: int) -> None:
         """Drop a reference; on the last one, enqueue a batched
         RowClone-Init (zero without reading) and return the page to the
-        allocator.  The caller flushes."""
+        allocator.  The caller flushes.  A page the zero-compare scan
+        just found all-zero skips its init, booked as saved work."""
         self.refcount[page] -= 1
         if self.refcount[page] == 0:
-            self.queue.admit("page_init", (page,), self.lib.flush)
-            self.queue.enqueue_init(page)
+            if page in self._known_zero:
+                self._known_zero.discard(page)
+                self.queue.record_saved("page_init", 1)
+                self.stats["init_skips_zero"] += 1
+            else:
+                self.queue.admit("page_init", (page,), self.lib.flush)
+                self.queue.enqueue_init(page)
             self.stats["pages_zeroed"] += 1
             self.allocator.free(self.page_alloc.pop(page))
             del self.refcount[page]
@@ -138,19 +197,60 @@ class PagedKVCache:
         """Drain the op queue: one coalesced launch per pending op kind."""
         self.lib.flush()
 
+    # --------------------- Ambit zero-compare scan --------------------- #
+
+    def enable_zero_scan(self) -> None:
+        """Turn on the Ambit zero-compare paths: ``free()`` scans a
+        dying sequence's exclusive pages (pages already zero skip their
+        init-on-free) and ``clear_prefix()`` audits that every page it
+        freed holds zero bits."""
+        self.zero_scan = True
+
+    def scan_zero_pages(self, pages) -> np.ndarray:
+        """Batched zero-compare over ``pages``: one read-only launch per
+        arena (k, v) whatever the batch, after the pending mutations
+        land.  Returns bool (n,) on the host, True where the page holds
+        all-zero bits in both arenas; reading it waits for the card."""
+        idx = np.asarray(list(pages), np.int32)
+        if idx.size == 0:
+            return np.zeros((0,), bool)
+        self.flush_pending()
+        flags = None
+        for buf in self.lib.buffers:
+            z = amb_ops.pim_page_zero_scan(buf, idx)
+            flags = z if flags is None else (flags & z)
+        self.queue.count_external("page_zero_scan", len(self.lib.buffers))
+        return flags.cpu().numpy()
+
     # ------------------------- sequence API ---------------------------- #
 
     def create(self, seq_id: int, prompt_len: int,
                share_with: Optional[int] = None,
-               shared_len: int = 0) -> Sequence:
-        """Create a sequence, attaching the first ``shared_len //
-        page_size`` pages of live sequence ``share_with`` (refcount++,
-        no compute, no writes)."""
+               shared_len: int = 0,
+               tokens: Optional[Seq[int]] = None) -> Sequence:
+        """Create a sequence, attaching any shareable prompt prefix
+        (refcount++ per page, no compute, no writes).
+
+        ``tokens`` (the prompt's token ids) is the automatic path: the
+        radix prefix cache matches the prompt's longest committed
+        full-page prefix.  ``share_with``/``shared_len`` is the pairwise
+        path (the first ``shared_len // page_size`` pages of a live
+        sequence); with a prefix cache on it warns
+        ``DeprecationWarning``, since mixing both splits the hit
+        accounting."""
         seq = Sequence(seq_id)
         shared_pages: List[int] = []
         if share_with is not None and shared_len:
+            if self.prefix is not None:
+                warnings.warn(
+                    "share_with=/shared_len= is the legacy pairwise "
+                    "prefix API; pass tokens= and let the radix prefix "
+                    "cache match automatically", DeprecationWarning,
+                    stacklevel=2)
             src = self.seqs[share_with]
             shared_pages = list(src.pages[:shared_len // self.page_size])
+        elif tokens is not None and self.prefix is not None:
+            shared_pages = self.prefix.match(list(tokens)[:prompt_len])
         if shared_pages:
             for p in shared_pages:
                 self.refcount[p] += 1
@@ -167,6 +267,23 @@ class PagedKVCache:
         seq.length = prompt_len
         self.seqs[seq_id] = seq
         return seq
+
+    def commit_prefix(self, seq_id: int, tokens: Seq[int]) -> int:
+        """Index a sequence's committed prompt KV in the radix prefix
+        cache (a no-op without one), once its full pages hold real KV:
+        after a prefill batch, or when the last chunk lands.  Only full
+        pages index; the tree retains each new one, so the prefix
+        outlives the sequence.  Returns the number of pages newly
+        indexed."""
+        if self.prefix is None:
+            return 0
+        seq = self.seqs[seq_id]
+        n_full = min(len(seq.pages), len(tokens) // self.page_size)
+        if n_full == 0:
+            return 0
+        return self.prefix.insert(
+            [int(t) for t in list(tokens)[:n_full * self.page_size]],
+            seq.pages[:n_full])
 
     def fork(self, src_id: int, dst_id: int) -> Sequence:
         """Beam/CoW fork: share full pages, RowClone-copy the partial tail."""
@@ -235,6 +352,18 @@ class PagedKVCache:
         for sid in seq_ids:
             self.seqs[sid].length += 1
 
+    def write_prompt_kv(self, seq: Sequence, k: torch.Tensor,
+                        v: torch.Tensor, start: int = 0) -> None:
+        """Bulk write of prompt KV through the queue: k, v (layers, n,
+        kvh, hd) at positions ``[start, start + n)``, one coalesced
+        scatter launch per arena."""
+        n = k.shape[1]
+        pages = [seq.pages[(start + i) // self.page_size] for i in range(n)]
+        slots = [(start + i) % self.page_size for i in range(n)]
+        self.queue.admit("kv_write", pages, self.lib.flush)
+        self.queue.enqueue_kv_writes(pages, slots, k, v)
+        self.flush_pending()
+
     def prefill_scatter_plan(self, seq: Sequence, start: int = 0,
                              stop: Optional[int] = None,
                              ) -> Tuple[List[int], List[int]]:
@@ -248,11 +377,40 @@ class PagedKVCache:
 
     def free(self, seq_id: int) -> None:
         """Release a sequence; its dead pages zero in one batched
-        RowClone-Init launch per arena."""
+        RowClone-Init launch per arena.  With the zero scan on, the
+        sequence's exclusive pages are zero-compared first (one launch
+        per arena) and those already zero skip their init."""
         seq = self.seqs.pop(seq_id)
+        if self.zero_scan:
+            excl = [p for p in seq.pages if self.refcount[p] == 1]
+            if excl:
+                flags = self.scan_zero_pages(excl)
+                self._known_zero.update(
+                    p for p, z in zip(excl, flags) if z)
         for p in seq.pages:
             self._release_page(p)
         self.flush_pending()
+
+    def clear_prefix(self) -> int:
+        """Drop the whole radix prefix cache (shutdown, leak audit): every
+        tree-held reference releases and unshared pages zero in one
+        coalesced init launch.  With the zero scan on, every page the
+        teardown freed is then audited for zero bits in both arenas
+        (failures count in ``zero_audit_failures``).  Returns the number
+        of nodes evicted."""
+        if self.prefix is None:
+            return 0
+        before = set(self.refcount)
+        n = self.prefix.evict_all()
+        self.flush_pending()
+        if self.zero_scan:
+            freed = sorted(before - set(self.refcount))
+            if freed:
+                flags = self.scan_zero_pages(freed)
+                self.stats["zero_audit_pages"] += len(freed)
+                self.stats["zero_audit_failures"] += int(
+                    len(freed) - int(np.count_nonzero(flags)))
+        return n
 
     def commit_fused_round(self, seq_ids: List[int], *,
                            kind: Optional[str] = "fused_decode") -> None:

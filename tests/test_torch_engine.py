@@ -190,7 +190,7 @@ def test_eos_stops_a_request(model):
 
 def test_engine_refuses_what_is_not_ported(model):
     _, cfg, _, params = model
-    for kw in (dict(prefix_cache=True), dict(mesh=object()),
+    for kw in (dict(mesh=object()),
                dict(lib=object()), dict(fused_prefill=False),
                dict(record_trace=True), dict(compressed_collectives=True)):
         with pytest.raises(NotImplementedError):

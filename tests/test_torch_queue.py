@@ -244,7 +244,7 @@ def test_block_reservation_and_fused_commits_match_jax():
 
 def test_cache_refuses_what_is_not_ported():
     cfg = reduced(ARCHS["granite-3-8b"], num_layers=2)
-    for kw in (dict(prefix_cache=True), dict(record_trace=True),
-               dict(zero_scan=True)):
+    for kw in (dict(record_trace=True), dict(mesh=object()),
+               dict(state_slots=4)):
         with pytest.raises(NotImplementedError):
             PagedKVCache(cfg, device="cpu", **kw)
