@@ -10,11 +10,15 @@ The port's counterpart of the JAX face of the JAX package's
 * ``page_and`` / ``page_or`` / ``page_not`` — Ambit bulk bitwise ops
   (``dst <- src OP dst``, ``dst <- ~src``), one launch per arena per
   kind for the whole pending batch;
-* ``kv_write`` — token KV slot writes, one scatter launch per arena.
+* ``kv_write`` — token KV slot writes, one scatter launch per arena;
+* ``ssm_state_write`` — SSM recurrent-state row writes.  The state lives
+  in a state arena of its own, not in the (k, v) pair a generic queue
+  flushes, so the default executor refuses; a serving cache's
+  ``PagedStateArena`` rebinds the kind (and its ``state_copy`` /
+  ``state_init`` siblings) with ``queue.register_kind``.
 
 A flush executor is ``(queue, arenas, ops) -> arenas``: it updates the
-arenas in place and counts its launches on the queue.  The SSM-state
-kinds come with their slice.
+arenas in place and counts its launches on the queue.
 """
 
 from __future__ import annotations
@@ -43,6 +47,29 @@ class KVWriteBatch:
     @property
     def n(self) -> int:
         return len(self.pages)
+
+
+@dataclass
+class StateWriteBatch:
+    """Pending SSM recurrent-state writes: full-depth conv window and SSD
+    state for a batch of sequences, stacked as (groups,
+    mamba_sublayers, batch, ...) so enqueue and flush do O(1) host work
+    in the batch size."""
+
+    rows: List[int]      # state-arena rows, one per batch entry
+    conv: torch.Tensor   # (G, M, B, conv_width - 1, channels)
+    ssm: torch.Tensor    # (G, M, B, nheads, head_dim, state_dim)
+
+    @property
+    def n(self) -> int:
+        return len(self.rows)
+
+
+def _flush_ssm_state_write(q, arenas, ops: List[StateWriteBatch]):
+    """Registry default: refuse, since no state arena is bound."""
+    raise RuntimeError(
+        "ssm_state_write ops were enqueued on a queue with no bound "
+        "state arena; rebind the kind via queue.register_kind(...)")
 
 
 def _flush_page_copy(q, arenas, ops):
@@ -135,4 +162,5 @@ QUEUE_KINDS: Dict[str, Callable] = {
     "page_or": _make_flush_bitwise("or", "page_or"),
     "page_not": _make_flush_bitwise("not", "page_not"),
     "kv_write": _flush_kv_write,
+    "ssm_state_write": _flush_ssm_state_write,
 }

@@ -11,13 +11,17 @@ size.
 
 Flush order is fixed: ``page_copy`` first (CoW sources are duplicated
 before anything overwrites them), then ``page_init``, the Ambit kinds
-``page_and``, ``page_or`` and ``page_not``, then ``kv_write``.  Within a
+``page_and``, ``page_or`` and ``page_not``, then ``kv_write``, then
+kinds registered later (the SSM state arena's ``ssm_state_write``,
+``state_copy`` and ``state_init``) in registration order.  Within a
 kind, ops keep enqueue order, and duplicate destinations resolve to the
 last op enqueued.
 
 :meth:`PimOpQueue.admit` keeps program order for deferred clients:
 enqueueing an op whose kind differs from the backlog's, or that touches
-a row a pending op wrote or will write, flushes the backlog first.  A
+a row a pending op wrote or will write, flushes the backlog first.
+Rows are any hashable id: KV pages are ints, and the state arena's rows
+are ``("state", slot)`` tuples, which never collide with a page id.  A
 batch of copies reads the pre-flush arena (the copy kernel stages its
 sources when a destination is also a source), so several copies from
 one source still coalesce.
@@ -32,7 +36,7 @@ engine's fused decode round and fused prefill batch) is recorded with
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Set, Tuple
+from typing import Callable, Dict, Hashable, Iterable, Optional, Set, Tuple
 
 import torch
 
@@ -68,7 +72,7 @@ class PimOpQueue:
         # at most one lib drives a queue (TorchLib claims it)
         self.owner = None
         # hazard tracking for deferred clients (see admit())
-        self._hazard_rows: Set[int] = set()
+        self._hazard_rows: Set[Hashable] = set()
         self._hazard_kind: Optional[str] = None
         for kind, fn in QUEUE_KINDS.items():
             self.register_kind(kind, fn)
@@ -105,9 +109,9 @@ class PimOpQueue:
 
     # -- hazard-aware deferred admission --------------------------------- #
 
-    def admit(self, kind: str, rows: Iterable[int],
+    def admit(self, kind: str, rows: Iterable[Hashable],
               flush: Callable[[], None], *,
-              reads: Iterable[int] = ()) -> bool:
+              reads: Iterable[Hashable] = ()) -> bool:
         """Admit ops of ``kind`` writing ``rows`` (and reading ``reads``)
         for deferred enqueue: call ``flush`` first exactly when the
         backlog holds another kind or a pending op wrote one of these

@@ -26,6 +26,7 @@ LAUNCHES: Dict[str, int] = {
     "page_bitwise_batched": 0,
     "page_not_batched": 0,
     "page_zero_scan": 0,
+    "state_scatter": 0,
 }
 
 

@@ -28,7 +28,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("rowclone", "paged_attention", "flash_attention", "drange",
-           "ambit")
+           "ambit", "ssm_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -59,6 +59,9 @@ SIGNATURES = {
     "ambit": {
         "am_bitwise_rows": [_P, _P, _L, _P, _P, _L, _I, _I, _L, _I, _P],
         "am_zero_scan": [_P, _P, _L, _I, _I, _L, _P, _P],
+    },
+    "ssm_scan": {
+        "ss_state_scatter": [_P, _P, _P, _I, _I, _L, _L, _P],
     },
 }
 

@@ -10,10 +10,13 @@ the same flags plus ``--device`` (default: the CUDA card).  With
 ``--share-prefix`` the engine runs the radix prefix cache: request 0's
 prompt is served and committed first, then the rest are submitted with
 no sharing arguments, and the second half (request 0's prompt with a
-fresh 4-token tail) attach its full pages automatically.  The command
-line serves the reduced model of ``--arch`` with weights drawn from a
-seeded generator, its requests sampled at the default temperature of
-1.0 as the JAX script's are; :func:`serve` is the reusable body, which
+fresh 4-token tail) attach its full pages automatically (a family
+with Mamba layers declines the hits).  The command line serves the
+reduced model of ``--arch`` (dense, ssm, hybrid or moe, e.g.
+``mamba2-1.3b`` or ``jamba-1.5-large-398b``) with weights drawn from a
+seeded generator, its prompts prefilled whole and its requests
+sampled at the default temperature of 1.0, as the JAX script's are;
+:func:`serve` is the reusable body, which
 callers give any config, parameters and engine settings
 (``chip_smoke.py`` gives it granite-3-8b at full width).  The open-loop
 entry point with the async front door is

@@ -64,6 +64,15 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 # ----------------------------- MLP ------------------------------------ #
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * logistic(x)``, the logistic evaluated as
+    ``1 / (1 + exp(-x))`` one operation at a time in ``x``'s dtype, as
+    XLA evaluates it (on a bf16 input each step rounds to bf16, which
+    ``F.silu``'s single rounding does not reproduce)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+
 def mlp_defs(d: int, ff: int, activation: str) -> Dict[str, ParamDef]:
     defs = {
         "up": ParamDef((d, ff), ("embed", "ff")),
@@ -81,7 +90,7 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     if activation in ("swiglu", "geglu"):
         gate = x @ cast(p["gate"])
         # jax.nn.gelu defaults to the tanh approximation
-        act = (F.silu(gate) if activation == "swiglu"
+        act = (silu(gate) if activation == "swiglu"
                else F.gelu(gate, approximate="tanh"))
         h = act * up
     else:

@@ -68,9 +68,34 @@ KV (after its prefill batch, or when its last chunk lands), and cold
 prefixes evict LRU when the arena runs out.  The eviction inits are
 only enqueued and land before the next step reads the arenas.
 
+Hybrid layouts: the engine serves every single-group decoder of the
+zoo without MLA: dense GQA, pure SSM (mamba2), hybrid attention + Mamba
++ MoE (jamba) and MoE (llama4-scout), with per-sublayer-kind dispatch
+in one loop (:func:`_run_kinds`):
+
+* attention sublayers keep the paged KV arenas as above (a pure-SSM
+  model keeps a phantom full-depth KV pair whose pages are allocated
+  and zeroed as the JAX package's are, and writes no KV);
+* Mamba sublayers carry per-sequence recurrent state in the cache's
+  :class:`~repro_torch.serving.kv_cache.PagedStateArena`: each gathers
+  its rows of the batch, runs, and keeps its new state; after the
+  forward, ONE ``state_scatter`` launch per arena (conv window, SSD
+  state) writes the whole depth for the batch's unique real rows.  A
+  mixed round scatters its chunk half's state before the decode half
+  gathers, and a K-block's dead row writes its old state back;
+* MoE sublayers route through the exact dense MoE (every token through
+  every expert), as a host-local JAX engine does;
+* the eager oracle writes its round's state through the op queue's
+  ``ssm_state_write`` kind (one flush, ``state_scatter`` per arena).
+
+Chunked prefill over Mamba layers splits prompts at multiples of
+``cfg.ssm.chunk_size`` (the SSD chunk scan regroups exactly only
+there), so ``max_prefill_chunk`` must be one.
+
 Not in this slice (the constructor raises): caller-supplied libs, trace
-recording, device meshes, the eager prefill oracle, and the
-ssm/hybrid/moe families.
+recording, device meshes, the eager prefill oracle, MLA attention and
+multi-group layouts (the last two with ``ValueError``, as the JAX
+package raises).
 """
 
 from __future__ import annotations
@@ -88,11 +113,14 @@ from repro_torch.kernels.drange import ops as dr_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.rowclone import ops as rc_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (apply_rope, cast, embed, logits_out,
                                        mlp, rmsnorm, rope_sincos)
 from repro_torch.models.params import tree_leaves, tree_map
-from .kv_cache import PagedKVCache, _bucket_pow2
+from .kv_cache import PagedKVCache, PagedStateArena, _bucket_pow2
 
 MASK32 = 0xFFFFFFFF
 Seed = Tuple[int, int]
@@ -134,7 +162,8 @@ class _ChunkPrefill:
 
 
 class PagedEngine:
-    """Single-device engine for dense GQA decoders (the paged path)."""
+    """Single-device engine for GQA, SSM, hybrid and MoE decoders (the
+    paged path)."""
 
     def __init__(self, cfg: ModelConfig, params, *, page_size: int = 16,
                  num_pages: int = 256, pcfg: Optional[ParallelConfig] = None,
@@ -145,9 +174,26 @@ class PagedEngine:
                  lib=None, record_trace: bool = False, mesh=None,
                  compressed_collectives: bool = False,
                  prefix_cache: bool = False):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: only dense decoders are ported")
+                f"family {cfg.family!r} is not ported (dense, ssm, hybrid "
+                "and moe are)")
+        if cfg.mla is not None:
+            raise ValueError(
+                "paged engine: MLA latent-KV attention is not paged — "
+                "deepseek-style archs serve through the dense path")
+        if len(T.layer_groups(cfg)) != 1:
+            raise ValueError(
+                "paged engine: single-group layouts only (leading dense "
+                "layers split the layer loop; set first_dense_layers=0)")
+        kinds = T.layer_groups(cfg)[0][1]
+        self._has_attn = "attn" in kinds
+        self._has_ssm = "mamba" in kinds
+        self._has_moe = "moe" in kinds
+        if mesh is not None and (self._has_ssm or self._has_moe):
+            raise ValueError(
+                "paged engine: mesh= serving is dense-only (SSM state "
+                "arenas and MoE routing are host-local)")
         for name, on in (("fused_prefill=False", not fused_prefill),
                          ("lib", lib is not None),
                          ("record_trace", record_trace),
@@ -159,6 +205,8 @@ class PagedEngine:
         if max_prefill_chunk is not None and max_prefill_chunk < 1:
             raise ValueError("max_prefill_chunk must be >= 1 (or None to "
                              "disable chunked prefill)")
+        if max_prefill_chunk is not None:
+            self._check_chunk_alignment(cfg, max_prefill_chunk)
         if decode_block_rounds < 1:
             raise ValueError("decode_block_rounds must be >= 1")
         if decode_block_rounds > 1 and not fused:
@@ -199,6 +247,8 @@ class PagedEngine:
                       "multi_round_blocks": 0, "mixed_dispatches": 0,
                       "prefix_hits": 0, "prefix_hit_tokens": 0,
                       "prefix_evictions": 0,
+                      "state_pages": 0, "state_forks": 0,
+                      "prefix_declined_ssm": 0,
                       # host seconds of the prefill steps (a mixed round
                       # counts here) and of the decode rounds and blocks;
                       # each ends in its device-to-host token transfer,
@@ -232,7 +282,18 @@ class PagedEngine:
                 "(max_prefill_chunk=None)")
         if n < 1:
             raise ValueError("max_prefill_chunk must be >= 1")
+        self._check_chunk_alignment(self.cfg, n)
         self.max_prefill_chunk = int(n)
+
+    def _check_chunk_alignment(self, cfg: ModelConfig, n: int) -> None:
+        """Mamba layers need chunks at multiples of the SSD chunk size:
+        the chunk scan regroups exactly only at its boundaries."""
+        if self._has_ssm and n % cfg.ssm.chunk_size != 0:
+            raise ValueError(
+                f"max_prefill_chunk={n} must be a multiple of "
+                f"cfg.ssm.chunk_size={cfg.ssm.chunk_size}: the SSD chunk "
+                "scan only regroups exactly when prompts split at "
+                "chunk-size boundaries")
 
     def step(self) -> Dict[int, List[int]]:
         """Run one engine round (bounded prefill + the round's decode);
@@ -289,8 +350,9 @@ class PagedEngine:
         return results
 
     def _finish_done(self, results: Dict[int, List[int]]) -> None:
-        # mirror the cache's prefix counters
-        for key in ("prefix_hits", "prefix_hit_tokens", "prefix_evictions"):
+        # mirror the cache's prefix and state counters
+        for key in ("prefix_hits", "prefix_hit_tokens", "prefix_evictions",
+                    "state_pages", "state_forks", "prefix_declined_ssm"):
             self.stats[key] = self.cache.stats[key]
         for rid in list(self.active):
             r = self.active[rid]
@@ -371,7 +433,7 @@ class PagedEngine:
         logits = _fused_prefill_step(
             self.cfg, self.pcfg, self.params, self._tensor(toks),
             self._tensor(lens), self.cache.k_arena, self.cache.v_arena,
-            scatter)
+            scatter, self._state_round([reqs[i].req_id for i in idx], B))
         self.cache.commit_fused_prefill()
         tokens = self._sample(logits, [reqs[i].temperature for i in idx])
         toks_np = tokens[:B].cpu().numpy()    # the batch's one transfer
@@ -389,7 +451,11 @@ class PagedEngine:
         flat index ``row * sp + pos - first`` of the forward's K/V
         (``first``: the position of the forward's first token).  Pad
         entries duplicate entry 0 (identical writes, a no-op).  Returns
-        (pages, slots, src), or ``None`` when the batch writes nothing."""
+        (pages, slots, src), or ``None`` when the batch writes nothing
+        (every position shared, or no attention sublayer: a pure-SSM
+        model writes no KV)."""
+        if not self._has_attn:
+            return None
         pages: List[int] = []
         slots: List[int] = []
         src: List[int] = []
@@ -518,14 +584,15 @@ class PagedEngine:
         return {"toks": self._tensor(toks), "lens": self._tensor(lens),
                 "offs": self._tensor(offs), "bt": bt, "plens": plens,
                 "scatter": self._scatter_plan(plan, sc, Bp),
-                "temps": temps}
+                "temps": temps, "rids": rids, "n": B}
 
     def _chunk_forward(self, c: dict) -> torch.Tensor:
-        """The chunk half of a step: forward + chunk scatter, logits."""
+        """The chunk half of a step: forward, then the chunk's KV and
+        state scatters; returns the logits."""
         return _fused_chunk_prefill_step(
             self.cfg, self.pcfg, self.params, c["toks"], c["lens"],
             c["offs"], self.cache.k_arena, self.cache.v_arena, c["bt"],
-            c["plens"], c["scatter"])
+            c["plens"], c["scatter"], self._state_round(c["rids"], c["n"]))
 
     def _finish_chunks(self, batch: List[tuple],
                        tokens: torch.Tensor) -> List[_ChunkPrefill]:
@@ -615,9 +682,13 @@ class PagedEngine:
         c_tokens = self._sample(c_logits, c["temps"])
         last = torch.where(d_from_t >= 0, c_tokens[d_from_t.clamp(min=0)],
                            d_last_t)
+        # the chunk half's state scatter is enqueued before the decode
+        # half gathers: a prompt finishing in this chunk decodes from its
+        # own new state
         d_logits = _fused_decode_step(
-            self.cfg, self.params, last[:, None], self.cache.k_arena,
-            self.cache.v_arena, d_bt, d_lens, d_pages, d_slots)
+            self.cfg, self.pcfg, self.params, last[:, None],
+            self.cache.k_arena, self.cache.v_arena, d_bt, d_lens, d_pages,
+            d_slots, self._state_round(prids, B))
         d_tokens = self._sample(d_logits, d_temps)
         self.cache.commit_fused_prefill(kind=None)
         self.cache.commit_fused_round(d_rids, kind=None)
@@ -650,6 +721,16 @@ class PagedEngine:
                 self.cache.ensure_writable_tail(self.cache.seqs[r])
                 self._reserved_tails.add(r)
 
+    def _state_round(self, rids_padded: List[int], n: int,
+                     ) -> Optional["_StateRound"]:
+        """The Mamba state operands of a forward over a (padded) row
+        list whose first ``n`` rows are its unique real rows; ``None``
+        without a state arena."""
+        if not self._has_ssm:
+            return None
+        st = self.cache.state
+        return _StateRound(st, self._tensor(st.rows_for(rids_padded)), n)
+
     def _decode_round(self) -> None:
         if not self.active:
             return
@@ -681,9 +762,10 @@ class PagedEngine:
         slots = [s.length % self.cache.page_size for s in seqs]
         bt, lens = self.cache.block_table(prids)
         logits = _fused_decode_step(
-            self.cfg, self.params, self._tensor(last), self.cache.k_arena,
-            self.cache.v_arena, bt, lens, self._tensor(pages),
-            self._tensor(slots))
+            self.cfg, self.pcfg, self.params, self._tensor(last),
+            self.cache.k_arena, self.cache.v_arena, bt, lens,
+            self._tensor(pages), self._tensor(slots),
+            self._state_round(prids, B))
         tokens = self._sample(logits,
                               [self.active[r].temperature for r in prids])
         self.cache.commit_fused_round(rids)
@@ -745,12 +827,18 @@ class PagedEngine:
         self.rng_ctr += K
         seeds = [self._seed(self.rng_ctr - K + 1 + t)
                  for t in range(max(steps))]
+        state_of = None
+        if self._has_ssm:
+            srows = self._tensor(
+                self.cache.state.rows_for([rids[i] for i in idx]))
+            state_of = (lambda alive: _StateRound(self.cache.state, srows, B,
+                                                  alive))
         tokens = _fused_block_step(
-            self.cfg, self.params, self._tensor(last),
+            self.cfg, self.pcfg, self.params, self._tensor(last),
             self._tensor(steps_arr), self.cache.k_arena, self.cache.v_arena,
             bt, lens, self._tensor(pages), self._tensor(slots),
             self._tensor(eos), seeds, temps, self._tensor(idx, torch.long),
-            self._choose)
+            self._choose, state_of)
         toks_np = tokens[:B].cpu().numpy()    # the block's one transfer
         counts = []
         for i, r in enumerate(rids):
@@ -774,17 +862,28 @@ class PagedEngine:
 
     def _decode_round_eager(self, rids: List[int]) -> np.ndarray:
         """The oracle: the same forward, with the round's KV written
-        through the op queue (one ``kv_write`` flush) instead of inside
-        the step, and one paged-attention launch per layer accounted as
-        the JAX package accounts it."""
+        through the op queue (one ``kv_write`` flush) and its state
+        through the ``ssm_state_write`` kind (one flush) instead of
+        inside the step, and one launch per attention and per Mamba
+        layer accounted as the JAX package accounts them."""
         last = self._tensor([[self.active[r].out_tokens[-1]] for r in rids])
         bt, lens = self.cache.block_table(rids)
+        state = self._state_round(rids, len(rids))
         logits, k_new, v_new = _decode_forward(
-            self.cfg, self.params, last, self.cache.k_arena,
-            self.cache.v_arena, bt, lens)
-        self.cache.queue.count_external("eager_attn_layer",
-                                        self.cache.n_layers)
-        self.cache.write_token_kv_batch(rids, k_new, v_new)
+            self.cfg, self.pcfg, self.params, last, self.cache.k_arena,
+            self.cache.v_arena, bt, lens, state)
+        if self._has_attn:
+            self.cache.queue.count_external("eager_attn_layer",
+                                            self.cache.n_layers)
+            self.cache.write_token_kv_batch(rids, k_new, v_new)
+        else:
+            # a pure-SSM round writes no KV; the lengths still advance
+            for r in rids:
+                self.cache.seqs[r].length += 1
+        if self._has_ssm:
+            G, M = state.new_conv.shape[:2]
+            self.cache.queue.count_external("eager_ssm_layer", G * M)
+            self.cache.state.write(rids, state.new_conv, state.new_ssm)
         tokens = self._sample(logits,
                               [self.active[r].temperature for r in rids])
         return tokens.cpu().numpy()
@@ -860,26 +959,110 @@ def _sublayer(cfg: ModelConfig, kind: str, sp, x: torch.Tensor,
     return x + out, (k, v)
 
 
+class _StateRound:
+    """One forward's Mamba state traffic.  Each Mamba sublayer gathers
+    its rows of the batch (``rows``: the padded batch's state rows, on
+    the device) from the arenas, runs, and keeps the new state of the
+    batch's first ``n`` rows (its unique real rows; pad rows duplicate
+    row 0) in (G, M, n, ...) buffers.  :meth:`scatter` then writes the
+    whole depth with ONE ``state_scatter`` launch per arena.  That is
+    the JAX package's in-scan row set: each sublayer reads its rows
+    once, before anything writes them.  ``alive`` (a K-block's row
+    mask) makes a dead row keep its old state, as its KV slot does."""
+
+    def __init__(self, arena: PagedStateArena, rows: torch.Tensor, n: int,
+                 alive: Optional[torch.Tensor] = None) -> None:
+        self.conv, self.ssm = arena.conv, arena.ssm
+        self.rows = rows
+        self.idx = rows.long()
+        self.n = n
+        self.alive = alive
+        G, M = self.conv.shape[:2]
+        dev = self.conv.device
+        self.new_conv = torch.empty((G, M, n) + tuple(self.conv.shape[3:]),
+                                    dtype=self.conv.dtype, device=dev)
+        self.new_ssm = torch.empty((G, M, n) + tuple(self.ssm.shape[3:]),
+                                   dtype=self.ssm.dtype, device=dev)
+
+    def run(self, cfg: ModelConfig, pcfg: ParallelConfig, li: int, j: int,
+            p, h: torch.Tensor, lens: Optional[torch.Tensor]):
+        """Mamba sublayer ``j`` of layer ``li`` on the normed input
+        ``h``: decode one token (``lens`` None) or the length-masked
+        prefill from the rows' state.  Returns the sublayer's output."""
+        conv_j = self.conv[li, j][self.idx]
+        ssm_j = self.ssm[li, j][self.idx]
+        if lens is None:
+            out, (nc, ns) = ssm_mod.ssm_layer(cfg, pcfg, p, h, mode="decode",
+                                              cache=(conv_j, ssm_j))
+        else:
+            out, (nc, ns) = ssm_mod.ssm_layer_paged(
+                cfg, pcfg, p, h, lengths=lens, conv_state=conv_j,
+                ssm_state=ssm_j)
+        nc = nc.to(self.conv.dtype)
+        ns = ns.to(self.ssm.dtype)
+        if self.alive is not None:
+            nc = torch.where(self.alive[:, None, None], nc, conv_j)
+            ns = torch.where(self.alive[:, None, None, None], ns, ssm_j)
+        self.new_conv[li, j] = nc[:self.n]
+        self.new_ssm[li, j] = ns[:self.n]
+        return out
+
+    def scatter(self) -> None:
+        """Write the whole depth's new rows: one launch per arena."""
+        rows = self.rows[:self.n]
+        ssm_ops.state_scatter_inline(self.conv, rows, self.new_conv)
+        ssm_ops.state_scatter_inline(self.ssm, rows, self.new_ssm)
+
+
+def _depth(cfg: ModelConfig) -> int:
+    """Length of the layer loop (the stacked ``group0`` dim)."""
+    return T.layer_groups(cfg)[0][0]
+
+
 def _run_kinds(cfg: ModelConfig, p_layer, x: torch.Tensor, sin, cos,
-               attend: Callable):
-    """One layer's sublayer sequence (attn, mlp).  Returns (x, the attn
-    sublayer's (k, v))."""
+               attend: Callable, state: Optional[_StateRound] = None,
+               li: int = 0, lens: Optional[torch.Tensor] = None,
+               pcfg: Optional[ParallelConfig] = None):
+    """Layer ``li``'s sublayer sequence: the per-kind dispatch every
+    forward follows.  ``attn``/``mlp`` run :func:`_sublayer`; ``mamba``
+    runs through ``state`` (decode when ``lens`` is None, else the
+    length-masked prefill); ``moe`` through the dense MoE (its router
+    aux loss is a training term and is dropped).  Returns (x, the attn
+    sublayer's (k, v) | None)."""
     kv_out = None
+    j = 0
     for i, kind in enumerate(T.layer_groups(cfg)[0][1]):
-        x, kv = _sublayer(cfg, kind, p_layer[f"{i}_{kind}"], x, sin, cos,
-                          attend)
-        if kv is not None:
-            kv_out = kv
+        sp = p_layer[f"{i}_{kind}"]
+        if kind == "mamba":
+            h = rmsnorm(x, sp["norm"], cfg.norm_eps)
+            x = x + state.run(cfg, pcfg, li, j, sp["ssm"], h, lens)
+            j += 1
+        elif kind == "moe":
+            h = rmsnorm(x, sp["norm"], cfg.norm_eps)
+            out, _aux = moe_mod.moe_layer(cfg, pcfg, sp["moe"], h)
+            x = x + out
+        else:
+            x, kv = _sublayer(cfg, kind, sp, x, sin, cos, attend)
+            if kv is not None:
+                kv_out = kv
     return x, kv_out
 
 
+def _stack(ts: List[torch.Tensor]) -> Optional[torch.Tensor]:
+    return torch.stack(ts) if ts else None
+
+
 def _prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
-                     toks: torch.Tensor, lens: torch.Tensor):
+                     toks: torch.Tensor, lens: torch.Tensor,
+                     state: Optional[_StateRound] = None):
     """Batched prefill forward over a length-padded prompt batch, with
-    causal + per-sequence-length masked flash attention.
+    causal + per-sequence-length masked flash attention; Mamba
+    sublayers run the length-masked scan from the rows' state (zero for
+    a fresh sequence).
 
     toks: (B, S) int32; lens: (B,) valid lengths (>= 1).  Returns
-    (last-real-token logits (B, V), k_all, v_all (L, B, S, kvh, hd))."""
+    (last-real-token logits (B, V), k_all, v_all (L, B, S, kvh, hd), or
+    ``None`` without attention)."""
     hd = cfg.resolved_head_dim
     B, S = toks.shape
     x = embed(params["embed"], toks, cfg)
@@ -896,15 +1079,17 @@ def _prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
 
     gparams = params["group0"]
     ks, vs = [], []
-    for li in range(cfg.num_layers):
-        x, (k, v) = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend)
-        ks.append(k)
-        vs.append(v)
+    for li in range(_depth(cfg)):
+        x, kv = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend,
+                           state, li, lens, pcfg)
+        if kv is not None:
+            ks.append(kv[0])
+            vs.append(kv[1])
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     # each row's last real token (pad rows mirror row 0, lens >= 1)
     x_last = x[torch.arange(B, device=x.device), lens.long() - 1][:, None]
     logits = logits_out(params["embed"], x_last, cfg, fp32=pcfg.logits_fp32)
-    return logits[:, 0], torch.stack(ks), torch.stack(vs)
+    return logits[:, 0], _stack(ks), _stack(vs)
 
 
 def _scatter_kv(k_arena, v_arena, k_all, v_all, scatter) -> None:
@@ -923,26 +1108,34 @@ def _scatter_kv(k_arena, v_arena, k_all, v_all, scatter) -> None:
 
 
 def _fused_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, params,
-                        toks, lens, k_arena, v_arena,
-                        scatter) -> torch.Tensor:
-    """Masked prefill forward + KV scatter of the whole batch (see
-    :func:`_scatter_kv`).  Returns the last-token logits (B, V)."""
-    logits, k_all, v_all = _prefill_forward(cfg, pcfg, params, toks, lens)
+                        toks, lens, k_arena, v_arena, scatter,
+                        state: Optional[_StateRound] = None
+                        ) -> torch.Tensor:
+    """Masked prefill forward, then the batch's KV scatter (see
+    :func:`_scatter_kv`) and its state scatter.  Returns the last-token
+    logits (B, V)."""
+    logits, k_all, v_all = _prefill_forward(cfg, pcfg, params, toks, lens,
+                                            state)
     _scatter_kv(k_arena, v_arena, k_all, v_all, scatter)
+    if state is not None:
+        state.scatter()
     return logits
 
 
 def _chunk_prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
-                           toks, lens, offs, k_arena, v_arena, bt, plens):
+                           toks, lens, offs, k_arena, v_arena, bt, plens,
+                           state: Optional[_StateRound] = None):
     """Batched forward over one prefill chunk per row, with prefix-KV
     flash attention: each row's queries attend causally over the chunk
     and in full over the row's committed arena KV, gathered through its
-    block table and masked at ``plens[b]``.
+    block table and masked at ``plens[b]``.  Mamba sublayers continue
+    from the rows' committed state.
 
     toks: (B, S) int32 chunk tokens; lens: (B,) valid chunk lengths
     (>= 1); offs: (B,) position of each chunk's first token (RoPE); bt:
     (B, W) block tables; plens: (B,) committed prefix lengths.  Returns
-    (last-real-token logits (B, V), k_all, v_all (L, B, S, kvh, hd))."""
+    (last-real-token logits (B, V), k_all, v_all (L, B, S, kvh, hd) or
+    ``None``)."""
     hd = cfg.resolved_head_dim
     B, S = toks.shape
     ps = k_arena.shape[2]
@@ -954,7 +1147,7 @@ def _chunk_prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
     btl = bt.long()
     gparams = params["group0"]
     ks, vs = [], []
-    for li in range(cfg.num_layers):
+    for li in range(_depth(cfg)):
         k_l, v_l = k_arena[li], v_arena[li]
 
         def attend(q, k, v, k_l=k_l, v_l=v_l):
@@ -968,39 +1161,51 @@ def _chunk_prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
                                  prefix_lengths=plens)
             return o.transpose(1, 2)
 
-        x, (k, v) = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend)
-        ks.append(k)
-        vs.append(v)
+        x, kv = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend,
+                           state, li, lens, pcfg)
+        if kv is not None:
+            ks.append(kv[0])
+            vs.append(kv[1])
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     x_last = x[torch.arange(B, device=x.device), lens.long() - 1][:, None]
     logits = logits_out(params["embed"], x_last, cfg, fp32=pcfg.logits_fp32)
-    return logits[:, 0], torch.stack(ks), torch.stack(vs)
+    return logits[:, 0], _stack(ks), _stack(vs)
 
 
 def _fused_chunk_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
                               params, toks, lens, offs, k_arena, v_arena,
-                              bt, plens, scatter) -> torch.Tensor:
-    """Chunk forward + chunk KV scatter; the scatter runs after every
-    layer's prefix gather has read the arena.  Returns the logits."""
+                              bt, plens, scatter,
+                              state: Optional[_StateRound] = None
+                              ) -> torch.Tensor:
+    """Chunk forward, then the chunk's KV and state scatters (after
+    every layer's prefix gather has read the arena).  Returns the
+    logits."""
     logits, k_all, v_all = _chunk_prefill_forward(
-        cfg, pcfg, params, toks, lens, offs, k_arena, v_arena, bt, plens)
+        cfg, pcfg, params, toks, lens, offs, k_arena, v_arena, bt, plens,
+        state)
     _scatter_kv(k_arena, v_arena, k_all, v_all, scatter)
+    if state is not None:
+        state.scatter()
     return logits
 
 
-def _decode_forward(cfg: ModelConfig, params, tokens: torch.Tensor,
-                    k_arena: torch.Tensor, v_arena: torch.Tensor,
-                    block_tables: torch.Tensor, lengths: torch.Tensor):
-    """Decoder forward for one token per sequence against the arena: the
-    paged-attention kernel per layer, the current token's K/V merged
-    in-kernel.  Returns (logits (B, V), k_new, v_new (L, B, kvh, hd))."""
+def _decode_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
+                    tokens: torch.Tensor, k_arena: torch.Tensor,
+                    v_arena: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor,
+                    state: Optional[_StateRound] = None):
+    """Decoder forward for one token per sequence against the arenas:
+    the paged-attention kernel per attention sublayer, the current
+    token's K/V merged in-kernel; Mamba sublayers step their rows'
+    state (kept in ``state`` until its scatter).  Returns (logits (B,
+    V), k_new, v_new (L, B, kvh, hd) or ``None`` without attention)."""
     hd = cfg.resolved_head_dim
     x = embed(params["embed"], tokens, cfg)
     positions = lengths[:, None]            # the token's position == length
     sin, cos = rope_sincos(positions, hd, cfg.rope_theta)
     gparams = params["group0"]
     ks, vs = [], []
-    for li in range(cfg.num_layers):
+    for li in range(_depth(cfg)):
         k_l, v_l = k_arena[li], v_arena[li]
 
         def attend(q, k, v, k_l=k_l, v_l=v_l):
@@ -1009,37 +1214,47 @@ def _decode_forward(cfg: ModelConfig, params, tokens: torch.Tensor,
                 sm_scale=hd ** -0.5, k_self=k[:, 0], v_self=v[:, 0])
             return o[:, None]
 
-        x, (k, v) = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend)
-        ks.append(k[:, 0])
-        vs.append(v[:, 0])
+        x, kv = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend,
+                           state, li, pcfg=pcfg)
+        if kv is not None:
+            ks.append(kv[0][:, 0])
+            vs.append(kv[1][:, 0])
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_out(params["embed"], x, cfg)
-    return logits[:, 0], torch.stack(ks), torch.stack(vs)
+    return logits[:, 0], _stack(ks), _stack(vs)
 
 
-def _fused_decode_step(cfg: ModelConfig, params, last, k_arena, v_arena,
-                       bt, lens, pages, slots) -> torch.Tensor:
-    """Decode forward + the round's KV scatter (one kernel launch per
-    arena covering every layer), arenas updated in place.  Returns the
+def _fused_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, params, last,
+                       k_arena, v_arena, bt, lens, pages, slots,
+                       state: Optional[_StateRound] = None) -> torch.Tensor:
+    """Decode forward, then the round's KV scatter and state scatter
+    (one kernel launch per arena each, covering every layer), arenas
+    updated in place.  A pure-SSM round writes no KV.  Returns the
     logits (B, V)."""
-    logits, k_new, v_new = _decode_forward(cfg, params, last, k_arena,
-                                           v_arena, bt, lens)
-    rc_ops.kv_scatter_inline(k_arena, pages, slots, k_new)
-    rc_ops.kv_scatter_inline(v_arena, pages, slots, v_new)
+    logits, k_new, v_new = _decode_forward(cfg, pcfg, params, last, k_arena,
+                                           v_arena, bt, lens, state)
+    if k_new is not None:
+        rc_ops.kv_scatter_inline(k_arena, pages, slots, k_new)
+        rc_ops.kv_scatter_inline(v_arena, pages, slots, v_new)
+    if state is not None:
+        state.scatter()
     return logits
 
 
-def _fused_block_step(cfg: ModelConfig, params, last, steps, k_arena,
-                      v_arena, bt, lens, pages, slots, eos, seeds, temps,
-                      rowmap, choose: Callable) -> torch.Tensor:
+def _fused_block_step(cfg: ModelConfig, pcfg: ParallelConfig, params, last,
+                      steps, k_arena, v_arena, bt, lens, pages, slots, eos,
+                      seeds, temps, rowmap, choose: Callable,
+                      state_of: Optional[Callable] = None) -> torch.Tensor:
     """Up to K decode rounds with one host transfer at the end: a Python
     loop over ``len(seeds)`` rounds (the block's longest row) whose
     carry — lengths, last tokens, the alive mask, the (B, K) token
     buffer — stays on the device, so the host never waits inside the
     block.  Round ``t``: forward at the carried lengths, a masked KV
     scatter (a stopped row writes its slot's current value back, so the
-    arena stays bit-identical to round-at-a-time decoding), token choice
-    at ``seeds[t]`` with ``rowmap`` folding pad rows onto row 0, then the
+    arena stays bit-identical to round-at-a-time decoding) and the
+    round's state scatter (``state_of(alive)`` gives the round's state
+    operands; a stopped row keeps its state), token choice at
+    ``seeds[t]`` with ``rowmap`` folding pad rows onto row 0, then the
     stop rule (a row stops after ``steps`` tokens or its EOS).  Tokens
     after a row stopped are -1; a row that stopped early only runs
     masked.  Returns the (B, K) tokens."""
@@ -1049,14 +1264,19 @@ def _fused_block_step(cfg: ModelConfig, params, last, steps, k_arena,
     last = last.long()
     lens = lens.clone()
     for t, seed in enumerate(seeds):
-        logits, k_new, v_new = _decode_forward(cfg, params, last[:, None],
-                                               k_arena, v_arena, bt, lens)
-        p_t, s_t = pages[:, t], slots[:, t]
-        for arena, new in ((k_arena, k_new), (v_arena, v_new)):
-            old = rc_ops.kv_gather_inline(arena, p_t, s_t)
-            val = torch.where(alive[None, :, None, None],
-                              new.to(arena.dtype), old)
-            rc_ops.kv_scatter_inline(arena, p_t, s_t, val)
+        state = state_of(alive) if state_of is not None else None
+        logits, k_new, v_new = _decode_forward(cfg, pcfg, params,
+                                               last[:, None], k_arena,
+                                               v_arena, bt, lens, state)
+        if k_new is not None:
+            p_t, s_t = pages[:, t], slots[:, t]
+            for arena, new in ((k_arena, k_new), (v_arena, v_new)):
+                old = rc_ops.kv_gather_inline(arena, p_t, s_t)
+                val = torch.where(alive[None, :, None, None],
+                                  new.to(arena.dtype), old)
+                rc_ops.kv_scatter_inline(arena, p_t, s_t, val)
+        if state is not None:
+            state.scatter()
         raw = choose(logits, temps, seed, rowmap=rowmap).long()
         toks[:, t] = torch.where(alive, raw, -1)
         lens = lens + alive.to(lens.dtype)

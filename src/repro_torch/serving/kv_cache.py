@@ -22,8 +22,15 @@ over the KV arena:
   and ``clear_prefix()`` audits that every page it freed holds zero
   bits.
 
+* **paged recurrent state** (ssm and hybrid families) — a
+  :class:`PagedStateArena` beside the KV pair holds one constant-size
+  row per sequence (its full-depth conv window and SSD state); a prefix
+  hit is declined, since recurrent state depends on every position.
+
 The arenas are (layers, pages, page_size, kvh, hd) tensors on one
-device.  Every mutation routes through a :class:`TorchLib` and its
+device; "layers" is the engine's layer loop (a hybrid superblock has
+one attention sublayer, and a pure-SSM model keeps a phantom
+full-depth pair, as the JAX package does).  Every mutation routes through a :class:`TorchLib` and its
 batched op queue, one coalesced launch per op kind; the engine's fused
 decode round, K-round decode block and fused prefill or chunk batch
 scatter their KV themselves and report it with
@@ -31,8 +38,8 @@ scatter their KV themselves and report it with
 :meth:`PagedKVCache.commit_fused_block` and
 :meth:`PagedKVCache.commit_fused_prefill`.
 
-Not in this slice (the constructor raises for them): trace recording,
-the SSM state arena and device meshes.
+Not in this slice (the constructor raises for them): trace recording
+and device meshes.
 """
 
 from __future__ import annotations
@@ -47,9 +54,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.allocator import (PimAllocError, SubarrayAllocator,
                                         arena_groups)
+from repro_torch.core.op_registry import (StateWriteBatch,
+                                          group_inits_by_value)
 from repro_torch.core.pimolib import TorchLib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ambit import ops as amb_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.models import transformer as T
 from .prefix_cache import RadixPrefixCache
 
 
@@ -61,6 +72,149 @@ class Sequence:
     shared_prefix_pages: int = 0
 
 
+class PagedStateArena:
+    """Paged recurrent state for SSM and hybrid layouts: the KV arena's
+    constant-size sibling.
+
+    A sequence's Mamba state never grows: one arena row (slot) holds its
+    full-depth conv window and SSD state for its whole life.  So there
+    is no growth (one slot at ``create``), no prefix sharing (the owning
+    cache declines prefix hits), and a fork copies the whole row at
+    once (copy-on-fork, a RowClone copy).
+
+    Mutations route through the owning cache's op queue under three
+    kinds, each flushed as one launch per arena whatever the depth or
+    batch: ``ssm_state_write`` (the eager round's state write, through
+    the ``state_scatter`` kernel), ``state_copy`` (copy-on-fork) and
+    ``state_init`` (init-on-free, so a fresh slot is zero and no request
+    sees another's state).  Hazard rows are ``("state", slot)`` tuples,
+    which never collide with KV page ids: a fork's ``state_copy`` that
+    reads a slot with a pending ``ssm_state_write`` flushes it first.
+
+    The arenas are ``(groups, mamba_sublayers, slots, ...)``: the conv
+    window in the cache dtype, the SSD state in float32 (the recurrence
+    accumulates).  The engine's fused steps write their rows in place
+    themselves; only the eager oracle writes through the queue."""
+
+    def __init__(self, cfg: ModelConfig, *, num_slots: int, queue, lib,
+                 device: torch.device,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        G, M = _mamba_layout(cfg)
+        if M == 0:
+            raise ValueError("a state arena needs a mamba sublayer")
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        nheads = d_in // s.head_dim
+        ch = d_in + 2 * s.state_dim
+        self.num_slots = num_slots
+        self.conv = torch.zeros((G, M, num_slots, s.conv_width - 1, ch),
+                                dtype=dtype, device=device)
+        self.ssm = torch.zeros((G, M, num_slots, nheads, s.head_dim,
+                                s.state_dim), dtype=torch.float32,
+                               device=device)
+        self.queue = queue
+        self.lib = lib
+        self.rows: Dict[int, int] = {}         # seq_id -> slot
+        self._free: List[int] = list(range(num_slots - 1, -1, -1))
+        queue.register_kind("ssm_state_write", self._flush_write)
+        queue.register_kind("state_copy", self._flush_copy)
+        queue.register_kind("state_init", self._flush_init)
+
+    # -- queue flush executors (arena-bound; the KV arenas pass through)
+
+    def _flush_write(self, q, arenas, ops: List[StateWriteBatch]):
+        rows = torch.tensor([r for o in ops for r in o.rows],
+                            dtype=torch.int32, device=self.ssm.device)
+        if len(ops) == 1:
+            conv, ssm = ops[0].conv, ops[0].ssm
+        else:
+            conv = torch.cat([o.conv for o in ops], dim=2)
+            ssm = torch.cat([o.ssm for o in ops], dim=2)
+        ssm_ops.state_scatter_inline(self.conv, rows, conv)
+        ssm_ops.state_scatter_inline(self.ssm, rows, ssm)
+        q._count_launch("ssm_state_write", 2)
+        return arenas
+
+    def _flush_copy(self, q, arenas, ops):
+        src = [s for s, _ in ops]
+        dst = [d for _, d in ops]
+        ssm_ops.pim_state_copy(self.conv, src, dst)
+        ssm_ops.pim_state_copy(self.ssm, src, dst)
+        q._count_launch("state_copy", 2)
+        return arenas
+
+    def _flush_init(self, q, arenas, ops):
+        for value, rows in group_inits_by_value(ops).items():
+            ssm_ops.pim_state_init(self.conv, rows, value)
+            ssm_ops.pim_state_init(self.ssm, rows, value)
+            q._count_launch("state_init", 2)
+        return arenas
+
+    # -- slot ledger ----------------------------------------------------- #
+
+    def alloc(self, seq_id: int) -> int:
+        """One slot per sequence; it is already zero (init-on-free ran
+        when its last owner died), so allocation launches nothing."""
+        if not self._free:
+            raise PimAllocError("state arena out of slots")
+        slot = self._free.pop()
+        self.rows[seq_id] = slot
+        return slot
+
+    def fork(self, src_id: int, dst_id: int) -> int:
+        """Copy-on-fork: duplicate the parent's whole row.  The copy is
+        only enqueued (the owning cache's fork flush coalesces it with
+        the KV tail copy); ``admit`` first flushes a pending write to the
+        source slot."""
+        src = self.rows[src_id]
+        dst = self.alloc(dst_id)
+        self.queue.admit("state_copy", (("state", dst),), self.lib.flush,
+                         reads=(("state", src),))
+        self.queue.enqueue("state_copy", (src, dst))
+        return dst
+
+    def free(self, seq_id: int) -> None:
+        """Release a slot; it zeroes through the queue at the caller's
+        flush (one RowClone-Init launch per arena)."""
+        slot = self.rows.pop(seq_id)
+        self.queue.admit("state_init", (("state", slot),), self.lib.flush)
+        self.queue.enqueue("state_init", (slot, 0.0))
+        self._free.append(slot)
+
+    def rows_for(self, seq_ids: Seq[int]) -> List[int]:
+        return [self.rows[sid] for sid in seq_ids]
+
+    @property
+    def rows_in_use(self) -> int:
+        return len(self.rows)
+
+    # -- mutation and read entry points ---------------------------------- #
+
+    def write(self, seq_ids: Seq[int], conv: torch.Tensor,
+              ssm: torch.Tensor, *, flush: bool = True) -> None:
+        """The eager round's write: conv/ssm are (groups, sublayers,
+        batch, ...) fresh states, one batch entry per sequence, enqueued
+        as one stacked record and flushed unless the caller defers."""
+        rows = self.rows_for(seq_ids)
+        self.queue.admit("ssm_state_write", [("state", r) for r in rows],
+                         self.lib.flush)
+        batch = StateWriteBatch(rows, conv.to(self.conv.dtype),
+                                ssm.to(self.ssm.dtype))
+        self.queue.enqueue("ssm_state_write", batch, n_ops=batch.n)
+        if flush:
+            self.lib.flush()
+
+    def gather(self, seq_ids: Seq[int]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(conv, ssm) rows of ``seq_ids``, stacked (groups, sublayers,
+        batch, ...), after the pending mutations land."""
+        self.lib.flush()
+        rows = torch.tensor(self.rows_for(seq_ids), dtype=torch.int32,
+                            device=self.ssm.device)
+        return (ssm_ops.state_gather_inline(self.conv, rows),
+                ssm_ops.state_gather_inline(self.ssm, rows))
+
+
 class PagedKVCache:
     def __init__(self, cfg: ModelConfig, *, num_pages: int = 128,
                  page_size: int = 16, num_slabs: int = 4,
@@ -70,21 +224,23 @@ class PagedKVCache:
                  prefix_cache: bool = False, zero_scan: bool = False,
                  state_slots: Optional[int] = None):
         for name, on in (("record_trace", record_trace),
-                         ("mesh", mesh is not None),
-                         ("state_slots", state_slots is not None)):
+                         ("mesh", mesh is not None)):
             if on:
                 raise NotImplementedError(
                     f"PagedKVCache({name}=...) is not ported yet")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+                or cfg.mla is not None:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only dense KV caches are ported")
+                f"family {cfg.family!r} (mla={cfg.mla is not None}): the "
+                "port's KV cache serves dense, moe, ssm and hybrid layouts "
+                "without MLA")
         if num_pages % num_slabs:
             raise ValueError("num_pages must be a multiple of num_slabs")
         self.cfg = cfg
         self.page_size = page_size
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.n_layers = cfg.num_layers
+        self.n_layers = _num_attn_layers(cfg)
         shape = (self.n_layers, num_pages, page_size, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         k0 = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -105,7 +261,9 @@ class PagedKVCache:
         self.stats = {"cow_copies": 0, "pages_zeroed": 0, "prefix_hits": 0,
                       "prefix_hit_tokens": 0, "prefix_evictions": 0,
                       "init_skips_zero": 0, "zero_audit_pages": 0,
-                      "zero_audit_failures": 0}
+                      "zero_audit_failures": 0,
+                      "state_pages": 0, "state_forks": 0,
+                      "prefix_declined_ssm": 0}
         # the Ambit zero-compare paths (off by default: the scans add
         # read-only launches); _known_zero holds pages a scan found
         # all-zero, whose init-on-free is skipped
@@ -118,6 +276,14 @@ class PagedKVCache:
             self.prefix = RadixPrefixCache(
                 page_size, retain=self._retain_page,
                 release=self._release_evicted_prefix_page)
+        # ssm and hybrid layouts: one state row per sequence, beside the
+        # KV pair (not among the lib's buffers: the kv_write flush is a
+        # (k, v) contract); the arena binds its own queue kinds
+        self.state: Optional[PagedStateArena] = None
+        if _mamba_layout(cfg)[1] > 0:
+            self.state = PagedStateArena(
+                cfg, num_slots=state_slots or num_pages, queue=self.queue,
+                lib=self.lib, device=self.device, dtype=dtype)
 
     # the arenas live on the lib (a shared lib sees every mutation)
     @property
@@ -237,9 +403,16 @@ class PagedKVCache:
         path (the first ``shared_len // page_size`` pages of a live
         sequence); with a prefix cache on it warns
         ``DeprecationWarning``, since mixing both splits the hit
-        accounting."""
+        accounting.  A cache with a state arena declines every prefix
+        hit (counted in ``prefix_declined_ssm``): the pages could be
+        shared, but not the recurrent state the prefix built up."""
         seq = Sequence(seq_id)
         shared_pages: List[int] = []
+        if self.state is not None and (tokens is not None
+                                       or (share_with is not None
+                                           and shared_len)):
+            self.stats["prefix_declined_ssm"] += 1
+            share_with, shared_len, tokens = None, 0, None
         if share_with is not None and shared_len:
             if self.prefix is not None:
                 warnings.warn(
@@ -266,6 +439,9 @@ class PagedKVCache:
             seq.length = min(seq.length + self.page_size, prompt_len)
         seq.length = prompt_len
         self.seqs[seq_id] = seq
+        if self.state is not None:
+            self.state.alloc(seq_id)
+            self.stats["state_pages"] = self.state.rows_in_use
         return seq
 
     def commit_prefix(self, seq_id: int, tokens: Seq[int]) -> int:
@@ -274,8 +450,8 @@ class PagedKVCache:
         after a prefill batch, or when the last chunk lands.  Only full
         pages index; the tree retains each new one, so the prefix
         outlives the sequence.  Returns the number of pages newly
-        indexed."""
-        if self.prefix is None:
+        indexed; a cache with a state arena never indexes."""
+        if self.prefix is None or self.state is not None:
             return 0
         seq = self.seqs[seq_id]
         n_full = min(len(seq.pages), len(tokens) // self.page_size)
@@ -302,6 +478,11 @@ class PagedKVCache:
         dst.length = src.length
         dst.shared_prefix_pages = full
         self.seqs[dst_id] = dst
+        if self.state is not None:
+            # the whole state row, now; coalesces into this fork's flush
+            self.state.fork(src_id, dst_id)
+            self.stats["state_forks"] += 1
+            self.stats["state_pages"] = self.state.rows_in_use
         self.flush_pending()   # one batched copy launch per arena
         return dst
 
@@ -389,6 +570,9 @@ class PagedKVCache:
                     p for p, z in zip(excl, flags) if z)
         for p in seq.pages:
             self._release_page(p)
+        if self.state is not None and seq_id in self.state.rows:
+            self.state.free(seq_id)   # init-on-free rides the same flush
+            self.stats["state_pages"] = self.state.rows_in_use
         self.flush_pending()
 
     def clear_prefix(self) -> int:
@@ -475,3 +659,30 @@ class PagedKVCache:
 def _bucket_pow2(n: int) -> int:
     """Round up to the next power of two (min 1)."""
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _num_attn_layers(cfg: ModelConfig) -> int:
+    """Leading (layers) dim of the KV arenas: the engine's layer loop
+    length, not the count of attention sublayers.  A hybrid superblock
+    carries one attention sublayer per step (num_layers // attn_every
+    steps); the pure-ssm family loops num_layers steps and keeps a
+    phantom full-depth KV arena, as the JAX package does (its pages are
+    allocated, reserved and zeroed like any other, so every page op and
+    launch count matches)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
+
+
+def _mamba_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, mamba sublayers per group): the state arenas' leading
+    (G, M) dims; (0, 0) for a layout without recurrent state (no mamba
+    kinds, or a multi-group layout the engine refuses anyway)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return (0, 0)
+    groups = T.layer_groups(cfg)
+    if len(groups) != 1:
+        return (0, 0)
+    count, kinds = groups[0]
+    m = sum(1 for k in kinds if k == "mamba")
+    return (count, m) if m else (0, 0)

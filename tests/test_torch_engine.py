@@ -17,6 +17,7 @@ choice.
 """
 
 import ast
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -189,15 +190,24 @@ def test_eos_stops_a_request(model):
 
 
 def test_engine_refuses_what_is_not_ported(model):
+    """What still raises: the eager prefill oracle, caller libs, trace
+    recording, meshes and compressed collectives are not ported
+    (``NotImplementedError``); MLA and multi-group layouts are refused
+    with ``ValueError``, as the JAX engine refuses them."""
     _, cfg, _, params = model
     for kw in (dict(mesh=object()),
                dict(lib=object()), dict(fused_prefill=False),
                dict(record_trace=True), dict(compressed_collectives=True)):
         with pytest.raises(NotImplementedError):
             PagedEngine(cfg, params, device="cpu", **kw)
-    ssm = reduced(ARCHS["mamba2-1.3b"])
-    with pytest.raises(NotImplementedError):
-        PagedEngine(ssm, params, device="cpu")
+    mla = reduced(ARCHS["deepseek-v2-236b"])
+    with pytest.raises(ValueError, match="MLA"):
+        PagedEngine(mla, params, device="cpu")
+    scout = reduced(ARCHS["llama4-scout-17b-a16e"])
+    two_groups = dataclasses.replace(
+        scout, moe=dataclasses.replace(scout.moe, first_dense_layers=1))
+    with pytest.raises(ValueError, match="single-group"):
+        PagedEngine(two_groups, params, device="cpu")
 
 
 def _imports(path):
