@@ -19,7 +19,18 @@ exits nonzero:
    ``-0.0``; ``state_scatter`` on mamba2-1.3b's 2 MiB SSD-state rows and
    its conv rows, bit for bit, beside the state arena's row copy and
    init; the attention kernels at jamba's 64/8 and llama4-scout's 40/8
-   heads;
+   heads; the RowClone API's ``copy_2d`` and ``init_2d`` on
+   granite-3-8b's full K arena (1.34 GB of bf16; ``init_2d`` also at an
+   odd bf16 length and in int8) and ``page_copy`` / ``page_init`` on one
+   layer of it, bit for bit, a chained batch and a duplicate
+   destination included;
+13. RowClone against memcpy and calloc (run right after phase 2):
+    ``pim_copy`` against ``Tensor.clone()`` and ``pim_init(..., 0)``
+    against ``torch.zeros`` from 8 KiB to 1 GiB with each time's share
+    of the memory rate, then 40 layers of page copies and inits looped
+    (40 launches of ``page_copy`` / ``page_init``) against batched
+    (one); its launch counts are zeroed just before and read just
+    after;
 3. serving: granite-3-8b at full width and depth (40 layers, random
    bf16 weights from a seeded generator) answers 8 greedy requests
    through ``repro_torch.launch.serve.serve``, with a CoW fork of a live
@@ -63,7 +74,13 @@ exits nonzero:
     width, monolithic;
 12. mamba2-1.3b cut to 2 layers at full width on the card and on the
     CPU from identical weights: prefill and teacher-forced decode
-    logits.
+    logits;
+14. trace and replay (after phase 8): phase 3's workload with
+    ``record_trace=True`` at full depth (each kind's trace events equal
+    its flushes), replayed on the simulated DDR3 prototype — its
+    RowClone-vs-CPU totals and speedups are the prototype's
+    nanoseconds, not the card's — then the same workload at 2 layers on
+    the card and on the CPU, whose traces and replays must be equal.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels' JSON summary, and ``{"ok": true, "device": {...}}``.  Without a
@@ -144,7 +161,9 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+    """Bit equality of two tensors of one dtype (raw bytes)."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
 
 
 # ---------------------------------------------------------------------- #
@@ -652,6 +671,323 @@ def attention_heads_parity(dev, randn) -> dict:
         out[f"heads_{H}_over_{KVH}"] = row
         del k_ar, v_ar, qf, kf, vf, kp, vp
     return {"max_abs_err": out, "atol": ATTN_TOL}
+
+
+def rowclone_api_parity(dev, shape=(40, 1024, 16, 8, 128)) -> dict:
+    """Phase 2, the RowClone API's kernels bit for bit against their
+    plain versions: ``copy_2d`` and ``init_2d`` on granite-3-8b's full K
+    arena (40, 1024, 16, 8, 128) bf16, ``init_2d`` also at an odd bf16
+    length and in int8; ``page_copy`` and ``page_init`` on one layer of
+    it, (1024, 16384) bf16, 16 pages, with a batch whose destination is
+    another op's source and a duplicate destination (the last op
+    wins)."""
+    from repro_torch.kernels.rowclone import ops as rc_ops
+    from repro_torch.kernels.rowclone import ref as rc_ref
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    arena = torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+    nbytes = arena.numel() * 2
+    rows = {}
+
+    got = rc_ops.pim_copy(arena)
+    torch.cuda.synchronize()
+    if not same_bits(got, rc_ref.copy_2d(arena)):
+        raise AssertionError("copy_2d disagrees with its plain version")
+    del got
+    nb, by = bound(2 * nbytes, 0)
+    rows["copy_2d"] = dict(
+        max_abs_err=0.0, ms=time_ms(lambda: rc_ops.pim_copy(arena)),
+        plain_ms=time_ms(lambda: rc_ref.copy_2d(arena)),
+        bound_ms=nb, bound_by=by, library_ms=time_ms(arena.clone))
+
+    for shp, value, dt in ((shape, 0.1, bf16), ((1_000_003,), 0.1, bf16),
+                           (shape, -3, torch.int8), ((3, 333_333), 7,
+                                                     torch.int8)):
+        got = rc_ops.pim_init(shp, value, dt, device=dev)
+        torch.cuda.synchronize()
+        if not same_bits(got, rc_ref.init_2d(shp, value, dt, dev)):
+            raise AssertionError(f"init_2d {shp} {dt} disagrees with its "
+                                 "plain version")
+        del got
+    nb, by = bound(nbytes, 0)
+    rows["init_2d"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: rc_ops.pim_init(shape, 0.0, bf16, device=dev)),
+        plain_ms=time_ms(lambda: rc_ref.init_2d(shape, 0.0, bf16, dev)),
+        bound_ms=nb, bound_by=by,
+        library_ms=time_ms(lambda: torch.zeros(shape, dtype=bf16,
+                                               device=dev)))
+
+    layer = arena[0].reshape(shape[1], -1).clone()
+    del arena
+    page_bytes = layer.shape[1] * 2
+    # 16 ops: op 14 repeats op 13's destination (the last wins), op 15
+    # writes the page op 0 reads (staged through scratch); then a
+    # disjoint batch, the common case, which is the timed one
+    staged = (list(range(100, 116)), list(range(200, 214)) + [213, 100])
+    disjoint = (list(range(300, 316)), list(range(400, 416)))
+    for src, dst in (staged, disjoint):
+        want = rc_ref.page_copy(layer.clone(), torch.tensor(src, device=dev),
+                                torch.tensor(dst, device=dev))
+        got = rc_ops.pim_page_copy(layer.clone(), src, dst)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"page_copy disagrees with its plain "
+                                 f"version on {src} -> {dst}")
+    del want, got
+    src, dst = disjoint
+    work = layer.clone()
+    src_t = torch.tensor(src, device=dev)
+    dst_t = torch.tensor(dst, device=dev)
+    nb, by = bound(2 * len(src) * page_bytes, 0)
+    rows["page_copy"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: rc_ops.pim_page_copy(work, src, dst)),
+        plain_ms=time_ms(lambda: rc_ref.page_copy(work, src_t, dst_t)),
+        bound_ms=nb, bound_by=by, library_ms=None)
+    for pages, value in ((dst, 0.1), (staged[1], 0.0)):
+        want = rc_ref.page_init(layer.clone(), torch.tensor(pages,
+                                                            device=dev),
+                                value)
+        got = rc_ops.pim_page_init(layer.clone(), pages, value)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"page_init disagrees with its plain "
+                                 f"version at {value}")
+    del want, got
+    nb, by = bound(len(dst) * page_bytes, 0)
+    rows["page_init"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: rc_ops.pim_page_init(work, dst, 0.0)),
+        plain_ms=time_ms(lambda: rc_ref.page_init(work, dst_t, 0.0)),
+        bound_ms=nb, bound_by=by,
+        library_ms=time_ms(lambda: work.index_fill_(0, dst_t, 0.0)))
+    del work, layer
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------- #
+# Phase 13: RowClone against memcpy and calloc on the card
+# ---------------------------------------------------------------------- #
+
+
+SWEEP_BYTES = (8 << 10, 64 << 10, 512 << 10, 4 << 20, 32 << 20, 256 << 20,
+               1 << 30)
+
+
+def rowclone_sweep(dev, sizes=SWEEP_BYTES, arena=(40, 1024, 16 * 8 * 128)
+                   ) -> tuple:
+    """The RowClone API as a user calls it, against the PyTorch calls it
+    stands for: ``pim_copy`` against ``Tensor.clone()`` and
+    ``pim_init(..., 0)`` against ``torch.zeros`` at 8 KiB to 1 GiB of
+    bf16, each with its share of the card's memory rate (3.35 TB/s; a
+    copy moves twice its bytes); then granite-3-8b's 40 layers of
+    16-page copies and inits looped (40 launches of ``page_copy`` /
+    ``page_init``, one a layer) against batched (one launch of
+    ``page_copy_batched`` / ``page_init_batched``), the results bit for
+    bit equal.  The kernel launch counts are zeroed just before and read
+    just after."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.rowclone import ops as rc_ops
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lines = []
+    reset_launches()
+    for nb in sizes:
+        n = nb // 2
+        src = torch.randn((n,), generator=gen, device=dev, dtype=bf16)
+        if not same_bits(rc_ops.pim_copy(src), src):
+            raise AssertionError(f"pim_copy at {nb} bytes is not a copy")
+        if torch.count_nonzero(rc_ops.pim_init((n,), 0, bf16,
+                                               device=dev)):
+            raise AssertionError(f"pim_init at {nb} bytes is not zero")
+        iters = 50 if nb <= (32 << 20) else 20
+        t = {"pim_copy": time_ms(lambda: rc_ops.pim_copy(src), iters),
+             "clone": time_ms(src.clone, iters),
+             "pim_init": time_ms(lambda: rc_ops.pim_init(
+                 (n,), 0, bf16, device=dev), iters),
+             "zeros": time_ms(lambda: torch.zeros((n,), dtype=bf16,
+                                                  device=dev), iters)}
+        moved = {"pim_copy": 2 * nb, "clone": 2 * nb, "pim_init": nb,
+                 "zeros": nb}
+        lines.append({"bytes": nb, "ms": t, "memory_rate_share": {
+            k: moved[k] / (t[k] * 1e-3) / HBM_BYTES_PER_S for k in t}})
+        del src
+
+    L, P, E = arena
+    arena = torch.randn((L, P, E), generator=gen, device=dev, dtype=bf16)
+    src, dst = list(range(100, 116)), list(range(200, 216))
+
+    def looped_copy(a):
+        for l in range(L):
+            rc_ops.pim_page_copy(a[l], src, dst)
+        return a
+
+    def looped_init(a):
+        for l in range(L):
+            rc_ops.pim_page_init(a[l], dst, 0.0)
+        return a
+
+    a, b = looped_copy(arena.clone()), \
+        rc_ops.pim_page_copy_batched(arena.clone(), src, dst)
+    a, b = looped_init(a), rc_ops.pim_page_init_batched(b, dst, 0.0)
+    torch.cuda.synchronize()
+    if not same_bits(a, b):
+        raise AssertionError("looped and batched page ops disagree")
+    del a, b
+    page_bytes = E * 2
+    layered = {
+        "copy_looped_ms": time_ms(lambda: looped_copy(arena)),
+        "copy_batched_ms": time_ms(
+            lambda: rc_ops.pim_page_copy_batched(arena, src, dst)),
+        "init_looped_ms": time_ms(lambda: looped_init(arena)),
+        "init_batched_ms": time_ms(
+            lambda: rc_ops.pim_page_init_batched(arena, dst, 0.0)),
+        "copy_bound_ms": bound(2 * L * len(src) * page_bytes, 0)[0],
+        "init_bound_ms": bound(L * len(dst) * page_bytes, 0)[0]}
+    counts = launch_counts()
+    missing = [k for k in SWEEP_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the path: {missing}")
+    del arena
+    torch.cuda.empty_cache()
+    return ({"phase": "rowclone_vs_memcpy", "dtype": "bfloat16",
+             "sizes": lines, "layers": L, "pages": len(src),
+             "page_bytes": page_bytes, **layered,
+             "kernel_launches": _nonzero(counts)}, counts)
+
+
+# ---------------------------------------------------------------------- #
+# Phase 14: trace recording and replay on the simulated DDR3 prototype
+# ---------------------------------------------------------------------- #
+
+
+MODEL_FACE = ("simulated DDR3 prototype (PiDRAM's model face): latencies "
+              "in the prototype's nanoseconds, not times of the card")
+
+
+def _traced_serve(cfg, params, dev):
+    """Phase 3's workload (8 greedy requests, monolithic, no EOS, the
+    prefix cache off) with ``record_trace=True``, a CoW fork of a live
+    sequence after the first round and its free after the second."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import Request
+
+    forked = {}
+
+    def between_rounds(engine, i):
+        if i == 1:
+            for rid in sorted(engine.active):
+                if engine.cache.seqs[rid].length % engine.cache.page_size:
+                    engine.cache.fork(rid, 1000)
+                    forked["from"] = rid
+                    break
+        elif i == 2 and forked:
+            engine.cache.free(1000)
+
+    out = serve(cfg, params, granite_requests(cfg, Request), page_size=16,
+                num_pages=1024, device=dev, between_rounds=between_rounds,
+                record_trace=True)
+    if not forked:
+        raise AssertionError("no live sequence with a partial tail to fork")
+    engine = out["engine"]
+    if engine.cache.pages_in_use != 0:
+        raise AssertionError(f"{engine.cache.pages_in_use} pages leaked")
+    check_streams(cfg, out["results"], 8)
+    return engine
+
+
+def _event_counts(trace) -> dict:
+    out = {}
+    for e in trace.events:
+        out[e.kind] = out.get(e.kind, 0) + 1
+    return out
+
+
+def trace_replay(dev, cfg, params, small=None) -> dict:
+    """granite-3-8b at full width and depth serves phase 3's workload
+    with ``record_trace=True``; every queue kind's events must equal its
+    flushes (one launch per arena, k and v), the fused steps' KV events
+    their launches, and the two pairwise prefix hits their events.  The
+    trace is replayed on the simulated DDR3 prototype (host time
+    measured).  Then the same workload at 2 layers on the card and on
+    the CPU (the plain versions), from identical weights: the two traces
+    must be equal event for event (with no EOS and no prefix cache every
+    page decision depends on lengths only) and their replays equal in
+    every total."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serving.trace import replay_on_device
+
+    t0 = time.perf_counter()
+    engine = _traced_serve(cfg, params, dev)
+    serve_s = time.perf_counter() - t0
+    trace, q = engine.cache.trace, engine.cache.queue
+    events = _event_counts(trace)
+    launches = q.launches_by_kind
+    flushes = {k: launches.get(k, 0) // 2 for k in ("page_copy",
+                                                     "page_init")}
+    for kind, n in flushes.items():
+        if events.get(kind, 0) != n:
+            raise AssertionError(f"{kind}: {events.get(kind, 0)} trace "
+                                 f"events for {n} flushes")
+    fused = launches.get("fused_prefill", 0) + launches.get("fused_decode",
+                                                            0)
+    if events.get("kv_write", 0) != fused:
+        raise AssertionError(f"kv_write: {events.get('kv_write', 0)} events "
+                             f"for {fused} fused launches")
+    if events.get("prefix_hit", 0) != engine.cache.stats["prefix_hits"]:
+        raise AssertionError("prefix hits and their events differ")
+    t0 = time.perf_counter()
+    rep = replay_on_device(trace)
+    replay_s = time.perf_counter() - t0
+    if not all(r.ok for r in rep["receipts"]):
+        raise AssertionError("a replayed op failed on the prototype")
+    if not rep["pim_ns"]["total"] < rep["cpu_ns"]["total"]:
+        raise AssertionError("replay: PiM total not below the CPU total")
+    full = {"layers": cfg.num_layers, "num_pages": trace.num_pages,
+            "num_slabs": trace.num_slabs, "events": events,
+            "ops": rep["counts"], "queue_flushes": flushes,
+            "fused_kv_launches": fused, "serve_seconds": serve_s,
+            "replay_host_seconds": replay_s,
+            "simulated_pim_ns": rep["pim_ns"],
+            "simulated_cpu_ns": rep["cpu_ns"],
+            "simulated_speedup": rep["speedup"],
+            "simulated_device_stats": rep["device_stats"]}
+    del engine
+
+    if small is None:
+        small = dataclasses.replace(ARCHS["granite-3-8b"], num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    p_gpu = init_params(T.model_defs(small), gen, dev, torch.bfloat16)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    traces, seconds = {}, {}
+    for name, p, d in (("gpu", p_gpu, dev), ("cpu", p_cpu, "cpu")):
+        t0 = time.perf_counter()
+        traces[name] = _traced_serve(small, p, d).cache.trace
+        seconds[name] = time.perf_counter() - t0
+    ev = {k: [dataclasses.astuple(e) for e in t.events]
+          for k, t in traces.items()}
+    if ev["gpu"] != ev["cpu"]:
+        diff = next(i for i, (a, b) in enumerate(zip(ev["gpu"], ev["cpu"]))
+                    if a != b) if len(ev["gpu"]) == len(ev["cpu"]) else -1
+        raise AssertionError(f"card and CPU traces differ (event {diff}, "
+                             f"{len(ev['gpu'])} vs {len(ev['cpu'])})")
+    reps = {k: replay_on_device(t) for k, t in traces.items()}
+    for key in ("counts", "pim_ns", "cpu_ns", "speedup", "device_stats"):
+        if reps["gpu"][key] != reps["cpu"][key]:
+            raise AssertionError(f"card and CPU replays differ in {key}")
+    del p_gpu, p_cpu
+    return {"phase": "trace_replay", "model_face": MODEL_FACE, **full,
+            "cross_check_2_layers": {
+                "events": len(ev["gpu"]), "equal": True,
+                "serve_seconds": seconds,
+                "simulated_pim_total_ns": reps["gpu"]["pim_ns"]["total"],
+                "simulated_cpu_total_ns": reps["gpu"]["cpu_ns"]["total"]}}
 
 
 # ---------------------------------------------------------------------- #
@@ -1729,6 +2065,14 @@ KERNELS = {
                        "src/repro/kernels/ambit/ambit.py:135"),
     "state_scatter": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                       "src/repro/kernels/ssm_scan/ssm_scan.py:35"),
+    "copy_2d": ("src/repro_torch/kernels/csrc/rowclone.cu",
+                "src/repro/kernels/rowclone/rowclone.py:56"),
+    "init_2d": ("src/repro_torch/kernels/csrc/rowclone.cu",
+                "src/repro/kernels/rowclone/rowclone.py:76"),
+    "page_copy": ("src/repro_torch/kernels/csrc/rowclone.cu",
+                  "src/repro/kernels/rowclone/rowclone.py:105"),
+    "page_init": ("src/repro_torch/kernels/csrc/rowclone.cu",
+                  "src/repro/kernels/rowclone/rowclone.py:253"),
 }
 # the kernels each serving phase must launch
 PHASE3_KERNELS = ("kv_scatter", "page_copy_batched", "page_init_batched",
@@ -1744,6 +2088,8 @@ HYBRID_KERNELS = ("kv_scatter", "paged_attention", "flash_attention_prefix",
                   "state_scatter", "page_init_batched")
 MOE_KERNELS = ("kv_scatter", "paged_attention", "flash_attention",
                "page_init_batched")
+SWEEP_KERNELS = ("copy_2d", "init_2d", "page_copy", "page_init",
+                 "page_copy_batched", "page_init_batched")
 
 
 def main() -> int:
@@ -1772,7 +2118,10 @@ def main() -> int:
           "sources": list(_build.SOURCES)})
 
     rows = parity(dev)
+    rows.update(rowclone_api_parity(dev))
     emit({"phase": "parity", **rows})
+    sweep_line, counts_sweep = rowclone_sweep(dev)
+    emit(sweep_line)
     cfg, params, init_s = granite_params(dev)
     counts, greedy = serving(dev, cfg, params, init_s)
     counts_chunked = serving_chunked(dev, cfg, params, greedy)
@@ -1782,6 +2131,7 @@ def main() -> int:
     # the SSM and hybrid models and are drawn again (same seed) after
     prefix = serving_prefix(dev, cfg, params)
     emit(prefix)
+    emit(trace_replay(dev, cfg, params))
     del params
     _free_card()
     ssm = serving_ssm(dev)
@@ -1804,6 +2154,7 @@ def main() -> int:
         r = rows[name]
         launches = (counts[name] + counts_chunked[name]
                     + prefix["kernel_launches"][name] + counts_lib[name]
+                    + counts_sweep[name]
                     + ssm["kernel_launches"][name]
                     + hybrid["kernel_launches"][name])
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -9,6 +9,13 @@ light records and flushes them as ONE coalesced launch per op kind per
 arena — a constant number of launches whatever the layer count or batch
 size.
 
+Op kinds come from the opcode-keyed registry
+(:mod:`repro_torch.core.op_registry`): every spec with a torch face
+contributes its ``(torch_kind, torch_flush)`` pair when a queue is
+built; :meth:`PimOpQueue.register_kind` adds kinds to one queue.  A
+queue with a ``trace`` (a :class:`repro_torch.serving.trace.PimTrace`)
+records each kind's flushed batch as one event.
+
 Flush order is fixed: ``page_copy`` first (CoW sources are duplicated
 before anything overwrites them), then ``page_init``, the Ambit kinds
 ``page_and``, ``page_or`` and ``page_not``, then ``kv_write``, then
@@ -40,7 +47,8 @@ from typing import Callable, Dict, Hashable, Iterable, Optional, Set, Tuple
 
 import torch
 
-from .op_registry import QUEUE_KINDS, KVWriteBatch
+from . import op_registry
+from .op_registry import KVWriteBatch
 
 # A flush executor: (queue, arenas, ops) -> arenas (same length tuple).
 FlushFn = Callable[["PimOpQueue", Tuple[torch.Tensor, ...], list],
@@ -69,18 +77,23 @@ class PimOpQueue:
         # logical ops that never had to run because pages were shared
         # instead of rewritten: kind -> count
         self.saved_by_kind: Dict[str, int] = {}
+        # optional PimTrace sink (duck-typed: record_from_queue(kind, ops))
+        self.trace = None
         # at most one lib drives a queue (TorchLib claims it)
         self.owner = None
         # hazard tracking for deferred clients (see admit())
         self._hazard_rows: Set[Hashable] = set()
         self._hazard_kind: Optional[str] = None
-        for kind, fn in QUEUE_KINDS.items():
+        for kind, fn in op_registry.queue_kinds():
             self.register_kind(kind, fn)
 
     def register_kind(self, kind: str, fn: FlushFn) -> None:
         self._kinds[kind] = fn
         self._pending.setdefault(kind, [])
         self.launches_by_kind.setdefault(kind, 0)
+
+    def has_kind(self, kind: str) -> bool:
+        return kind in self._kinds
 
     # -- enqueue -------------------------------------------------------- #
 
@@ -95,6 +108,11 @@ class PimOpQueue:
 
     def enqueue_init(self, page: int, value: float = 0.0) -> None:
         self.enqueue("page_init", (page, float(value)))
+
+    def enqueue_kv_write(self, page: int, slot: int, k: torch.Tensor,
+                         v: torch.Tensor) -> None:
+        """Single token: k/v (layers, ...)."""
+        self.enqueue_kv_writes([page], [slot], k[:, None], v[:, None])
 
     def enqueue_kv_writes(self, pages, slots, k: torch.Tensor,
                           v: torch.Tensor) -> None:
@@ -190,6 +208,8 @@ class PimOpQueue:
             if not ops:
                 continue
             self._pending[kind] = []
+            if self.trace is not None:
+                self.trace.record_from_queue(kind, ops)
             arenas = self._kinds[kind](self, arenas, ops)
             self.stats["ops_coalesced"] += sum(getattr(o, "n", 1)
                                                for o in ops)

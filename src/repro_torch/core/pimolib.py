@@ -1,35 +1,47 @@
-"""pimolib for the port — PiDRAM's PiM operations library over torch
-arenas.
+"""pimolib for the port — PiDRAM's PiM operations library, one protocol
+with two faces.
 
-The port's counterpart of the JAX face of the JAX package's
-``core/pimolib.py``: :class:`PimLib`, :class:`OpReceipt` and
-:class:`Blocking` keep their names and meaning, and
-:class:`TorchArena` / :class:`TorchLib` / :func:`make_torch_arena` stand
-where ``TpuArena`` / ``TpuLib`` / ``make_tpu_arena`` stood.  Arena
-mutations route through the batched op queue
-(:class:`repro_torch.core.pim_queue.PimOpQueue`) onto the RowClone
-kernels, and the Ambit ``bitwise`` ops onto the Ambit kernels;
-``Blocking.FIN`` synchronises the card.  The model face (``DeviceLib``
-over the simulated DDR3 device) comes with a later slice.  ``rand`` and
-``rand_u32`` draw from the D-RaNGe generator kernel.
+The port's counterpart of the JAX package's ``core/pimolib.py``:
+
+* **model face** (:class:`DeviceLib`, ``face="device"``): ops against the
+  simulated DDR3 prototype through the POC register protocol, with
+  end-to-end latency accounting from the memory-controller timing model
+  (a copy of the JAX package's; numpy only, every latency the simulated
+  prototype's, never the card's);
+* **torch face** (:class:`TorchLib`, ``face="torch"``, where the JAX
+  package has ``TpuLib``): the same ops over torch arenas, routed
+  through the batched op queue
+  (:class:`repro_torch.core.pim_queue.PimOpQueue`) onto the RowClone
+  and Ambit kernels; ``Blocking.FIN`` synchronises the card; ``rand``
+  and ``rand_u32`` draw from the D-RaNGe generator kernel.
+
+Both return :class:`OpReceipt`: ``latency_ns`` is the model face's
+account, ``launches`` the torch face's kernel launches.  Op behaviour
+resolves through the opcode-keyed registry
+(:mod:`repro_torch.core.op_registry`); :meth:`PimLib.supports` is the
+capability flag.
 """
 
 from __future__ import annotations
 
 import abc
 import enum
+import warnings
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels.drange import ops as dr_ops
+from . import op_registry
 from .allocator import Allocation, SubarrayAllocator, arena_groups
+from .coherence import CoherenceModel, CoherencePolicy
+from .isa import Instruction, Opcode
+from .op_registry import FACE_DEVICE, FACE_TORCH
 from .pim_queue import PimOpQueue
-
-FACE_TORCH = "torch"
+from .poc import PimOpsController
 
 
 class Blocking(enum.Enum):
@@ -39,14 +51,18 @@ class Blocking(enum.Enum):
 
 @dataclass
 class OpReceipt:
-    """What every pimolib mutation returns: ``launches`` is the kernel
-    launch count this call issued (0 with a deferred lib until the
-    coalescing flush pays it), ``n_ops`` the logical row/page ops."""
+    """What every pimolib mutation returns, on both faces:
+    ``latency_ns`` is the model face's end-to-end account (POC handshake
+    + command sequence + coherence maintenance, in the simulated
+    prototype's nanoseconds), ``launches`` the kernel launches a torch
+    face call issued (0 with a deferred lib until the coalescing flush
+    pays it), ``n_ops`` the logical row/page ops either way."""
 
     ok: bool
     op: str
-    face: str = FACE_TORCH
+    face: str = FACE_DEVICE
     n_ops: int = 1
+    latency_ns: float = 0.0
     launches: int = 0
     deferred: bool = False
 
@@ -80,6 +96,256 @@ class PimLib(abc.ABC):
     @abc.abstractmethod
     def rand(self, n_bits: int, seed=None) -> Tuple[np.ndarray, OpReceipt]:
         ...
+
+    def supports(self, opcode: Opcode) -> bool:
+        """Capability flag: does this face implement ``opcode``?"""
+        return op_registry.supports(opcode, self.face)
+
+
+# ---------------------------------------------------------------------- #
+# Model face — drives the simulated prototype
+# ---------------------------------------------------------------------- #
+
+
+class DeviceLib(PimLib):
+    """pimolib over the simulated DDR3 prototype (a copy of the JAX
+    package's, numpy only)."""
+
+    face = FACE_DEVICE
+
+    def __init__(
+        self,
+        poc: PimOpsController,
+        allocator: SubarrayAllocator,
+        coherence: CoherencePolicy = CoherencePolicy.PRECISE,
+        trng=None,
+    ) -> None:
+        self.poc = poc
+        self.allocator = allocator
+        self.coherence = CoherenceModel(coherence, poc.mc)
+        self.trng = trng    # DRangeTRNG; required for rand()
+        self.zero_rows: Dict[int, int] = {}  # group -> reserved all-zeros row
+        self.stats = {"copies": 0, "inits": 0, "bitwises": 0, "reads": 0,
+                      "writes": 0, "rand_bits": 0}
+
+    def supports(self, opcode: Opcode) -> bool:
+        if opcode is Opcode.DR_GEN and self.trng is None:
+            return False    # needs a characterized TRNG attached
+        return super().supports(opcode)
+
+    # -- supervisor-software services ----------------------------------- #
+
+    def attach_trng(self, trng) -> None:
+        """Attach a characterized D-RaNGe TRNG; enables :meth:`rand`."""
+        self.trng = trng
+
+    def reserve_zero_row(self, group: int) -> int:
+        """RowClone-Init copies from a reserved all-zeros row per subarray."""
+        if group not in self.zero_rows:
+            alloc = self.allocator.alloc(1, group=group, tag="zero-row")
+            row = alloc.rows[0]
+            geo = self.poc.mc.device.geometry
+            self.poc.mc.device.write_row(row, np.zeros(geo.row_bytes, np.uint8))
+            self.zero_rows[group] = row
+        return self.zero_rows[group]
+
+    # -- the four-step pimolib protocol ---------------------------------- #
+
+    def _start_and_poll(self, blocking: Blocking) -> None:
+        self.poc.store_start()                      # (ii) set Start flag
+        flags = self.poc.load_flags()               # (iii) poll Ack / Fin
+        want = flags.ack if blocking is Blocking.ACK else flags.fin
+        if not want:
+            raise RuntimeError("POC handshake failed")
+
+    def _issue(self, insn: Instruction, blocking: Blocking) -> None:
+        self.poc.store_instruction(insn.encode())   # (i) write instruction reg
+        self._start_and_poll(blocking)
+
+    def _dispatch(self, insns: list, blocking: Blocking,
+                  batch: bool) -> Tuple[bool, float]:
+        """Issue an instruction sequence; returns (ok, handshake_ns).
+        ``batch=True`` stages the whole sequence in the POC instruction
+        buffer and pays one register handshake; ``batch=False`` pays one
+        per instruction (the looped baseline)."""
+        ok = True
+        if batch:
+            self.poc.store_instruction_buffer([i.encode() for i in insns])
+            self._start_and_poll(blocking)
+            return self.poc.last_ok, self.poc.mc.poc_handshake_ns()
+        for insn in insns:
+            self._issue(insn, blocking)
+            ok &= self.poc.last_ok
+        return ok, len(insns) * self.poc.mc.poc_handshake_ns()
+
+    def _run_op(self, opcode: Opcode, src: Optional[Allocation],
+                dst: Allocation, blocking: Blocking, batch: bool,
+                *, write_back: bool, coherence_on: Allocation) -> OpReceipt:
+        """Registry-driven dispatch: coherence maintenance + the spec's
+        Instruction sequence through the POC, timed end to end."""
+        spec = op_registry.get_op(opcode)
+        if spec is None or spec.device_insns is None:
+            raise NotImplementedError(
+                f"{opcode!r} has no model-face executor (supports()=False)")
+        t0 = self.poc.mc.now_ns
+        latency = self.coherence.flush_cost_ns(coherence_on, self.allocator,
+                                               write_back=write_back)
+        insns = spec.device_insns(self, src, dst)
+        ok, handshakes = self._dispatch(insns, blocking, batch)
+        latency += handshakes + self.poc.mc.now_ns - t0
+        return OpReceipt(ok, spec.name, face=self.face, n_ops=dst.nrows,
+                         latency_ns=latency)
+
+    # -- PimLib protocol ------------------------------------------------- #
+
+    def copy(self, src: Allocation, dst: Allocation,
+             blocking: Blocking = Blocking.ACK, batch: bool = True) -> OpReceipt:
+        """RowClone-Copy src -> dst (row lists must be same-subarray),
+        one POC handshake per batch by default."""
+        if src.group != dst.group or src.nrows != dst.nrows:
+            raise ValueError("copy operands must be same-subarray, same size")
+        self.stats["copies"] += src.nrows
+        return self._run_op(Opcode.RC_COPY, src, dst, blocking, batch,
+                            write_back=True, coherence_on=src)
+
+    def init(self, dst: Allocation, value: float = 0.0,
+             blocking: Blocking = Blocking.ACK, batch: bool = True) -> OpReceipt:
+        """RowClone-Init: copy the reserved zero row over each dst row.
+        A nonzero fill has no RowClone sequence and falls back to the
+        CPU memset path.  The device stores bytes, so only integer fills
+        in [0, 255] are taken; anything else raises."""
+        if isinstance(value, Blocking):   # v1 signature: init(dst, blocking)
+            raise TypeError("pimolib v2 moved `value` before `blocking`: "
+                            "call init(dst, value=0.0, blocking=...)")
+        if value != 0.0:
+            if not (float(value).is_integer() and 0 <= value <= 255):
+                raise ValueError(
+                    f"model-face init fill must be a byte value, got {value!r}")
+            rec = self.cpu_init(dst, value)
+            self.stats["inits"] += dst.nrows
+            return rec
+        rec = self._run_op(Opcode.RC_INIT, None, dst, blocking, batch,
+                           write_back=False, coherence_on=dst)
+        self.stats["inits"] += dst.nrows
+        return rec
+
+    _BITWISE_OPC = {"and": Opcode.AMB_AND, "or": Opcode.AMB_OR,
+                    "not": Opcode.AMB_NOT}
+
+    def bitwise(self, op: str, src: Allocation, dst: Allocation,
+                blocking: Blocking = Blocking.ACK,
+                batch: bool = True) -> OpReceipt:
+        """Ambit ``dst <- src OP dst`` (or ``~src`` for "not") through
+        the POC, each row pair priced as its TRA command sequence.  A
+        cross-subarray pair makes the sequence report ``ok=False``."""
+        if op not in self._BITWISE_OPC:
+            raise ValueError(f"unknown bitwise op {op!r}")
+        if src.group != dst.group or src.nrows != dst.nrows:
+            raise ValueError(
+                "bitwise operands must be same-subarray, same size")
+        self.stats["bitwises"] += src.nrows
+        return self._run_op(self._BITWISE_OPC[op], src, dst, blocking, batch,
+                            write_back=True, coherence_on=src)
+
+    def cpu_bitwise(self, op: str, src: Allocation,
+                    dst: Allocation) -> OpReceipt:
+        """CPU read-modify-write baseline for the same op (the fallback
+        the serving-trace replay prices when operands span subarrays)."""
+        mc = self.poc.mc
+        nbytes = src.nrows * mc.proto.row_bytes
+        for s, d in zip(src.rows, dst.rows):
+            a = mc.device.read_row(s)
+            if op == "not":
+                out = np.bitwise_not(a)
+            elif op == "and":
+                out = a & mc.device.read_row(d)
+            else:
+                out = a | mc.device.read_row(d)
+            mc.device.write_row(d, out)
+        self.allocator.touch_cpu_write(dst)
+        return OpReceipt(True, "cpu_bitwise", face=self.face, n_ops=src.nrows,
+                         latency_ns=mc.bitwise_ns(nbytes))
+
+    def rand(self, n_bits: int, seed=None) -> Tuple[np.ndarray, OpReceipt]:
+        """The paper's rand_dram(): drain the POC random-number buffer.
+        Needs an attached characterized TRNG (``supports(DR_GEN)``)."""
+        if self.trng is None:
+            raise NotImplementedError(
+                "rand() needs a characterized DRangeTRNG: "
+                "DeviceLib(..., trng=...) or attach_trng()")
+        bits = self.trng.random_bits(n_bits)
+        chunks = -(-n_bits // self.poc.mc.proto.drange_bits_per_read)
+        latency = (self.poc.mc.proto.drange_latency_ns
+                   + (chunks - 1) * self.poc.mc.proto.drange_sustained_ns)
+        self.stats["rand_bits"] += n_bits
+        return bits, OpReceipt(True, "drange_rand", face=self.face,
+                               n_ops=n_bits, latency_ns=latency)
+
+    def read(self, alloc: Allocation) -> np.ndarray:
+        """Page contents as (nrows, row_bytes) uint8 (CPU read path)."""
+        mc = self.poc.mc
+        out = np.stack([mc.device.read_row(r) for r in alloc.rows])
+        self.allocator.touch_cpu_read(alloc)
+        self.stats["reads"] += alloc.nrows
+        return out
+
+    def write(self, alloc: Allocation, values) -> OpReceipt:
+        """CPU write path: store ``values`` (castable to (nrows,
+        row_bytes) uint8) into the allocation's rows, accounted as a CPU
+        memcpy (there is no PiM sequence for host-data ingress)."""
+        mc = self.poc.mc
+        geo = mc.device.geometry
+        raw = np.asarray(values)
+        vals = raw.astype(np.uint8).reshape(alloc.nrows, geo.row_bytes)
+        if not np.array_equal(vals.astype(raw.dtype).reshape(raw.shape), raw):
+            raise ValueError(
+                "model-face write payload must be byte values in [0, 255] "
+                "(the device stores bytes)")
+        for r, row in zip(alloc.rows, vals):
+            mc.device.write_row(r, row)
+        self.allocator.touch_cpu_write(alloc)
+        self.stats["writes"] += alloc.nrows
+        nbytes = alloc.nrows * mc.proto.row_bytes
+        return OpReceipt(True, "cpu_write", face=self.face,
+                         n_ops=alloc.nrows, latency_ns=mc.memcpy_ns(nbytes))
+
+    def flush(self, blocking: Blocking = Blocking.ACK) -> OpReceipt:
+        """The model face executes synchronously: nothing is deferred."""
+        return OpReceipt(True, "flush", face=self.face, n_ops=0)
+
+    # -- CPU baselines (memcpy / calloc through the core) ----------------- #
+
+    def cpu_copy(self, src: Allocation, dst: Allocation) -> OpReceipt:
+        mc = self.poc.mc
+        nbytes = src.nrows * mc.proto.row_bytes
+        for s, d in zip(src.rows, dst.rows):
+            mc.device.write_row(d, mc.device.read_row(s))
+        self.allocator.touch_cpu_write(dst)
+        return OpReceipt(True, "cpu_memcpy", face=self.face, n_ops=src.nrows,
+                         latency_ns=mc.memcpy_ns(nbytes))
+
+    def cpu_init(self, dst: Allocation, value: float = 0.0) -> OpReceipt:
+        mc = self.poc.mc
+        nbytes = dst.nrows * mc.proto.row_bytes
+        geo = mc.device.geometry
+        fill = np.full(geo.row_bytes, int(value), np.uint8)
+        for d in dst.rows:
+            mc.device.write_row(d, fill)
+        self.allocator.touch_cpu_write(dst)
+        return OpReceipt(True, "cpu_calloc", face=self.face, n_ops=dst.nrows,
+                         latency_ns=mc.memset_ns(nbytes))
+
+    def rand_dram(self, n_bits: int, trng) -> Tuple[np.ndarray, OpReceipt]:
+        """The deprecated v1 spelling of ``attach_trng(trng); rand(n)``."""
+        warnings.warn("rand_dram(n, trng) is deprecated: attach_trng(trng) "
+                      "then rand(n)", DeprecationWarning, stacklevel=2)
+        self.attach_trng(trng)
+        return self.rand(n_bits)
+
+
+# ---------------------------------------------------------------------- #
+# Torch face — the same ops over torch arenas
+# ---------------------------------------------------------------------- #
 
 
 @dataclass

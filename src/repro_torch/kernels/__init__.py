@@ -27,6 +27,12 @@ LAUNCHES: Dict[str, int] = {
     "page_not_batched": 0,
     "page_zero_scan": 0,
     "state_scatter": 0,
+    # the RowClone API's single-buffer movers (copy_2d, init_2d) and
+    # one-layer page ops (page_copy, page_init)
+    "copy_2d": 0,
+    "init_2d": 0,
+    "page_copy": 0,
+    "page_init": 0,
 }
 
 

@@ -44,6 +44,8 @@ SIGNATURES = {
         "rc_kv_scatter": [_P, _P, _P, _P, _I, _I, _L, _I, _L, _P],
         "rc_copy_rows": [_P, _P, _L, _P, _P, _L, _I, _I, _L, _P],
         "rc_init_rows": [_P, _P, _L, _I, _I, _L, _U, _P],
+        "rc_copy_flat": [_P, _P, _L, _P],
+        "rc_fill_flat": [_P, _L, _U, _P],
     },
     "paged_attention": {
         "pa_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

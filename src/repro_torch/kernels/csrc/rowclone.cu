@@ -4,21 +4,32 @@
 // src/repro/kernels/rowclone/rowclone.py:
 //   rc_kv_scatter  <- kv_scatter         (rowclone.py:215)
 //   rc_copy_rows   <- page_copy_batched  (rowclone.py:140)
+//                     and page_copy      (rowclone.py:105, one layer)
 //   rc_init_rows   <- page_init_batched  (rowclone.py:178)
+//                     and page_init      (rowclone.py:253, one layer)
+//   rc_copy_flat   <- copy_2d            (rowclone.py:56)
+//   rc_fill_flat   <- init_2d            (rowclone.py:76)
 //
 // What bounds them on an H100: bytes.  They do no arithmetic; the least
 // time is (bytes read + bytes written) / 3.35 TB/s.  At the serving
 // path's shapes (granite-3-8b: 40 layers, a page row of 16 slots x 8 KV
 // heads x 128 dims in bf16 = 32 KiB per layer, a slot of 2 KiB) a
 // decode round's scatter moves 40 x B x 2 KiB per arena and a CoW copy
-// 40 x 32 KiB per page.
+// 40 x 32 KiB per page.  The flat copy and fill stream a whole buffer:
+// 2 x bytes and 1 x bytes of traffic (the fill reads nothing: the
+// calloc-vs-RowClone-Init point).
 //
 // Design: every kernel treats a row as raw bytes, so one kernel serves
 // every dtype.  One block per (row, layer); its threads stream the row
 // with 16-byte loads and stores when the row length and both base
 // pointers allow it (the arena rows are multiples of 16 bytes), else
 // byte by byte.  The arena is updated in place: untouched rows are
-// never read or written.
+// never read or written.  The flat copy and fill are grid-stride loops
+// over 16-byte words (a few blocks per SM keep enough loads in flight)
+// with a byte tail, so any length and dtype works.  Fills write a
+// 32-bit pattern word that repeats the value's bytes (1-, 2- and 4-byte
+// dtypes); byte k of a buffer or row holds pattern byte k % 4, so a row
+// whose length is not a multiple of 4 bytes is filled byte by byte.
 //
 // Ordering: GPU blocks run in no order.  A batched copy whose
 // destination set meets its source set must read every source before
@@ -81,8 +92,10 @@ __global__ void copy_rows_kernel(const char* __restrict__ src,
                 src + (l * src_rows + sr) * row_bytes, row_bytes);
 }
 
-// grid (n, L): dst[l, dst_idx[i]] <- the 32-bit pattern, repeated
-template <bool VEC>
+// grid (n, L): dst[l, dst_idx[i]] <- the 32-bit pattern, repeated.
+// MODE 0: 16-byte words; 1: 4-byte words; 2: bytes (rows not a
+// multiple of 4 bytes long).
+template <int MODE>
 __global__ void init_rows_kernel(char* __restrict__ dst,
                                  const int* __restrict__ dst_idx,
                                  long long dst_rows, long long row_bytes,
@@ -90,16 +103,57 @@ __global__ void init_rows_kernel(char* __restrict__ dst,
   const int i = blockIdx.x;
   const long long l = blockIdx.y;
   char* row = dst + (l * dst_rows + dst_idx[i]) * row_bytes;
-  if (VEC) {
+  if (MODE == 0) {
     uint4 v = make_uint4(pattern, pattern, pattern, pattern);
     uint4* d = reinterpret_cast<uint4*>(row);
     long long n = row_bytes / 16;
     for (long long k = threadIdx.x; k < n; k += blockDim.x) d[k] = v;
-  } else {
+  } else if (MODE == 1) {
     unsigned int* d = reinterpret_cast<unsigned int*>(row);
     long long n = row_bytes / 4;
     for (long long k = threadIdx.x; k < n; k += blockDim.x) d[k] = pattern;
+  } else {
+    for (long long k = threadIdx.x; k < row_bytes; k += blockDim.x)
+      row[k] = static_cast<char>((pattern >> (8 * (k & 3))) & 0xFF);
   }
+}
+
+// dst[0:nbytes) <- src[0:nbytes), grid-stride
+template <bool VEC>
+__global__ void copy_flat_kernel(char* __restrict__ dst,
+                                 const char* __restrict__ src,
+                                 long long nbytes) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  long long head = 0;
+  if (VEC) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const long long n = nbytes / 16;
+    for (long long k = t; k < n; k += stride) d[k] = s[k];
+    head = n * 16;
+  }
+  for (long long k = head + t; k < nbytes; k += stride) dst[k] = src[k];
+}
+
+// dst[0:nbytes) <- the 32-bit pattern, repeated, grid-stride
+template <bool VEC>
+__global__ void fill_flat_kernel(char* __restrict__ dst, long long nbytes,
+                                 unsigned int pattern) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  long long head = 0;
+  if (VEC) {
+    const uint4 v = make_uint4(pattern, pattern, pattern, pattern);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const long long n = nbytes / 16;
+    for (long long k = t; k < n; k += stride) d[k] = v;
+    head = n * 16;
+  }
+  for (long long k = head + t; k < nbytes; k += stride)
+    dst[k] = static_cast<char>((pattern >> (8 * (k & 3))) & 0xFF);
 }
 
 bool aligned16(const void* a, const void* b, long long row_bytes) {
@@ -108,6 +162,23 @@ bool aligned16(const void* a, const void* b, long long row_bytes) {
 }
 
 constexpr int kThreads = 256;
+// flat kernels: at most this many blocks per SM, each thread then walks
+// the buffer with a grid stride
+constexpr int kFlatBlocksPerSM = 16;
+
+int flat_blocks(long long work) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  long long want = (work + kThreads - 1) / kThreads;
+  long long cap = static_cast<long long>(sms) * kFlatBlocksPerSM;
+  if (want < 1) want = 1;
+  return static_cast<int>(want < cap ? want : cap);
+}
 
 }  // namespace
 
@@ -146,18 +217,49 @@ extern "C" int rc_copy_rows(const void* src, const int* src_idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// row_bytes must be a multiple of 4 (the wrapper checks)
 extern "C" int rc_init_rows(void* dst, const int* dst_idx, long long dst_rows,
                             int n, int L, long long row_bytes,
                             unsigned int pattern, void* stream) {
   if (n <= 0 || L <= 0) return 0;
   dim3 grid(n, L);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (aligned16(dst, dst, row_bytes))
-    init_rows_kernel<true><<<grid, kThreads, 0, st>>>(
-        static_cast<char*>(dst), dst_idx, dst_rows, row_bytes, pattern);
+  char* d = static_cast<char*>(dst);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst) |
+                      static_cast<uintptr_t>(row_bytes);
+  if ((a & 15) == 0)
+    init_rows_kernel<0><<<grid, kThreads, 0, st>>>(d, dst_idx, dst_rows,
+                                                   row_bytes, pattern);
+  else if ((a & 3) == 0)
+    init_rows_kernel<1><<<grid, kThreads, 0, st>>>(d, dst_idx, dst_rows,
+                                                   row_bytes, pattern);
   else
-    init_rows_kernel<false><<<grid, kThreads, 0, st>>>(
-        static_cast<char*>(dst), dst_idx, dst_rows, row_bytes, pattern);
+    init_rows_kernel<2><<<grid, kThreads, 0, st>>>(d, dst_idx, dst_rows,
+                                                   row_bytes, pattern);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rc_copy_flat(const void* src, void* dst, long long nbytes,
+                            void* stream) {
+  if (nbytes <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (aligned16(src, dst, 0))
+    copy_flat_kernel<true><<<flat_blocks(nbytes / 16), kThreads, 0, st>>>(
+        static_cast<char*>(dst), static_cast<const char*>(src), nbytes);
+  else
+    copy_flat_kernel<false><<<flat_blocks(nbytes), kThreads, 0, st>>>(
+        static_cast<char*>(dst), static_cast<const char*>(src), nbytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rc_fill_flat(void* dst, long long nbytes, unsigned int pattern,
+                            void* stream) {
+  if (nbytes <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (aligned16(dst, dst, 0))
+    fill_flat_kernel<true><<<flat_blocks(nbytes / 16), kThreads, 0, st>>>(
+        static_cast<char*>(dst), nbytes, pattern);
+  else
+    fill_flat_kernel<false><<<flat_blocks(nbytes), kThreads, 0, st>>>(
+        static_cast<char*>(dst), nbytes, pattern);
   return static_cast<int>(cudaGetLastError());
 }

@@ -65,3 +65,13 @@ def pim_random_uniform(seed: Seed, n_rows: int, n_cols: int,
     """Uniform float32 in [0, 1) from the top 24 bits of each word."""
     bits = _random_bits(seed, n_rows, n_cols, device)
     return ((bits >> 8) & 0xFFFFFF).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def entropy_seed_from_trng(trng, stream: int = 0) -> Tuple[int, int]:
+    """Fold 64 true-random bits from the simulated-DRAM D-RaNGe TRNG
+    (:class:`repro_torch.core.drange.DRangeTRNG`) into a kernel seed:
+    the bridge between the paper's entropy source and the generator
+    kernel.  ``stream`` is xor-ed into the first word."""
+    words = trng.random_u32(2)
+    return ((int(words[0]) ^ int(stream)) & ref.MASK,
+            int(words[1]) & ref.MASK)

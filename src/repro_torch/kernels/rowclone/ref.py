@@ -7,7 +7,49 @@ the kernels are held against on the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def copy_2d(src: torch.Tensor) -> torch.Tensor:
+    """A fresh buffer holding ``src``'s values."""
+    return src.clone()
+
+
+def init_2d(shape, value, dtype: torch.dtype = torch.float32,
+            device=None) -> torch.Tensor:
+    """A fresh ``shape`` buffer of ``value`` in ``dtype`` (rounded and
+    cast as ``torch.tensor([value], dtype=dtype)`` casts it)."""
+    fill = torch.tensor([value], dtype=dtype)
+    return fill.to(device).expand(tuple(shape)).clone()
+
+
+def last_op_per_dst(dst_pages) -> np.ndarray:
+    """Indices of the ops that survive when duplicate destinations
+    resolve to the last op, in op order."""
+    dst = np.asarray(dst_pages).reshape(-1)
+    _, first_from_end = np.unique(dst[::-1], return_index=True)
+    return np.sort(dst.size - 1 - first_from_end)
+
+
+def page_copy(arena: torch.Tensor, src_pages: torch.Tensor,
+              dst_pages: torch.Tensor) -> torch.Tensor:
+    """``arena[dst[i]] <- arena[src[i]]`` on a (pages, ...) arena: every
+    source is read before any destination is written, and of several
+    ops with one destination the last wins.  (``index_put`` with
+    duplicate indices has no defined order, so they are resolved here.)"""
+    keep = torch.from_numpy(last_op_per_dst(dst_pages.cpu().numpy()))
+    src = src_pages.long()[keep.to(src_pages.device)]
+    dst = dst_pages.long()[keep.to(dst_pages.device)]
+    arena[dst] = arena[src]
+    return arena
+
+
+def page_init(arena: torch.Tensor, dst_pages: torch.Tensor,
+              value) -> torch.Tensor:
+    """``arena[dst[i]] <- value`` on a (pages, ...) arena."""
+    arena[dst_pages.long()] = torch.tensor(value, dtype=arena.dtype)
+    return arena
 
 
 def page_copy_batched(arena: torch.Tensor, src_pages: torch.Tensor,

@@ -12,12 +12,10 @@ only when the last one finished, so the system is never overloaded.
 This entry point is open-loop — arrivals follow a Poisson process at a
 fixed rate whatever the server is doing — and reports how much work
 completed within its SLO (goodput), how much was shed at admission, the
-latency percentiles, and what the radix prefix cache saved.
-
-Not printed yet: the JAX script's ``replay_speedup``, its replay of the
-recorded arena schedule on the simulated DDR3 device, which waits for
-the port of the model face and the trace (``record_trace=True`` and
-``replay_on_device``).
+latency percentiles, what the radix prefix cache saved, and
+``replay_speedup``: the run's recorded arena schedule replayed on the
+simulated DDR3 prototype (RowClone/Ambit against memcpy/calloc, the
+prototype's speedups, not the card's).
 """
 
 from __future__ import annotations
@@ -117,6 +115,7 @@ async def _amain(args) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import PagedEngine, Request
+    from repro_torch.serving.trace import replay_on_device
 
     dev = resolve_device(args.device)
     cfg = reduced(ARCHS[args.arch])
@@ -128,7 +127,7 @@ async def _amain(args) -> None:
         engine = PagedEngine(cfg, params, page_size=args.page_size,
                              num_pages=args.num_pages, device=dev,
                              max_prefill_chunk=args.chunk,
-                             prefix_cache=True)
+                             prefix_cache=True, record_trace=True)
         # warm up outside the timed trace
         engine.submit(Request(10**6, np.arange(args.prefix_len + args.tail_len)
                               % cfg.vocab_size, max_new_tokens=2))
@@ -148,6 +147,8 @@ async def _amain(args) -> None:
                          ("prefix_hits", "prefix_hit_tokens",
                           "prefix_evictions")}
         res["ops_saved"] = dict(engine.cache.queue.saved_by_kind)
+        rep = replay_on_device(engine.cache.trace)
+        res["replay_speedup"] = rep["speedup"]
         out.append(res)
         print(json.dumps(res, indent=1))
     print(json.dumps({"sweep": [

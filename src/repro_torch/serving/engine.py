@@ -92,10 +92,15 @@ Chunked prefill over Mamba layers splits prompts at multiples of
 ``cfg.ssm.chunk_size`` (the SSD chunk scan regroups exactly only
 there), so ``max_prefill_chunk`` must be one.
 
-Not in this slice (the constructor raises): caller-supplied libs, trace
-recording, device meshes, the eager prefill oracle, MLA attention and
-multi-group layouts (the last two with ``ValueError``, as the JAX
-package raises).
+A caller's :class:`~repro_torch.core.pimolib.TorchLib` (``lib=``) binds
+the cache's arenas and shares its op queue and launch accounting; with
+``record_trace=True`` the cache keeps a
+:class:`~repro_torch.serving.trace.PimTrace`, which the fused steps feed
+with their direct KV and state writes.
+
+Not in this slice (the constructor raises): device meshes, the eager
+prefill oracle, MLA attention and multi-group layouts (the last two
+with ``ValueError``, as the JAX package raises).
 """
 
 from __future__ import annotations
@@ -195,8 +200,6 @@ class PagedEngine:
                 "paged engine: mesh= serving is dense-only (SSM state "
                 "arenas and MoE routing are host-local)")
         for name, on in (("fused_prefill=False", not fused_prefill),
-                         ("lib", lib is not None),
-                         ("record_trace", record_trace),
                          ("mesh", mesh is not None),
                          ("compressed_collectives", compressed_collectives)):
             if on:
@@ -221,8 +224,12 @@ class PagedEngine:
         self.pcfg = pcfg or ParallelConfig(attention_impl="naive",
                                            remat="none")
         self.params = params
+        # lib: a caller's torch-face PimLib the cache binds its arenas to
+        # (shared op queue and launch accounting); record_trace: keep a
+        # PimTrace for model-face replay
         self.cache = PagedKVCache(cfg, num_pages=num_pages,
                                   page_size=page_size, device=self.device,
+                                  lib=lib, record_trace=record_trace,
                                   prefix_cache=prefix_cache)
         self.fused = fused
         self.max_prefill_chunk = max_prefill_chunk
@@ -426,7 +433,7 @@ class PagedEngine:
             seq = self.cache.seqs[r.req_id]
             start = seq.shared_prefix_pages * self.cache.page_size
             plan.append((i, seq, start, seq.length, 0))
-        scatter = self._scatter_plan(plan, sp, Bp)
+        scatter, kv_plan = self._scatter_plan(plan, sp, Bp)
         # the step reads the arena (shared prefixes): land the backlog,
         # eviction inits from create-time arena pressure included
         self.cache.flush_pending()
@@ -434,7 +441,9 @@ class PagedEngine:
             self.cfg, self.pcfg, self.params, self._tensor(toks),
             self._tensor(lens), self.cache.k_arena, self.cache.v_arena,
             scatter, self._state_round([reqs[i].req_id for i in idx], B))
-        self.cache.commit_fused_prefill()
+        self.cache.commit_fused_prefill(*kv_plan)
+        if self._has_ssm:
+            self.cache.state.record_fused_write([r.req_id for r in reqs])
         tokens = self._sample(logits, [reqs[i].temperature for i in idx])
         toks_np = tokens[:B].cpu().numpy()    # the batch's one transfer
         for i, r in enumerate(reqs):
@@ -451,11 +460,13 @@ class PagedEngine:
         flat index ``row * sp + pos - first`` of the forward's K/V
         (``first``: the position of the forward's first token).  Pad
         entries duplicate entry 0 (identical writes, a no-op).  Returns
-        (pages, slots, src), or ``None`` when the batch writes nothing
-        (every position shared, or no attention sublayer: a pure-SSM
-        model writes no KV)."""
+        ``(scatter, (pages, slots))``: the device operands (pages, slots,
+        src), ``None`` when the batch writes nothing (every position
+        shared, or no attention sublayer: a pure-SSM model writes no
+        KV), and the host lists of the positions written, for the
+        trace."""
         if not self._has_attn:
-            return None
+            return None, ([], [])
         pages: List[int] = []
         slots: List[int] = []
         src: List[int] = []
@@ -466,11 +477,12 @@ class PagedEngine:
             slots += s_i
             src += [row * sp + pos - first for pos in range(start, stop)]
         if not pages:
-            return None
+            return None, ([], [])
         pad = Bp * sp - len(pages)
-        return (self._tensor(pages + [pages[0]] * pad),
-                self._tensor(slots + [slots[0]] * pad),
-                self._tensor(src + [src[0]] * pad, torch.long))
+        return ((self._tensor(pages + [pages[0]] * pad),
+                 self._tensor(slots + [slots[0]] * pad),
+                 self._tensor(src + [src[0]] * pad, torch.long)),
+                (pages, slots))
 
     # ---------------- chunked prefill (decode-interleaved) ------------- #
 
@@ -581,9 +593,10 @@ class PagedEngine:
                                            lengths=[int(o) for o in offs])
         plan = [(i, self.cache.seqs[st.req.req_id], st.off, st.off + clen,
                  st.off) for i, (st, clen) in enumerate(batch) if st.write]
+        scatter, kv_plan = self._scatter_plan(plan, sc, Bp)
         return {"toks": self._tensor(toks), "lens": self._tensor(lens),
                 "offs": self._tensor(offs), "bt": bt, "plens": plens,
-                "scatter": self._scatter_plan(plan, sc, Bp),
+                "scatter": scatter, "kv_plan": kv_plan,
                 "temps": temps, "rids": rids, "n": B}
 
     def _chunk_forward(self, c: dict) -> torch.Tensor:
@@ -627,7 +640,10 @@ class PagedEngine:
         c = self._chunk_operands(batch, sc)
         logits = self._chunk_forward(c)
         tokens = self._sample(logits, c["temps"])
-        self.cache.commit_fused_prefill()
+        self.cache.commit_fused_prefill(*c["kv_plan"])
+        if self._has_ssm:
+            self.cache.state.record_fused_write(
+                [st.req.req_id for st, _ in batch])
         self.stats["prefill_chunks"] += len(batch)
         self.stats["fused_prefill_dispatches"] += 1
         return self._finish_chunks(batch, tokens)
@@ -690,8 +706,15 @@ class PagedEngine:
             self.cache.k_arena, self.cache.v_arena, d_bt, d_lens, d_pages,
             d_slots, self._state_round(prids, B))
         d_tokens = self._sample(d_logits, d_temps)
-        self.cache.commit_fused_prefill(kind=None)
-        self.cache.commit_fused_round(d_rids, kind=None)
+        self.cache.commit_fused_prefill(*c["kv_plan"], kind=None)
+        self.cache.commit_fused_round(d_rids, kind=None,
+                                      wrote_kv=self._has_attn)
+        if self._has_ssm:
+            # both halves' state writes: the chunk rows' prefill state
+            # and the decode rows' round state (one fused launch)
+            self.cache.state.record_fused_write(
+                [st.req.req_id for st, _ in batch])
+            self.cache.state.record_fused_write(d_rids)
         # the whole round, chunk scatter included, was one launch
         self.cache.queue.count_external("fused_mixed")
         self.stats["prefill_chunks"] += len(batch)
@@ -768,7 +791,9 @@ class PagedEngine:
             self._state_round(prids, B))
         tokens = self._sample(logits,
                               [self.active[r].temperature for r in prids])
-        self.cache.commit_fused_round(rids)
+        self.cache.commit_fused_round(rids, wrote_kv=self._has_attn)
+        if self._has_ssm:
+            self.cache.state.record_fused_write(rids)
         self.stats["fused_dispatches"] += 1
         return tokens[:B].cpu().numpy()
 
@@ -854,7 +879,10 @@ class PagedEngine:
                     break
             counts.append(n_i)
         consumed = max(counts)
-        self.cache.commit_fused_block(rids, counts)
+        self.cache.commit_fused_block(rids, counts, rounds=consumed,
+                                      wrote_kv=self._has_attn)
+        if self._has_ssm:
+            self.cache.state.record_fused_write(rids, rounds=consumed)
         self.stats["decode_rounds"] += consumed
         self.stats["tokens_out"] += sum(counts)
         self.stats["multi_round_blocks"] += 1

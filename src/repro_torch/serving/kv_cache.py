@@ -38,8 +38,14 @@ scatter their KV themselves and report it with
 :meth:`PagedKVCache.commit_fused_block` and
 :meth:`PagedKVCache.commit_fused_prefill`.
 
-Not in this slice (the constructor raises for them): trace recording
-and device meshes.
+With ``record_trace=True`` the cache keeps a
+:class:`repro_torch.serving.trace.PimTrace` of every coalesced mutation
+batch (the queue's flush hook) and of the fused steps' direct writes,
+prefix hits and zero scans, which
+:func:`repro_torch.serving.trace.replay_on_device` prices on the
+simulated DDR3 prototype.
+
+Not in this slice (the constructor raises for it): device meshes.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from repro_torch.kernels.ambit import ops as amb_ops
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import transformer as T
 from .prefix_cache import RadixPrefixCache
+from .trace import PimTrace
 
 
 @dataclass
@@ -97,7 +104,7 @@ class PagedStateArena:
     themselves; only the eager oracle writes through the queue."""
 
     def __init__(self, cfg: ModelConfig, *, num_slots: int, queue, lib,
-                 device: torch.device,
+                 device: torch.device, trace: Optional[PimTrace] = None,
                  dtype: torch.dtype = torch.bfloat16) -> None:
         G, M = _mamba_layout(cfg)
         if M == 0:
@@ -114,6 +121,9 @@ class PagedStateArena:
                                device=device)
         self.queue = queue
         self.lib = lib
+        self.trace = trace
+        if trace is not None:
+            trace.num_state_rows = num_slots
         self.rows: Dict[int, int] = {}         # seq_id -> slot
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         queue.register_kind("ssm_state_write", self._flush_write)
@@ -188,6 +198,23 @@ class PagedStateArena:
     def rows_in_use(self) -> int:
         return len(self.rows)
 
+    def _row_bytes(self) -> int:
+        """Bytes of one slot across the whole depth (conv + SSD state)."""
+        G, M = self.conv.shape[:2]
+        conv_elems = int(np.prod(self.conv.shape[3:]))
+        ssm_elems = int(np.prod(self.ssm.shape[3:]))
+        return G * M * (conv_elems * self.conv.element_size()
+                        + ssm_elems * self.ssm.element_size())
+
+    def record_fused_write(self, seq_ids: Seq[int], *,
+                           rounds: int = 1) -> None:
+        """A fused step wrote these sequences' rows itself: give the
+        trace its state-write event."""
+        if self.trace is not None and seq_ids:
+            rows = self.rows_for(seq_ids)
+            self.trace.record_state_write(
+                rows, nbytes=len(rows) * self._row_bytes(), rounds=rounds)
+
     # -- mutation and read entry points ---------------------------------- #
 
     def write(self, seq_ids: Seq[int], conv: torch.Tensor,
@@ -223,11 +250,9 @@ class PagedKVCache:
                  record_trace: bool = False, mesh=None,
                  prefix_cache: bool = False, zero_scan: bool = False,
                  state_slots: Optional[int] = None):
-        for name, on in (("record_trace", record_trace),
-                         ("mesh", mesh is not None)):
-            if on:
-                raise NotImplementedError(
-                    f"PagedKVCache({name}=...) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("PagedKVCache(mesh=...) is not ported "
+                                      "yet")
         if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
                 or cfg.mla is not None:
             raise NotImplementedError(
@@ -251,6 +276,11 @@ class PagedKVCache:
             lib = TorchLib(buffers=[k0, v0], layered=True,
                            allocator=self.allocator, deferred=True)
         else:
+            if lib.face != "torch":
+                raise ValueError(
+                    f"PagedKVCache needs a torch-face PimLib, got "
+                    f"{lib.face!r} (replay a recorded trace for model-face "
+                    "accounting)")
             lib.adopt_buffers([k0, v0], layered=True,
                               allocator=self.allocator)
         self.lib = lib
@@ -276,6 +306,14 @@ class PagedKVCache:
             self.prefix = RadixPrefixCache(
                 page_size, retain=self._retain_page,
                 release=self._release_evicted_prefix_page)
+        self.trace: Optional[PimTrace] = None
+        if record_trace:
+            self.trace = PimTrace(num_pages=num_pages, num_slabs=num_slabs,
+                                  page_size=page_size,
+                                  kv_itemsize=k0.element_size())
+        # always (re)bind, so a lib reused from an earlier cache does not
+        # keep recording into that cache's trace
+        self.queue.trace = self.trace
         # ssm and hybrid layouts: one state row per sequence, beside the
         # KV pair (not among the lib's buffers: the kv_write flush is a
         # (k, v) contract); the arena binds its own queue kinds
@@ -283,7 +321,8 @@ class PagedKVCache:
         if _mamba_layout(cfg)[1] > 0:
             self.state = PagedStateArena(
                 cfg, num_slots=state_slots or num_pages, queue=self.queue,
-                lib=self.lib, device=self.device, dtype=dtype)
+                lib=self.lib, device=self.device, trace=self.trace,
+                dtype=dtype)
 
     # the arenas live on the lib (a shared lib sees every mutation)
     @property
@@ -386,6 +425,8 @@ class PagedKVCache:
             z = amb_ops.pim_page_zero_scan(buf, idx)
             flags = z if flags is None else (flags & z)
         self.queue.count_external("page_zero_scan", len(self.lib.buffers))
+        if self.trace is not None:
+            self.trace.record_zero_scan(idx)
         return flags.cpu().numpy()
 
     # ------------------------- sequence API ---------------------------- #
@@ -433,6 +474,10 @@ class PagedKVCache:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_hit_tokens"] += seq.length
             self.queue.record_saved("kv_write", seq.length)
+            if self.trace is not None:
+                # the bulk page copy the hit stands in for
+                self.trace.record_prefix_hit(
+                    shared_pages, nbytes=seq.length * self._kv_tok_bytes())
         while seq.length < prompt_len:
             seq.pages.append(self._alloc_page(
                 near=seq.pages[-1] if seq.pages else None))
@@ -517,6 +562,19 @@ class PagedKVCache:
             seq.pages.append(self._alloc_page(
                 near=seq.pages[-1] if seq.pages else None))
 
+    def append_token_kv(self, seq: Sequence, k: torch.Tensor,
+                        v: torch.Tensor) -> None:
+        """One token through the queue: k, v (layers, kvh, hd) at
+        ``seq.length``.  A shared partial tail is CoW-copied first; the
+        flush lands the copy before the write."""
+        self.ensure_writable_tail(seq)
+        page = seq.pages[-1]
+        slot = seq.length % self.page_size
+        self.queue.admit("kv_write", (page,), self.lib.flush)
+        self.queue.enqueue_kv_write(page, slot, k, v)
+        self.flush_pending()
+        seq.length += 1
+
     def write_token_kv_batch(self, seq_ids: List[int], k: torch.Tensor,
                              v: torch.Tensor) -> None:
         """Decode-round bulk append through the queue: k, v (layers,
@@ -596,37 +654,70 @@ class PagedKVCache:
                     len(freed) - int(np.count_nonzero(flags)))
         return n
 
+    def _kv_tok_bytes(self) -> int:
+        """Bytes of one token's KV across the whole depth (k and v)."""
+        return (2 * self.n_layers * self.cfg.num_kv_heads
+                * self.cfg.resolved_head_dim * self.k_arena.element_size())
+
     def commit_fused_round(self, seq_ids: List[int], *,
-                           kind: Optional[str] = "fused_decode") -> None:
+                           kind: Optional[str] = "fused_decode",
+                           wrote_kv: bool = True) -> None:
         """The engine's fused decode round scattered each sequence's new
-        token KV into the arenas itself: advance the lengths and count
-        the round's one launch under ``kind`` (``None``: the mixed
-        round, which the engine counts once as ``fused_mixed``)."""
+        token KV into the arenas itself: record the writes in the trace,
+        advance the lengths and count the round's one launch under
+        ``kind`` (``None``: the mixed round, which the engine counts once
+        as ``fused_mixed``).  ``wrote_kv=False`` (a pure-SSM model: no
+        attention sublayer touched the arenas) records no KV traffic."""
+        if self.trace is not None and wrote_kv:
+            pages = [self.seqs[sid].pages[-1] for sid in seq_ids]
+            slots = [self.seqs[sid].length % self.page_size
+                     for sid in seq_ids]
+            self.trace.record_kv_write(pages, slots,
+                                       len(seq_ids) * self._kv_tok_bytes())
         for sid in seq_ids:
             self.seqs[sid].length += 1
         if kind is not None:
             self.queue.count_external(kind)
 
     def commit_fused_block(self, seq_ids: List[int], counts: List[int], *,
+                           rounds: int = 1,
                            kind: Optional[str] = "fused_decode_block",
-                           ) -> None:
+                           wrote_kv: bool = True) -> None:
         """The engine's K-round decode block scattered its KV itself:
         advance each sequence by the ``counts[i]`` tokens it emitted
         before its in-block stop (EOS or budget) and count the block's
         one launch.  Capacity for the whole block was reserved with
         :meth:`reserve_tokens`; slots past a row's count hold what they
-        held before the block (the masked write-back)."""
+        held before the block (the masked write-back), so only the real
+        writes reach the trace, as one event stamped with the block's
+        ``rounds``."""
+        if self.trace is not None and wrote_kv:
+            pages: List[int] = []
+            slots: List[int] = []
+            for sid, n in zip(seq_ids, counts):
+                seq = self.seqs[sid]
+                for pos in range(seq.length, seq.length + n):
+                    pages.append(seq.pages[pos // self.page_size])
+                    slots.append(pos % self.page_size)
+            self.trace.record_kv_write(pages, slots,
+                                       len(pages) * self._kv_tok_bytes(),
+                                       rounds=rounds)
         for sid, n in zip(seq_ids, counts):
             self.seqs[sid].length += n
         if kind is not None:
             self.queue.count_external(kind)
 
-    def commit_fused_prefill(self, *,
+    def commit_fused_prefill(self, pages: Seq[int] = (),
+                             slots: Seq[int] = (), *,
                              kind: Optional[str] = "fused_prefill") -> None:
         """The engine's fused prefill or chunk batch scattered its prompt
-        KV itself (lengths were set at ``create``): count the batch's
-        one launch under ``kind`` (``None``: the chunk half of a mixed
-        round)."""
+        KV itself (lengths were set at ``create``): record the positions
+        it wrote (``pages``/``slots``, shared-prefix positions excluded)
+        in the trace and count the batch's one launch under ``kind``
+        (``None``: the chunk half of a mixed round)."""
+        if self.trace is not None and len(pages):
+            self.trace.record_kv_write(pages, slots,
+                                       len(pages) * self._kv_tok_bytes())
         if kind is not None:
             self.queue.count_external(kind)
 

@@ -243,12 +243,13 @@ def test_block_reservation_and_fused_commits_match_jax():
 
 
 def test_cache_refuses_what_is_not_ported():
-    """Trace recording, meshes, MLA and the VLM family still raise;
-    ``state_slots`` is served (a dense cache has no state arena)."""
+    """Meshes, MLA and the VLM family still raise; ``state_slots`` and
+    trace recording are served (a dense cache has no state arena)."""
     cfg = reduced(ARCHS["granite-3-8b"], num_layers=2)
-    for kw in (dict(record_trace=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            PagedKVCache(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        PagedKVCache(cfg, device="cpu", mesh=object())
+    assert PagedKVCache(cfg, device="cpu", record_trace=True).trace.events \
+        == []
     for arch in ("deepseek-v2-236b", "llava-next-34b"):
         with pytest.raises(NotImplementedError):
             PagedKVCache(reduced(ARCHS[arch]), device="cpu")
