@@ -19,7 +19,9 @@ exits nonzero:
    ``-0.0``; ``state_scatter`` on mamba2-1.3b's 2 MiB SSD-state rows and
    its conv rows, bit for bit, beside the state arena's row copy and
    init; the attention kernels at jamba's 64/8 and llama4-scout's 40/8
-   heads; the RowClone API's ``copy_2d`` and ``init_2d`` on
+   heads, with ptxas's registers and spills for each attention kernel
+   and the count of tensor-core instructions in the built libraries'
+   SASS (flash attention's must hold HMMA); the RowClone API's ``copy_2d`` and ``init_2d`` on
    granite-3-8b's full K arena (1.34 GB of bf16; ``init_2d`` also at an
    odd bf16 length and in int8) and ``page_copy`` / ``page_init`` on one
    layer of it, bit for bit, a chained batch and a duplicate
@@ -92,6 +94,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -172,6 +176,7 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def parity(dev) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels.drange import ops as dr_ops
     from repro_torch.kernels.drange import ref as dr_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -304,8 +309,21 @@ def parity(dev) -> dict:
     mask = ((pos[None] < lens[:, None]) | (pos[None] == maxlen))
     mask = mask[:, None, None, :]
     q4 = q[:, :, None]
+    # the bare launch, its operands already made (no wrapper host work)
+    npart = pa_ops.num_partitions(width, S)
+    o_bare = torch.empty_like(q)
+    scratch = torch.empty((B, KVH, npart, H // KVH, D + 2),
+                          dtype=torch.float32, device=dev)
+    bare = (q.data_ptr(), k_ar.data_ptr(), v_ar.data_ptr(), bt.data_ptr(),
+            lens.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
+            o_bare.data_ptr(), None, None, scratch.data_ptr(),
+            pa_ops._tickets(dev, B * KVH).data_ptr(), B, H, KVH, D, S,
+            width, npart, pa_ops.PARTITION_TOKENS, D ** -0.5, 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    pa_lib = _build.load("paged_attention")
     rows["paged_attention"] = dict(
         max_abs_err=err,
+        kernel_only_ms=time_ms(lambda: pa_lib.pa_paged_attention(*bare)),
         ms=time_ms(lambda: pa_ops.paged_attention(*args, **kw)),
         plain_ms=time_ms(lambda: pa_ref.paged_attention(*args, **kw)),
         bound_ms=nb, bound_by=by,
@@ -334,8 +352,16 @@ def parity(dev) -> dict:
     fmask = (col[None, :] <= col[:, None])[None] \
         & (col[None, None, :] < flens[:, None, None])
     fmask = fmask[:, None]
+    fa_lib = _build.load("flash_attention")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    o_bare = torch.empty_like(qf)
+    bare = (qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), flens.data_ptr(),
+            None, None, None, o_bare.data_ptr(), Bf, H, KVH, Sf, Sf, 0, D, 1,
+            D ** -0.5, 0, 0, 0, 0, stream)
     rows["flash_attention"] = dict(
         max_abs_err=err,
+        kernel_only_ms=time_ms(lambda: fa_lib.fa_flash_attention(*bare),
+                               iters=10),
         ms=time_ms(lambda: fa_ops.attention(qf, kf, vf, causal=True,
                                             lengths=flens), iters=10),
         plain_ms=time_ms(lambda: fa_ref.attention(qf, kf, vf, causal=True,
@@ -385,8 +411,15 @@ def parity(dev) -> dict:
                         col[None, None, :] < plens[:, None, None],
                         (cc <= row[None]) & (cc < clens[:, None, None]))
     pmask = pmask[:, None]
+    o_bare = torch.empty_like(qc)
+    bare = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), clens.data_ptr(),
+            kp.data_ptr(), vp.data_ptr(), plens.data_ptr(), o_bare.data_ptr(),
+            Bf, H, KVH, Sc, Sc, W * S, D, 1, D ** -0.5, 0, *kp.stride()[:3],
+            stream)
     rows["flash_attention_prefix"] = dict(
         max_abs_err=err,
+        kernel_only_ms=time_ms(lambda: fa_lib.fa_flash_attention(*bare),
+                               iters=10),
         ms=time_ms(lambda: fa_ops.attention(qc, kc, vc, **pkw), iters=10),
         plain_ms=time_ms(lambda: fa_ref.attention(qc, kc, vc, **pkw),
                          iters=10),
@@ -417,6 +450,7 @@ def parity(dev) -> dict:
     rows.update(ambit_parity(dev, randn, L, P, S, E))
     rows.update(ssm_parity(dev))
     rows["attention_hybrid_heads"] = attention_heads_parity(dev, randn)
+    rows["attention_build"] = attention_build_info()
     return rows
 
 
@@ -603,6 +637,86 @@ def ssm_parity(dev) -> dict:
     row = rows_out.pop("ssm")
     row["conv"] = rows_out.pop("conv")
     return {"state_scatter": row, "state_rows": rows_out}
+
+
+def _tool(name: str):
+    found = shutil.which(name)
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin") / name
+    return str(cand) if cand.exists() else None
+
+
+def _demangle(names):
+    tool = _tool("c++filt")
+    if not names or tool is None:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    got = out.stdout.splitlines()
+    return got if out.returncode == 0 and len(got) == len(names) \
+        else list(names)
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, spill bytes and shared memory per kernel from ptxas's
+    ``-v`` report."""
+    kernels, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = kernels.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_store_bytes"] = int(m.group(1))
+            cur["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["static_smem_bytes"] = int(m.group(1))
+    names = [re.sub(r"^void |\(.*", "",
+                    n.replace("(anonymous namespace)::", ""))
+             for n in _demangle(list(kernels))]
+    return dict(zip(names, kernels.values()))
+
+
+def attention_build_info() -> dict:
+    """Phase 2: what ptxas reports for the two attention kernels, and the
+    count of tensor-core instructions (HMMA, HGMMA) in each built
+    library's SASS (``cuobjdump -sass``, where the toolkit has it).  The
+    flash library must hold HMMA: its bf16 route runs on the tensor
+    cores."""
+    from repro_torch.kernels import _build
+
+    out = {}
+    for name in ("flash_attention", "paged_attention"):
+        row = {"ptxas": ptxas_report(_build.build_log(name))}
+        tool = _tool("cuobjdump")
+        if tool is None:
+            row["sass"] = "not measured (no cuobjdump)"
+        else:
+            sass = subprocess.run([tool, "-sass",
+                                   str(_build.library_path(name))],
+                                  capture_output=True, text=True,
+                                  timeout=300).stdout
+            row["sass"] = {op: sum(1 for ln in sass.splitlines()
+                                   if f" {op}." in ln or f" {op} " in ln)
+                           for op in ("HMMA", "HGMMA", "LDSM", "LDGSTS")}
+        out[name] = row
+    sass = out["flash_attention"]["sass"]
+    if isinstance(sass, dict) and sass["HMMA"] + sass["HGMMA"] == 0:
+        raise AssertionError("flash attention's library holds no "
+                             "tensor-core instruction")
+    spills = [k for row in out.values() for k, v in row["ptxas"].items()
+              if v.get("spill_store_bytes", 0)]
+    out["spilling_kernels"] = spills
+    return out
 
 
 def attention_heads_parity(dev, randn) -> dict:
@@ -1290,7 +1404,7 @@ def trace_ssm(dev) -> dict:
 def _kernel_group(name: str) -> str:
     """A device event's group for the trace's breakdown."""
     n = name.lower()
-    for key, group in (("flash_kernel", "flash_attention"),
+    for key, group in (("flash_", "flash_attention"),
                        ("paged", "paged_attention"),
                        ("drange", "random_u32"),
                        ("state_scatter", "state_scatter"),

@@ -5,10 +5,13 @@ use, on the machine with the card, into a shared library loaded with
 ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-        -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so <name>.cu
+        -Xcompiler -fPIC -Xptxas -v \\
+        -o build/repro_torch/lib<name>-<hash>.so <name>.cu
 
 The library's name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing here runs at
+rebuilt and a stale library is never loaded.  ptxas's report (registers,
+spills and shared memory of each kernel) is kept beside the library as
+``lib<name>-<hash>.log``.  Nothing here runs at
 import time: the package imports, and its CPU paths run, on a machine
 without ``nvcc``.  A failed build raises.
 """
@@ -30,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("rowclone", "paged_attention", "flash_attention", "drange",
            "ambit", "ssm_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,7 +52,8 @@ SIGNATURES = {
     },
     "paged_attention": {
         "pa_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                               _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _I, _P],
     },
     "flash_attention": {
         "fa_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -113,10 +117,18 @@ def build(names: Iterable[str] = SOURCES) -> float:
             os.unlink(tmp)
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            library_path(name).with_suffix(".log").write_text(log)
             os.replace(tmp, library_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas's report) for the current library of
+    ``csrc/<name>.cu``, or "" if it was built before the log was kept."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

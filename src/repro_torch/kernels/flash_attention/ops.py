@@ -6,6 +6,10 @@ version in :mod:`.ref`; on a CUDA tensor it launches the kernel or
 raises, in every mode: plain, ``lengths``, and the prefix-KV mode of
 chunked prefill.  The prefix-KV mode counts its launches under
 ``flash_attention_prefix``.
+
+Two routes, by dtype: bf16 (the serving path) runs its products on the
+tensor cores (``mma.sync``; P is rounded to bf16 for P.V, as FA2 does),
+fp32 runs the CUDA-core kernel in fp32 throughout.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"unsupported heads/dim: H={H} KVH={KVH} D={D}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share a bf16 or fp32 dtype")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_words(t.contiguous()) for t in (q, k, v))
     lens = None
     if lengths is not None:
         lens = lengths.to(torch.int32).contiguous()
@@ -70,6 +74,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), copied if it does not start on a 16-byte
+    boundary: the bf16 route reads its rows as 16-byte words."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _prefix_operands(q, kvh, k_prefix, v_prefix, prefix_lengths,
                      lens) -> dict:
     """Pointers, length and element strides of the prefix-KV operands
@@ -92,13 +102,20 @@ def _prefix_operands(q, kvh, k_prefix, v_prefix, prefix_lengths,
                          "and a contiguous head dim")
     if k_prefix.dtype != q.dtype or v_prefix.dtype != q.dtype:
         raise TypeError("the prefix must share q's dtype")
+    if any(st % 8 for st in k_prefix.stride()[:3]) \
+            or k_prefix.data_ptr() % 16 or v_prefix.data_ptr() % 16:
+        # the bf16 route reads key rows as 16-byte words
+        k_prefix, v_prefix = k_prefix.contiguous(), v_prefix.contiguous()
+        k_prefix, v_prefix = _words(k_prefix), _words(v_prefix)
     if k_prefix.device != q.device or v_prefix.device != q.device:
         raise ValueError("the prefix must be on q's device")
     plens = prefix_lengths.to(torch.int32).contiguous()
     if plens.shape != (B,) or plens.device != q.device:
         raise ValueError("prefix_lengths must be (B,) on q's device")
-    # keep the int32 copy alive until the launch is enqueued
+    # keep the int32 copy (and any aligned copy) alive until the launch
+    # is enqueued
     return {"ptrs": (k_prefix.data_ptr(), v_prefix.data_ptr(),
                      plens.data_ptr()),
             "Sp": k_prefix.shape[2],
-            "strides": tuple(k_prefix.stride()[:3]), "plens": plens}
+            "strides": tuple(k_prefix.stride()[:3]),
+            "keep": (k_prefix, v_prefix, plens)}

@@ -5,7 +5,11 @@ fp32, with the same causal, ``lengths`` and prefix-KV masks.
 One difference from the JAX reference, kept on purpose: a row with no
 unmasked key gives 0 here (as the CUDA kernel does) where the JAX
 reference gives the mean of ``v``.  The serving path never forms such a
-row (``lengths >= 1`` under the causal mask)."""
+row (``lengths >= 1`` under the causal mask).
+
+``round_p=True`` rounds the softmax weights P to bf16 before P.V, as the
+kernel's tensor-core route does (the row sum stays fp32); the tests use
+it to show that rounding fits the card's tolerance."""
 
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               lengths: Optional[torch.Tensor] = None,
               k_prefix: Optional[torch.Tensor] = None,
               v_prefix: Optional[torch.Tensor] = None,
-              prefix_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+              prefix_lengths: Optional[torch.Tensor] = None,
+              round_p: bool = False) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, KVH, Sk, D).  With ``k_prefix`` /
     ``v_prefix`` (B, KVH, Sp, D) the queries also attend the prefix in
     full, masked per row by ``prefix_lengths`` only."""
@@ -64,6 +69,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
+    if round_p:
+        p = p.to(torch.bfloat16).float()
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     out = out / torch.where(l == 0.0, torch.ones_like(l), l)
     return out.to(q.dtype)

@@ -4,13 +4,16 @@ The port's counterpart of ``paged_attention_inline`` in the JAX
 package's ``kernels/paged_attention/ops.py``.  On a CPU tensor it runs
 the plain version in :mod:`.ref`; on a CUDA tensor it launches the
 kernel or raises.  Nothing here reads ``lengths`` or ``block_tables`` on
-the host: the kernel takes them as device operands, so no launch
-specialises on their values.
+the host: the kernel takes them as device operands, and its grid of
+(B, KVH, partitions) comes from the block table's width, so no launch
+specialises on their values.  One launch a call: the kernel splits each
+sequence into partitions of :data:`PARTITION_TOKENS` and its last block
+per (sequence, kv head) merges them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -18,6 +21,27 @@ from repro_torch.kernels import _build, count_launch
 from . import ref
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+#: tokens of a sequence one block of the kernel attends (a multiple of 64)
+PARTITION_TOKENS = 128
+
+# per device: the kernel's merge tickets, zero between launches (each
+# launch's merging blocks reset theirs), grown on demand
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+def num_partitions(max_pages: int, page_size: int) -> int:
+    """The grid's partition count: from the block table's width (a host
+    shape), never from ``lengths``."""
+    return max(1, -(-max_pages * page_size // PARTITION_TOKENS))
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
@@ -63,6 +87,9 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
     if not (q.is_contiguous() and k_arena.is_contiguous()
             and v_arena.is_contiguous()):
         raise ValueError("q and the arenas must be contiguous")
+    if k_arena.data_ptr() % 16 or v_arena.data_ptr() % 16:
+        raise ValueError("the arenas must be 16-byte aligned (the kernel "
+                         "reads them by 16-byte words)")
     bt = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     if bt.shape[0] != B or lens.shape != (B,):
@@ -74,14 +101,20 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
     if return_lse:
         m = torch.empty((B, H), dtype=torch.float32, device=q.device)
         l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    npart = num_partitions(bt.shape[1], S)
+    # the partitions' (m, l, acc), merged in the same launch
+    scratch = torch.empty((B, KVH, npart, H // KVH, D + 2),
+                          dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, B * KVH)
     lib = _build.load("paged_attention")
     _build.check(lib.pa_paged_attention(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), bt.data_ptr(),
         lens.data_ptr(), k_self.data_ptr() if k_self is not None else None,
         v_self.data_ptr() if v_self is not None else None, out.data_ptr(),
         m.data_ptr() if m is not None else None,
-        l.data_ptr() if l is not None else None, B, H, KVH, D, S,
-        bt.shape[1], float(sm_scale), _DTYPES[dtype],
+        l.data_ptr() if l is not None else None, scratch.data_ptr(),
+        tickets.data_ptr(), B, H, KVH, D, S, bt.shape[1], npart,
+        PARTITION_TOKENS, float(sm_scale), _DTYPES[dtype],
         torch.cuda.current_stream(q.device).cuda_stream), "paged_attention")
     count_launch("paged_attention")
     if return_lse:
