@@ -25,7 +25,11 @@ exits nonzero:
    granite-3-8b's full K arena (1.34 GB of bf16; ``init_2d`` also at an
    odd bf16 length and in int8) and ``page_copy`` / ``page_init`` on one
    layer of it, bit for bit, a chained batch and a duplicate
-   destination included;
+   destination included; the (K, V) pair forms of ``kv_scatter`` and
+   ``page_init_batched`` bit for bit, timed against the two single
+   calls they replace and two library calls, and the bare launches
+   (``kernel_only_ms``) of ``kv_scatter``, ``page_init_batched`` and
+   ``page_init``;
 13. RowClone against memcpy and calloc (run right after phase 2):
     ``pim_copy`` against ``Tensor.clone()`` and ``pim_init(..., 0)``
     against ``torch.zeros`` from 8 KiB to 1 GiB with each time's share
@@ -46,9 +50,12 @@ exits nonzero:
    zeroed and read around it, and mixed rounds, decode blocks, the
    generator and the prefix mode of flash attention must all have run;
 5. trace: ``torch.profiler`` over one mixed round and one decode block
-   of the same workload, the card's busy time by kernel group; then the
-   same over a decode round and a decode block of mamba2-1.3b (phase
-   10's model and prompts);
+   of the same workload, the card's busy time by kernel group, then
+   over a replayed decode round and a replayed decode block of phase
+   3's workload (each one replay of its captured graph: the host's
+   calls that put work on the card against the device events it ran);
+   then the same replays for mamba2-1.3b (phase 10's model and
+   prompts);
 6. chunked against monolithic prefill: first-token logits of the two
    paths at full depth, printed as drawn and held within ``LOGIT_ATOL``
    with every ``wq`` scaled by 0.01 (see the function);
@@ -77,12 +84,22 @@ exits nonzero:
 12. mamba2-1.3b cut to 2 layers at full width on the card and on the
     CPU from identical weights: prefill and teacher-forced decode
     logits;
+15. CUDA graphs (after phase 12, before phase 5's profiler): phase 3's
+    workload on granite-3-8b and phase 10(a)'s on mamba2-1.3b, each at
+    full width and depth, twice in one process — ``cuda_graphs=False``
+    then ``True`` — with identical greedy streams, ``launches_by_kind``
+    deltas and kernel launch counts required; both decode-round
+    medians, the step-cache misses (``jit_traces``) and capture seconds,
+    and (printed after phase 5) each model's profiled replay;
 14. trace and replay (after phase 8): phase 3's workload with
     ``record_trace=True`` at full depth (each kind's trace events equal
     its flushes), replayed on the simulated DDR3 prototype — its
     RowClone-vs-CPU totals and speedups are the prototype's
     nanoseconds, not the card's — then the same workload at 2 layers on
     the card and on the CPU, whose traces and replays must be equal.
+
+Every serving phase runs with the engine's default ``cuda_graphs=True``:
+its decode rounds and K-block rounds replay captured graphs.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels' JSON summary, and ``{"ok": true, "device": {...}}``.  Without a
@@ -211,21 +228,62 @@ def parity(dev) -> dict:
     torch.cuda.synchronize()
     if not same_bits(got.view(L, P, S, E), want):
         raise AssertionError("kv_scatter disagrees with its plain version")
+    # the pair form: the V arena and its payload, pad rows duplicated too
+    v_arena = randn(L, P, S, KVH, D)
+    v_new = randn(L, B, KVH, D)
+    v_new[:, 6] = v_new[:, 0]
+    v_new[:, 7] = v_new[:, 1]
+    want_v = rc_ref.kv_scatter(v_arena.clone().view(L, P, S, E), pages,
+                               slots, v_new.view(L, B, E))
+    got_k, got_v = arena.clone(), v_arena.clone()
+    rc_ops.kv_scatter_pair_inline(got_k, got_v, pages, slots, new, v_new)
+    torch.cuda.synchronize()
+    if not (same_bits(got_k.view(L, P, S, E), want)
+            and same_bits(got_v.view(L, P, S, E), want_v)):
+        raise AssertionError("kv_scatter (pair) disagrees with its plain "
+                             "version")
+    del want, got, want_v, got_k, got_v
     work = arena.clone()
+    work_v = v_arena.clone()
     flat = work.view(L, P * S, E)
+    flat_v = work_v.view(L, P * S, E)
     flat_idx = (pages.long() * S + slots.long())
     nb, by = bound(2 * L * len(set(zip(pages_l, slots_l))) * E * 2
                    + 2 * B * 4, 0)
+    rc_lib = _build.load("rowclone")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the bare launches: one arena, and the (K, V) pair
+    bare = (work.data_ptr(), work.data_ptr(), new.data_ptr(), new.data_ptr(),
+            1, pages.data_ptr(), slots.data_ptr(), L, B, P, S, E * 2, stream)
+    bare_pair = (work.data_ptr(), work_v.data_ptr(), new.data_ptr(),
+                 v_new.data_ptr(), 2, pages.data_ptr(), slots.data_ptr(), L,
+                 B, P, S, E * 2, stream)
+    # every serving caller writes a (K, V) pair in one launch, so the row
+    # reports the pair form; the one-arena call and the two one-arena
+    # calls the pair replaced stand beside it
     rows["kv_scatter"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: rc_ops.kv_scatter_inline(work, pages, slots,
-                                                    new)),
-        plain_ms=time_ms(lambda: rc_ref.kv_scatter(
-            work.view(L, P, S, E), pages, slots, new.view(L, B, E))),
-        bound_ms=nb, bound_by=by,
-        library_ms=time_ms(lambda: flat.index_copy_(1, flat_idx,
-                                                    new.view(L, B, E))))
-    del want, got
+        ms=time_ms(lambda: rc_ops.kv_scatter_pair_inline(
+            work, work_v, pages, slots, new, v_new)),
+        kernel_only_ms=time_ms(lambda: rc_lib.rc_kv_scatter(*bare_pair)),
+        plain_ms=time_ms(lambda: rc_ref.kv_scatter_pair(
+            work.view(L, P, S, E), work_v.view(L, P, S, E), pages, slots,
+            new.view(L, B, E), v_new.view(L, B, E))),
+        bound_ms=2 * nb, bound_by=by,
+        library_ms=time_ms(lambda: (
+            flat.index_copy_(1, flat_idx, new.view(L, B, E)),
+            flat_v.index_copy_(1, flat_idx, v_new.view(L, B, E)))),
+        one_arena_ms=time_ms(lambda: rc_ops.kv_scatter_inline(
+            work, pages, slots, new)),
+        one_arena_kernel_only_ms=time_ms(lambda: rc_lib.rc_kv_scatter(
+            *bare)),
+        one_arena_bound_ms=nb,
+        one_arena_library_ms=time_ms(lambda: flat.index_copy_(
+            1, flat_idx, new.view(L, B, E))),
+        two_calls_ms=time_ms(lambda: (
+            rc_ops.kv_scatter_inline(work, pages, slots, new),
+            rc_ops.kv_scatter_inline(work_v, pages, slots, v_new))))
+    del flat_v
 
     # -- page copy / init: 16 ops, one op's dst is another op's src
     src = list(range(100, 116))
@@ -254,17 +312,47 @@ def parity(dev) -> dict:
     if not same_bits(got, want):
         raise AssertionError("page_init_batched disagrees with its plain "
                              "version")
+    want_v = rc_ref.page_init_batched(v_arena.clone(),
+                                      torch.tensor(init_pages), 0.0)
+    got, got_v = arena.clone(), v_arena.clone()
+    rc_ops.pim_page_init_batched_pair(got, got_v, init_pages, 0.0)
+    torch.cuda.synchronize()
+    if not (same_bits(got, want) and same_bits(got_v, want_v)):
+        raise AssertionError("page_init_batched (pair) disagrees with its "
+                             "plain version")
+    del want, got, want_v, got_v
     init_idx = torch.tensor(init_pages, device=dev)
     nb, by = bound(len(init_pages) * L * page_bytes, 0)
+    # the bare launches, the page list in their parameters as the
+    # wrapper passes it
+    init_host = np.asarray(init_pages, np.int32)
+    bare = (work.data_ptr(), work.data_ptr(), 1, None, init_host.ctypes.data,
+            P, len(init_pages), L, page_bytes, 0, stream)
+    bare_pair = (work.data_ptr(), work_v.data_ptr(), 2, None,
+                 init_host.ctypes.data, P, len(init_pages), L, page_bytes, 0,
+                 stream)
     rows["page_init_batched"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: rc_ops.pim_page_init_batched(work, init_pages,
                                                         0.0)),
+        kernel_only_ms=time_ms(lambda: rc_lib.rc_init_rows(*bare)),
         plain_ms=time_ms(lambda: rc_ref.page_init_batched(work, init_idx,
                                                           0.0)),
         bound_ms=nb, bound_by=by,
-        library_ms=time_ms(lambda: work.index_fill_(1, init_idx, 0.0)))
-    del want, got, work, flat, arena
+        library_ms=time_ms(lambda: work.index_fill_(1, init_idx, 0.0)),
+        # the queue's flush of a (K, V) pair: one launch, one upload
+        pair_ms=time_ms(lambda: rc_ops.pim_page_init_batched_pair(
+            work, work_v, init_pages, 0.0)),
+        pair_kernel_only_ms=time_ms(lambda: rc_lib.rc_init_rows(
+            *bare_pair)),
+        two_calls_ms=time_ms(lambda: (
+            rc_ops.pim_page_init_batched(work, init_pages, 0.0),
+            rc_ops.pim_page_init_batched(work_v, init_pages, 0.0))),
+        pair_bound_ms=2 * nb,
+        library_pair_ms=time_ms(lambda: (
+            work.index_fill_(1, init_idx, 0.0),
+            work_v.index_fill_(1, init_idx, 0.0))))
+    del work, work_v, flat, arena, v_arena
 
     # -- paged attention: B=8, H=32, KVH=8, D=128, lengths 1..1040, k_self
     H = 32
@@ -795,6 +883,7 @@ def rowclone_api_parity(dev, shape=(40, 1024, 16, 8, 128)) -> dict:
     it, (1024, 16384) bf16, 16 pages, with a batch whose destination is
     another op's source and a duplicate destination (the last op
     wins)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.rowclone import ops as rc_ops
     from repro_torch.kernels.rowclone import ref as rc_ref
 
@@ -871,9 +960,15 @@ def rowclone_api_parity(dev, shape=(40, 1024, 16, 8, 128)) -> dict:
                                  f"version at {value}")
     del want, got
     nb, by = bound(len(dst) * page_bytes, 0)
+    dst_host = np.asarray(dst, np.int32)
+    bare = (work.data_ptr(), work.data_ptr(), 1, None, dst_host.ctypes.data,
+            layer.shape[0], len(dst), 1, page_bytes, 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    rc_lib = _build.load("rowclone")
     rows["page_init"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: rc_ops.pim_page_init(work, dst, 0.0)),
+        kernel_only_ms=time_ms(lambda: rc_lib.rc_init_rows(*bare)),
         plain_ms=time_ms(lambda: rc_ref.page_init(work, dst_t, 0.0)),
         bound_ms=nb, bound_by=by,
         library_ms=time_ms(lambda: work.index_fill_(0, dst_t, 0.0)))
@@ -1313,6 +1408,7 @@ def trace(dev, cfg, params) -> dict:
     by kernel group, beside the step's host-clock time under the
     profiler (which slows the host)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts
     from repro_torch.serving.engine import PagedEngine, Request
 
     engine = PagedEngine(cfg, params, page_size=16, num_pages=1024,
@@ -1329,6 +1425,9 @@ def trace(dev, cfg, params) -> dict:
         rounds = (engine.decode_block_rounds
                   if engine.prefill_backlog_tokens() == 0 else 1)
         before = queue.snapshot()
+        misses = engine.stats["block_jit_traces"]
+        torch.cuda.synchronize(dev)
+        counted = launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1345,60 +1444,133 @@ def trace(dev, cfg, params) -> dict:
         seen[kind] += 1
         if seen[kind] != 2:
             continue
-        out[kind] = {"profiled_step_ms": wall_ms, **_device_busy(prof)}
+        out[kind] = {"profiled_step_ms": wall_ms, **_device_busy(prof),
+                     **_ran_as_counted(prof, counted)}
+        if kind == "decode_block":
+            # a replayed block graph, not a capture
+            out[kind]["captured"] = (
+                engine.stats["block_jit_traces"] == misses)
     if set(out) != set(seen):
         raise AssertionError(f"the traced run had only {sorted(out)}")
+    del engine
+    # a decode round and a block of phase 3's greedy workload, each a
+    # replay of its captured graph
+    out.update(_profile_replays(dev, cfg, params, granite_requests(
+        cfg, Request), num_pages=1024))
     return {"phase": "trace", "layers": cfg.num_layers, **out}
 
 
+# the CUDA API calls (runtime ``cuda*`` and low-level ``cu*``) by which
+# the host puts work on the card: kernel and graph launches, copies, fills
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def _device_busy(prof) -> dict:
-    """The card's busy time in a profiled window, by kernel group."""
+    """The card's busy time in a profiled window, by kernel group, the
+    device events (kernels and copies) it ran and the host's calls that
+    put work on it."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = {}
     for e in kernels:
         group = _kernel_group(e.key)
         busy[group] = busy.get(group, 0.0) + e.self_device_time_total / 1e3
     total = sum(busy.values())
+    host = {e.key: e.count for e in events
+            if e.device_type == DeviceType.CPU and e.key in HOST_LAUNCH_CALLS}
     return {"device_busy_ms": total if total else "not measured",
             "busy_ms_by_group": dict(sorted(busy.items(),
                                             key=lambda kv: -kv[1])),
-            "kernel_launches": sum(e.count for e in kernels)}
+            "kernel_launches": sum(e.count for e in kernels),
+            "host_launch_calls": host}
 
 
 def trace_ssm(dev) -> dict:
-    """``torch.profiler`` over mamba2-1.3b at full width and depth: the
-    third fused decode round and the first 8-round decode block of 8
-    greedy requests (phase 10's prompts) on a 128-row state arena, the
-    card's busy time by kernel group beside the host-clock step time
-    under the profiler (which slows the host)."""
-    from torch.profiler import ProfilerActivity, profile
+    """``torch.profiler`` over mamba2-1.3b at full width and depth: a
+    replayed decode round and a replayed 8-round decode block of 8
+    greedy requests (phase 10's prompts) on a 128-row state arena (see
+    :func:`_profile_replays`)."""
     from repro_torch.configs import ARCHS
-    from repro_torch.serving.engine import PagedEngine, Request
+    from repro_torch.serving.engine import Request
 
     cfg = ARCHS["mamba2-1.3b"]
     params, _ = _model_params(dev, cfg, 10)
-    engine = PagedEngine(cfg, params, page_size=16, num_pages=128,
-                         device=dev, decode_block_rounds=8)
-    for r in seeded_requests(cfg, Request, 8, 97, 450, 32):
-        engine.submit(r)
-    out = {}
-    for step, rounds in enumerate((1, 1, 1, 8)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.run(max_rounds=rounds)
-            torch.cuda.synchronize(dev)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        if step >= 2:
-            out["decode" if rounds == 1 else "decode_block"] = {
-                "profiled_step_ms": wall_ms, **_device_busy(prof)}
-    del engine, params
+    out = _profile_replays(dev, cfg, params, seeded_requests(
+        cfg, Request, 8, 97, 450, 32), num_pages=128)
+    del params
     _free_card()
     return {"phase": "trace_ssm", "arch": cfg.name,
             "layers": cfg.num_layers, **out}
+
+
+def _profile_replays(dev, cfg, params, reqs, num_pages) -> dict:
+    """``torch.profiler`` over one decode round and one 8-round decode
+    block of ``reqs`` (greedy), each a replay of its step's captured
+    graph (a step that captured instead is run again unprofiled until a
+    replay comes): the card's busy time by kernel group, the device
+    events it ran and the host's calls that put them there, beside the
+    host-clock step time under the profiler (which slows the host).
+    The package's kernels the card ran are held equal to the launches
+    counted in the window, the replays' recorded deltas included
+    (:func:`_ran_as_counted`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving.engine import PagedEngine
+
+    out = {}
+    for kind, K, stat in (("decode_captured", 1, "jit_traces"),
+                          ("decode_block_captured", 8, "block_jit_traces")):
+        engine = PagedEngine(cfg, params, page_size=16, num_pages=num_pages,
+                             device=dev, decode_block_rounds=K)
+        for r in reqs:
+            engine.submit(dataclasses.replace(r, out_tokens=[], done=False))
+        engine.run(max_rounds=1)                     # prefill
+        for _ in range(4):
+            misses = engine.stats[stat]
+            torch.cuda.synchronize(dev)
+            counted = launch_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                engine.run(max_rounds=K)
+                torch.cuda.synchronize(dev)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            if engine.stats[stat] == misses and engine._steps.captured:
+                busy = _device_busy(prof)
+                share = (busy["device_busy_ms"] / wall_ms
+                         if wall_ms and busy["device_busy_ms"]
+                         != "not measured" else "not measured")
+                out[kind] = {"profiled_step_ms": wall_ms,
+                             "device_busy_share": share, **busy,
+                             **_ran_as_counted(prof, counted)}
+                break
+        else:
+            raise AssertionError(f"{kind}: no replayed step in 4 tries")
+        del engine
+    return out
+
+
+def _ran_as_counted(prof, before: dict) -> dict:
+    """The package's kernels the card ran in a profiled window, by device
+    kernel, held equal to the launches counted in it (``LAUNCHES`` now
+    less ``before``: the wrappers' own counts and each replay's recorded
+    capture delta); raises if they differ."""
+    from torch.autograd import DeviceType
+    from repro_torch.kernels import (LAUNCHES, device_kernel_counts,
+                                     ran_on_device)
+
+    counted = device_kernel_counts({k: LAUNCHES[k] - before[k]
+                                    for k in LAUNCHES})
+    ran = ran_on_device(e for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA)
+    if ran != counted:
+        raise AssertionError(f"the card ran {ran}, the launch counts say "
+                             f"{counted}")
+    return {"kernels_ran_as_counted": ran}
 
 
 def _kernel_group(name: str) -> str:
@@ -1467,6 +1639,100 @@ def chunked_vs_monolithic(dev, cfg, params) -> dict:
 
 def _nonzero(d):
     return {k: v for k, v in d.items() if v}
+
+
+# ---------------------------------------------------------------------- #
+# Phase 15: the decode and K-block rounds as captured CUDA graphs
+# ---------------------------------------------------------------------- #
+
+
+def graphs_ab(dev, cfg, params, make_requests, num_pages) -> dict:
+    """One model's half of phase 15: phase 3's (or 10(a)'s) workload —
+    greedy, monolithic, one round a step, a CoW fork of a live sequence
+    after the first decode round and its free after the second — twice
+    in this process, first with ``cuda_graphs=False`` (every kernel
+    launched from Python), then with ``True`` (each decode round one
+    replay of its bucket's graph).  Required: token-identical streams,
+    identical ``launches_by_kind`` deltas and kernel launch counts, 0
+    pages and state rows in use.  Reported: both decode-round medians
+    (host clock, each round ending in its token transfer and a
+    synchronise), the step-cache misses and their capture seconds."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import serve
+
+    runs = {}
+    for graphs in (False, True):
+        def between_rounds(engine, i):
+            if i == 1:
+                rid = next(r for r in sorted(engine.active)
+                           if engine.cache.seqs[r].length
+                           % engine.cache.page_size)
+                engine.cache.fork(rid, 1000)
+            elif i == 2:
+                engine.cache.free(1000)
+
+        reset_launches()
+        out = serve(cfg, params, make_requests(), page_size=16,
+                    num_pages=num_pages, device=dev,
+                    between_rounds=between_rounds, cuda_graphs=graphs)
+        engine = out["engine"]
+        _check_drained(engine, f"graphs (cuda_graphs={graphs})")
+        rs = out["round_seconds"]
+        runs[graphs] = {
+            "results": out["results"], "deltas": out["round_launches"],
+            "kernels": launch_counts(),
+            "decode_round_ms_median": float(np.median(rs[1:])) * 1e3,
+            "tokens_per_s": out["tokens"] / out["seconds"],
+            "jit_traces": engine.stats["jit_traces"],
+            "graphs_captured": engine._steps.captured,
+            "capture_seconds": engine._steps.capture_seconds}
+        del engine, out
+        _free_card()
+    off, on = runs[False], runs[True]
+    if on["results"] != off["results"]:
+        raise AssertionError(f"{cfg.name}: streams differ with graphs on")
+    if on["deltas"] != off["deltas"]:
+        raise AssertionError(f"{cfg.name}: launches_by_kind deltas differ "
+                             "with graphs on")
+    if on["kernels"] != off["kernels"]:
+        raise AssertionError(f"{cfg.name}: kernel launches differ with "
+                             f"graphs on: {_nonzero(on['kernels'])} against "
+                             f"{_nonzero(off['kernels'])}")
+    if on["graphs_captured"] != on["jit_traces"] or off["graphs_captured"]:
+        raise AssertionError(f"{cfg.name}: {on['graphs_captured']} graphs "
+                             f"for {on['jit_traces']} step-cache misses")
+    keep = ("decode_round_ms_median", "tokens_per_s", "jit_traces",
+            "graphs_captured", "capture_seconds")
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "graphs_off": {k: off[k] for k in keep},
+            "graphs_on": {k: on[k] for k in keep},
+            "streams_identical": True, "launch_deltas_identical": True,
+            "kernel_launches": _nonzero(on["kernels"])}
+
+
+def graphs_phase(dev, cfg, params) -> dict:
+    """Phase 15: :func:`graphs_ab` for granite-3-8b (phase 3's workload,
+    full width and depth) and for mamba2-1.3b (phase 10(a)'s, full width
+    and depth, on its 256-row state arena).  ``main`` adds each model's
+    profiled replay of a decode round from phase 5 (which runs after,
+    since the profiler leaves host cost behind): the host's calls that
+    put work on the card against the device events it ran, and the
+    card's busy share of the round."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving.engine import Request
+
+    granite = graphs_ab(dev, cfg, params,
+                        lambda: granite_requests(cfg, Request), 1024)
+    scfg = ARCHS["mamba2-1.3b"]
+    sparams, _ = _model_params(dev, scfg, 10)
+
+    def ssm_requests():
+        return seeded_requests(scfg, Request, 8, 97, 450, 32)
+
+    mamba = graphs_ab(dev, scfg, sparams, ssm_requests, 256)
+    del sparams
+    _free_card()
+    return {"phase": "graphs", "granite": granite, "mamba2": mamba}
 
 
 # ---------------------------------------------------------------------- #
@@ -2254,8 +2520,14 @@ def main() -> int:
     emit(hybrid)
     emit(ssm_cross_check(dev))
     cfg, params, _ = granite_params(dev)
-    emit(trace(dev, cfg, params))
-    emit(trace_ssm(dev))
+    graphs = graphs_phase(dev, cfg, params)
+    traced = trace(dev, cfg, params)
+    emit(traced)
+    traced_ssm = trace_ssm(dev)
+    emit(traced_ssm)
+    graphs["granite"]["profiled_replay"] = traced["decode_captured"]
+    graphs["mamba2"]["profiled_replay"] = traced_ssm["decode_captured"]
+    emit(graphs)
     emit(chunked_vs_monolithic(dev, cfg, params))
     del params
     torch.cuda.empty_cache()

@@ -223,9 +223,19 @@ def group_inits_by_value(ops) -> Dict[float, List[int]]:
 
 
 def _flush_page_init(q, arenas, ops):
+    """One launch per fill value for a (K, V) pair of one shape (both
+    arenas' pages in one grid, one upload of the page list), else one
+    per arena; accounted as ``len(arenas)`` launches per value, as the
+    JAX package counts them."""
+    pair = (len(arenas) == 2 and arenas[0].shape == arenas[1].shape
+            and arenas[0].dtype == arenas[1].dtype)
     for value, pages in group_inits_by_value(ops).items():
-        for a in arenas:
-            rc_ops.pim_page_init_batched(a, pages, value)
+        if pair:
+            rc_ops.pim_page_init_batched_pair(arenas[0], arenas[1], pages,
+                                              value)
+        else:
+            for a in arenas:
+                rc_ops.pim_page_init_batched(a, pages, value)
         q._count_launch("page_init", len(arenas))
     return arenas
 
@@ -273,15 +283,17 @@ def _flush_kv_write(q, arenas, ops: List[KVWriteBatch]):
     if keep.size != len(pages):
         pages = [pages[i] for i in keep]
         slots = [slots[i] for i in keep]
-        idx = torch.from_numpy(keep).to(k_new.device)
+        idx = rc_ops.upload(keep, k_new.device)
         k_new, v_new = k_new[:, idx], v_new[:, idx]
     dev = k_arena.device
-    pages_t = torch.tensor(pages, dtype=torch.int32, device=dev)
-    slots_t = torch.tensor(slots, dtype=torch.int32, device=dev)
-    rc_ops.kv_scatter_inline(k_arena, pages_t, slots_t,
-                             k_new.to(device=dev, dtype=k_arena.dtype))
-    rc_ops.kv_scatter_inline(v_arena, pages_t, slots_t,
-                             v_new.to(device=dev, dtype=v_arena.dtype))
+    P = k_arena.shape[1]
+    # one pair launch; accounted as two, one per arena, as the JAX
+    # package counts them
+    rc_ops.kv_scatter_pair_inline(
+        k_arena, v_arena, rc_ops.upload_index(pages, P, "page", dev),
+        rc_ops.upload_index(slots, k_arena.shape[2], "slot", dev),
+        k_new.to(device=dev, dtype=k_arena.dtype).contiguous(),
+        v_new.to(device=dev, dtype=v_arena.dtype).contiguous())
     q._count_launch("kv_write", 2)
     return arenas
 

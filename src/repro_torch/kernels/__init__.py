@@ -11,7 +11,8 @@ path went through.
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Iterable, Mapping
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
@@ -47,3 +48,46 @@ def launch_counts() -> Dict[str, int]:
 
 def count_launch(name: str, n: int = 1) -> None:
     LAUNCHES[name] += n
+
+
+#: kernel name -> the device kernel whose runs it counts, as a pattern of
+#: the name a profiler gives it; names that share a kernel share it
+DEVICE_KERNEL = {
+    "kv_scatter": "kv_scatter_kernel",
+    "page_copy_batched": "copy_rows_kernel",
+    "page_copy": "copy_rows_kernel",
+    "page_init_batched": "init_rows_kernel",
+    "page_init": "init_rows_kernel",
+    "paged_attention": "paged_split_kernel",
+    "flash_attention": "flash_(tc|simt)_kernel",
+    "flash_attention_prefix": "flash_(tc|simt)_kernel",
+    "random_u32": "drange_kernel",
+    "page_bitwise_batched": "bitwise_rows_kernel",
+    "page_not_batched": "bitwise_rows_kernel",
+    "page_zero_scan": "zero_scan_kernel",
+    "state_scatter": "state_scatter_kernel",
+    "copy_2d": "copy_flat_kernel",
+    "init_2d": "fill_flat_kernel",
+}
+
+
+def device_kernel_counts(counts: Mapping[str, int]) -> Dict[str, int]:
+    """Launch counts (as :data:`LAUNCHES` keeps them) by device kernel."""
+    out: Dict[str, int] = {}
+    for name, n in counts.items():
+        if n:
+            k = DEVICE_KERNEL[name]
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def ran_on_device(events: Iterable) -> Dict[str, int]:
+    """This package's kernels in a profiler's device events (objects
+    with ``key``, the kernel's name, and ``count``, its runs), by device
+    kernel, as :func:`device_kernel_counts` names them."""
+    out: Dict[str, int] = {}
+    for e in events:
+        for k in set(DEVICE_KERNEL.values()):
+            if re.search(k, e.key):
+                out[k] = out.get(k, 0) + e.count
+    return out

@@ -44,9 +44,10 @@ _U = ctypes.c_uint
 # entry point -> argtypes (every entry point returns a cudaError_t as int)
 SIGNATURES = {
     "rowclone": {
-        "rc_kv_scatter": [_P, _P, _P, _P, _I, _I, _L, _I, _L, _P],
+        "rc_kv_scatter": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _L, _I, _L,
+                          _P],
         "rc_copy_rows": [_P, _P, _L, _P, _P, _L, _I, _I, _L, _P],
-        "rc_init_rows": [_P, _P, _L, _I, _I, _L, _U, _P],
+        "rc_init_rows": [_P, _P, _I, _P, _P, _L, _I, _I, _L, _U, _P],
         "rc_copy_flat": [_P, _P, _L, _P],
         "rc_fill_flat": [_P, _L, _U, _P],
     },

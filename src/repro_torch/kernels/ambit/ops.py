@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.rowclone.ops import (Index, _check_arena,
-                                              _check_rows, _host_index,
-                                              _row_bytes, _stream)
+                                              _host_index, _row_bytes,
+                                              _stream, upload_index)
 from . import ref
 
 _OP_CODE = {"and": 0, "or": 1, "not": 2}
@@ -53,13 +53,12 @@ def pim_page_bitwise_batched(arena: torch.Tensor, src_pages: Index,
     if src.size == 0:
         return arena
     L, P = arena.shape[:2]
-    _check_rows(src, P, "src page")
-    _check_rows(dst, P, "dst page")
+    src_d = upload_index(src, P, "src page", arena.device)
+    dst_d = upload_index(dst, P, "dst page", arena.device)
     if arena.device.type == "cpu":
-        s, d = torch.from_numpy(src), torch.from_numpy(dst)
         if op == "not":
-            return ref.page_not_batched(arena, s, d)
-        return ref.page_bitwise_batched(arena, s, d, op)
+            return ref.page_not_batched(arena, src_d, dst_d)
+        return ref.page_bitwise_batched(arena, src_d, dst_d, op)
     _check_arena(arena)
     n = int(src.size)
     if n > _MAX_GRID or L > _MAX_GRID:
@@ -68,8 +67,6 @@ def pim_page_bitwise_batched(arena: torch.Tensor, src_pages: Index,
     row = _row_bytes(arena, 2)
     stream = _stream(arena)
     name = "page_not_batched" if op == "not" else "page_bitwise_batched"
-    src_d = torch.from_numpy(src).to(arena.device)
-    dst_d = torch.from_numpy(dst).to(arena.device)
     if not _stage(src, dst):
         _build.check(lib.am_bitwise_rows(
             arena.data_ptr(), src_d.data_ptr(), P, arena.data_ptr(),
@@ -96,9 +93,9 @@ def pim_page_zero_scan(arena: torch.Tensor, pages: Index) -> torch.Tensor:
     if idx.size == 0:
         return torch.zeros((0,), dtype=torch.bool, device=arena.device)
     L, P = arena.shape[:2]
-    _check_rows(idx, P, "page")
+    pages_d = upload_index(idx, P, "page", arena.device)
     if arena.device.type == "cpu":
-        return ref.page_zero_scan(arena, torch.from_numpy(idx))
+        return ref.page_zero_scan(arena, pages_d)
     _check_arena(arena)
     n = int(idx.size)
     if n > _MAX_GRID or L > _MAX_GRID:
@@ -106,7 +103,6 @@ def pim_page_zero_scan(arena: torch.Tensor, pages: Index) -> torch.Tensor:
                          "each")
     lib = _build.load("ambit")
     flags = torch.zeros((n,), dtype=torch.int32, device=arena.device)
-    pages_d = torch.from_numpy(idx).to(arena.device)
     _build.check(lib.am_zero_scan(
         arena.data_ptr(), pages_d.data_ptr(), P, n, L, _row_bytes(arena, 2),
         flags.data_ptr(), _stream(arena)), "page_zero_scan")

@@ -2,10 +2,12 @@
 //
 // Replaces the JAX package's Pallas kernels in
 // src/repro/kernels/rowclone/rowclone.py:
-//   rc_kv_scatter  <- kv_scatter         (rowclone.py:215)
+//   rc_kv_scatter  <- kv_scatter         (rowclone.py:215; one arena, or
+//                     a (K, V) arena pair in one launch)
 //   rc_copy_rows   <- page_copy_batched  (rowclone.py:140)
 //                     and page_copy      (rowclone.py:105, one layer)
-//   rc_init_rows   <- page_init_batched  (rowclone.py:178)
+//   rc_init_rows   <- page_init_batched  (rowclone.py:178; one arena, or
+//                     one page list in a (K, V) arena pair)
 //                     and page_init      (rowclone.py:253, one layer)
 //   rc_copy_flat   <- copy_2d            (rowclone.py:56)
 //   rc_fill_flat   <- init_2d            (rowclone.py:76)
@@ -30,6 +32,15 @@
 // 32-bit pattern word that repeats the value's bytes (1-, 2- and 4-byte
 // dtypes); byte k of a buffer or row holds pattern byte k % 4, so a row
 // whose length is not a multiple of 4 bytes is filled byte by byte.
+//
+// At the serving path's shapes these kernels move a few MB or less
+// (a decode round's scatter 2 x 40 x 8 x 2 KiB = 1.3 MB), so the card
+// finishes them in microseconds and what a caller pays is the launch and
+// the wrapper's host work.  Hence both take an arena count (1 or 2): one
+// scatter block per (b, l) writes the K slot row and the V slot row
+// (2 x 2 KiB at granite's shape, 256 threads with one 16-byte store
+// each), and one init launch covers the K and V pages of a freed page
+// list (grid z = arena), where two launches did before.
 //
 // Ordering: GPU blocks run in no order.  A batched copy whose
 // destination set meets its source set must read every source before
@@ -62,18 +73,33 @@ __device__ __forceinline__ void copy_row(char* __restrict__ dst,
   }
 }
 
-// grid (B, L): arena[l, pages[b], slots[b]] <- src[l, b]
+// grid (B, L): dst_a[l, pages[b], slots[b]] <- src_a[l, b] for each arena
+// a < arenas (arena 0 is dst0/src0, arena 1 dst1/src1); the block's
+// threads walk the arenas' rows as one range of words
 template <bool VEC>
-__global__ void kv_scatter_kernel(char* __restrict__ arena,
-                                  const char* __restrict__ src,
+__global__ void kv_scatter_kernel(char* __restrict__ dst0,
+                                  char* __restrict__ dst1,
+                                  const char* __restrict__ src0,
+                                  const char* __restrict__ src1,
                                   const int* __restrict__ pages,
-                                  const int* __restrict__ slots, int B,
-                                  long long P, int S, long long row_bytes) {
+                                  const int* __restrict__ slots, int arenas,
+                                  int B, long long P, int S,
+                                  long long row_bytes) {
   const int b = blockIdx.x;
   const long long l = blockIdx.y;
-  const long long row = (l * P + pages[b]) * S + slots[b];
-  copy_row<VEC>(arena + row * row_bytes, src + (l * B + b) * row_bytes,
-                row_bytes);
+  const long long dst = ((l * P + pages[b]) * S + slots[b]) * row_bytes;
+  const long long src = (l * B + b) * row_bytes;
+  const long long n = VEC ? row_bytes / 16 : row_bytes;
+  for (long long i = threadIdx.x; i < arenas * n; i += blockDim.x) {
+    const bool second = i >= n;
+    const long long w = second ? i - n : i;
+    char* d = (second ? dst1 : dst0) + dst;
+    const char* s = (second ? src1 : src0) + src;
+    if (VEC)
+      reinterpret_cast<uint4*>(d)[w] = reinterpret_cast<const uint4*>(s)[w];
+    else
+      d[w] = s[w];
+  }
 }
 
 // grid (n, L): dst[l, dst_idx[i]] <- src[l, src_idx[i]]; a null index
@@ -92,17 +118,28 @@ __global__ void copy_rows_kernel(const char* __restrict__ src,
                 src + (l * src_rows + sr) * row_bytes, row_bytes);
 }
 
-// grid (n, L): dst[l, dst_idx[i]] <- the 32-bit pattern, repeated.
-// MODE 0: 16-byte words; 1: 4-byte words; 2: bytes (rows not a
-// multiple of 4 bytes long).
+// A short page list travels in the launch's parameters: no upload, no
+// copy before the kernel can start (the serving path's init-on-free
+// flushes a few pages to a few hundred).
+constexpr int kInlineRows = 512;
+struct RowList {
+  int idx[kInlineRows];
+};
+
+// grid (n, L, arenas): arena z's [l, row i] <- the 32-bit pattern,
+// repeated (arena 0 is dst0, arena 1 dst1); row i is dst_idx[i], or
+// rows.idx[i] when dst_idx is null.  MODE 0: 16-byte words; 1: 4-byte
+// words; 2: bytes (rows not a multiple of 4 bytes long).
 template <int MODE>
-__global__ void init_rows_kernel(char* __restrict__ dst,
+__global__ void init_rows_kernel(char* __restrict__ dst0,
+                                 char* __restrict__ dst1,
                                  const int* __restrict__ dst_idx,
-                                 long long dst_rows, long long row_bytes,
-                                 unsigned int pattern) {
+                                 const RowList rows, long long dst_rows,
+                                 long long row_bytes, unsigned int pattern) {
   const int i = blockIdx.x;
   const long long l = blockIdx.y;
-  char* row = dst + (l * dst_rows + dst_idx[i]) * row_bytes;
+  const long long r = dst_idx ? dst_idx[i] : rows.idx[i];
+  char* row = (blockIdx.z ? dst1 : dst0) + (l * dst_rows + r) * row_bytes;
   if (MODE == 0) {
     uint4 v = make_uint4(pattern, pattern, pattern, pattern);
     uint4* d = reinterpret_cast<uint4*>(row);
@@ -182,20 +219,31 @@ int flat_blocks(long long work) {
 
 }  // namespace
 
-extern "C" int rc_kv_scatter(void* arena, const void* src, const int* pages,
+// the B slot rows of each of `arenas` (1 or 2) arenas of one shape, in
+// one launch; dst1 and src1 are read only when arenas is 2
+extern "C" int rc_kv_scatter(void* dst0, void* dst1, const void* src0,
+                             const void* src1, int arenas, const int* pages,
                              const int* slots, int L, int B, long long P,
                              int S, long long row_bytes, void* stream) {
   if (L <= 0 || B <= 0) return 0;
+  if (arenas < 1 || arenas > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (arenas == 1) {
+    dst1 = dst0;
+    src1 = src0;
+  }
   dim3 grid(B, L);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (aligned16(arena, src, row_bytes))
+  char* d0 = static_cast<char*>(dst0);
+  char* d1 = static_cast<char*>(dst1);
+  const char* s0 = static_cast<const char*>(src0);
+  const char* s1 = static_cast<const char*>(src1);
+  if (aligned16(dst0, src0, row_bytes) && aligned16(dst1, src1, 0))
     kv_scatter_kernel<true><<<grid, kThreads, 0, st>>>(
-        static_cast<char*>(arena), static_cast<const char*>(src), pages,
-        slots, B, P, S, row_bytes);
+        d0, d1, s0, s1, pages, slots, arenas, B, P, S, row_bytes);
   else
     kv_scatter_kernel<false><<<grid, kThreads, 0, st>>>(
-        static_cast<char*>(arena), static_cast<const char*>(src), pages,
-        slots, B, P, S, row_bytes);
+        d0, d1, s0, s1, pages, slots, arenas, B, P, S, row_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -217,24 +265,44 @@ extern "C" int rc_copy_rows(const void* src, const int* src_idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rc_init_rows(void* dst, const int* dst_idx, long long dst_rows,
-                            int n, int L, long long row_bytes,
-                            unsigned int pattern, void* stream) {
+// the same rows of each of `arenas` (1 or 2) arenas of one shape, in one
+// launch (dst1 is written only when arenas is 2).  rows: dst_idx on the
+// device, or (dst_idx null) host_idx on the host, at most kInlineRows of
+// them (the wrapper's INLINE_ROWS), passed in the launch
+extern "C" int rc_init_rows(void* dst0, void* dst1, int arenas,
+                            const int* dst_idx, const int* host_idx,
+                            long long dst_rows, int n, int L,
+                            long long row_bytes, unsigned int pattern,
+                            void* stream) {
   if (n <= 0 || L <= 0) return 0;
-  dim3 grid(n, L);
+  if (arenas < 1 || arenas > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (arenas == 1) dst1 = dst0;
+  RowList rows;
+  if (dst_idx == nullptr) {
+    if (host_idx == nullptr || n > kInlineRows)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < n; ++i) rows.idx[i] = host_idx[i];
+  }
+  dim3 grid(n, L, arenas);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  char* d = static_cast<char*>(dst);
-  const uintptr_t a = reinterpret_cast<uintptr_t>(dst) |
+  char* d0 = static_cast<char*>(dst0);
+  char* d1 = static_cast<char*>(dst1);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst0) |
+                      reinterpret_cast<uintptr_t>(dst1) |
                       static_cast<uintptr_t>(row_bytes);
   if ((a & 15) == 0)
-    init_rows_kernel<0><<<grid, kThreads, 0, st>>>(d, dst_idx, dst_rows,
-                                                   row_bytes, pattern);
+    init_rows_kernel<0><<<grid, kThreads, 0, st>>>(d0, d1, dst_idx, rows,
+                                                   dst_rows, row_bytes,
+                                                   pattern);
   else if ((a & 3) == 0)
-    init_rows_kernel<1><<<grid, kThreads, 0, st>>>(d, dst_idx, dst_rows,
-                                                   row_bytes, pattern);
+    init_rows_kernel<1><<<grid, kThreads, 0, st>>>(d0, d1, dst_idx, rows,
+                                                   dst_rows, row_bytes,
+                                                   pattern);
   else
-    init_rows_kernel<2><<<grid, kThreads, 0, st>>>(d, dst_idx, dst_rows,
-                                                   row_bytes, pattern);
+    init_rows_kernel<2><<<grid, kThreads, 0, st>>>(d0, d1, dst_idx, rows,
+                                                   dst_rows, row_bytes,
+                                                   pattern);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,7 @@ per (sequence, kv head) merges them.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -26,8 +26,9 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 PARTITION_TOKENS = 128
 
 # per device: the kernel's merge tickets, zero between launches (each
-# launch's merging blocks reset theirs), grown on demand
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
+# launch's merging blocks reset theirs), grown on demand.  A grown-out
+# buffer is kept alive: a captured CUDA graph holds its address.
+_TICKETS: Dict[torch.device, List[torch.Tensor]] = {}
 
 
 def num_partitions(max_pages: int, page_size: int) -> int:
@@ -37,11 +38,11 @@ def num_partitions(max_pages: int, page_size: int) -> int:
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
+    held = _TICKETS.setdefault(device, [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, 256), dtype=torch.int32,
+                                device=device))
+    return held[-1]
 
 
 def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,

@@ -66,11 +66,26 @@ def page_init_batched(arena: torch.Tensor, dst_pages: torch.Tensor,
     return arena
 
 
+def page_init_batched_pair(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                           dst_pages: torch.Tensor, value) -> None:
+    """``page_init_batched`` on both arenas of a (K, V) pair."""
+    page_init_batched(k_arena, dst_pages, value)
+    page_init_batched(v_arena, dst_pages, value)
+
+
 def kv_scatter(arena: torch.Tensor, pages: torch.Tensor, slots: torch.Tensor,
                new: torch.Tensor) -> torch.Tensor:
     """arena: (L, P, S, E); pages/slots: (B,); new: (L, B, E)."""
     arena[:, pages.long(), slots.long()] = new.to(arena.dtype)
     return arena
+
+
+def kv_scatter_pair(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                    pages: torch.Tensor, slots: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """``kv_scatter`` on both arenas of a (K, V) pair, one index list."""
+    kv_scatter(k_arena, pages, slots, k_new)
+    kv_scatter(v_arena, pages, slots, v_new)
 
 
 def kv_gather(arena: torch.Tensor, pages: torch.Tensor,

@@ -55,6 +55,18 @@ back (so the arena stays bit-identical to K=1), a ``(B, K)`` token
 buffer with ``-1`` after a row stopped, and the host replaying the stop
 rule on the one transfer.
 
+The decode round and the K-block's round are captured as CUDA graphs,
+one per (padded batch, block-table width) bucket, and replayed
+(:mod:`.graphs`; ``cuda_graphs=True``, the default): the port's
+counterpart of the JAX engine's one compiled step per bucket, counted
+as JAX counts retraces in ``stats["jit_traces"]`` and
+``stats["block_jit_traces"]``.  Token choice stays outside the graphs
+(its seed is a host argument); a K-block replays its round graph once
+per round, carrying lengths, last tokens and the alive mask into the
+graph's static buffers by device-to-device copies.  Prefill, chunk and
+mixed steps run eagerly.  ``cuda_graphs=False`` launches every kernel
+from Python (the same keys and counts).
+
 The layer loop is a Python loop where the JAX package used
 ``lax.scan``; arenas are updated in place where the JAX package donated
 them.  ``fused=False`` keeps the eager decode oracle: the same forward,
@@ -118,6 +130,7 @@ from repro_torch.kernels.drange import ops as dr_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.rowclone import ops as rc_ops
+from repro_torch.kernels.rowclone.ops import upload
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -125,10 +138,12 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import (apply_rope, cast, embed, logits_out,
                                        mlp, rmsnorm, rope_sincos)
 from repro_torch.models.params import tree_leaves, tree_map
+from .graphs import StepCache
 from .kv_cache import PagedKVCache, PagedStateArena, _bucket_pow2
 
 MASK32 = 0xFFFFFFFF
 Seed = Tuple[int, int]
+_NP_DTYPES = {torch.int32: np.int32, torch.long: np.int64}
 
 
 @dataclass
@@ -178,7 +193,7 @@ class PagedEngine:
                  decode_block_rounds: int = 1, mixed_rounds: bool = True,
                  lib=None, record_trace: bool = False, mesh=None,
                  compressed_collectives: bool = False,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, cuda_graphs: bool = True):
         if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported (dense, ssm, hybrid "
@@ -256,6 +271,9 @@ class PagedEngine:
                       "prefix_evictions": 0,
                       "state_pages": 0, "state_forks": 0,
                       "prefix_declined_ssm": 0,
+                      # step-cache misses (captures on the card), as the
+                      # JAX engine counts its decode and block retraces
+                      "jit_traces": 0, "block_jit_traces": 0,
                       # host seconds of the prefill steps (a mixed round
                       # counts here) and of the decode rounds and blocks;
                       # each ends in its device-to-host token transfer,
@@ -263,6 +281,9 @@ class PagedEngine:
                       "prefill_seconds": 0.0, "decode_seconds": 0.0}
         # decode tails already reserved this round
         self._reserved_tails: set = set()
+        # the decode and block rounds' steps per (Bp, W) bucket
+        self._steps = StepCache(self.device, capture=cuda_graphs,
+                                stats=self.stats, arenas=self._arenas)
 
     # ----------------------------- API -------------------------------- #
 
@@ -375,8 +396,9 @@ class PagedEngine:
     # ------------------------- token choice ---------------------------- #
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(device=self.device,
-                                                 dtype=dtype)
+        """Host data as ``dtype`` on the engine's device, uploaded
+        without a synchronise."""
+        return upload(np.asarray(a, _NP_DTYPES[dtype]), self.device)
 
     def _seed(self, ctr: int) -> Seed:
         """The seed of dispatch ``ctr``: ``rng_seed + ctr`` in uint32."""
@@ -420,7 +442,7 @@ class PagedEngine:
         """One fused step for a same-length-bucket prefill batch."""
         B = len(reqs)
         Bp = _bucket_pow2(B)
-        idx = list(range(B)) + [0] * (Bp - B)   # pad rows duplicate req 0
+        idx = _pad_index(B, Bp)                 # pad rows duplicate req 0
         toks = np.zeros((Bp, sp), np.int32)
         lens = np.zeros((Bp,), np.int32)
         for row, i in enumerate(idx):
@@ -577,7 +599,7 @@ class PagedEngine:
         full page list with the committed length as its valid length."""
         B = len(batch)
         Bp = _bucket_pow2(B)
-        idx = list(range(B)) + [0] * (Bp - B)   # pad rows duplicate row 0
+        idx = _pad_index(B, Bp)                 # pad rows duplicate row 0
         toks = np.zeros((Bp, sc), np.int32)
         lens = np.zeros((Bp,), np.int32)
         offs = np.zeros((Bp,), np.int32)
@@ -674,7 +696,7 @@ class PagedEngine:
         row_of = {st.req.req_id: i for i, (st, _) in enumerate(batch)}
         B = len(d_rids)
         Bp = _bucket_pow2(B)
-        prids = [d_rids[i] for i in list(range(B)) + [0] * (Bp - B)]
+        prids = [d_rids[i] for i in _pad_index(B, Bp)]
         seqs = [self.cache.seqs[r] for r in prids]
         d_last = np.zeros((Bp,), np.int32)
         d_from = np.full((Bp,), -1, np.int32)
@@ -747,12 +769,58 @@ class PagedEngine:
     def _state_round(self, rids_padded: List[int], n: int,
                      ) -> Optional["_StateRound"]:
         """The Mamba state operands of a forward over a (padded) row
-        list whose first ``n`` rows are its unique real rows; ``None``
-        without a state arena."""
+        list whose first ``n`` rows are its unique real rows (the pad
+        rows duplicate row 0); ``None`` without a state arena."""
         if not self._has_ssm:
             return None
-        st = self.cache.state
-        return _StateRound(st, self._tensor(st.rows_for(rids_padded)), n)
+        return self._state_of(
+            self._tensor(self.cache.state.rows_for(rids_padded)),
+            self._tensor(_pad_index(n, len(rids_padded)), torch.long))
+
+    def _state_of(self, srows: Optional[torch.Tensor],
+                  rowmap: Optional[torch.Tensor],
+                  alive: Optional[torch.Tensor] = None,
+                  ) -> Optional["_StateRound"]:
+        """The state operands of a forward over state rows ``srows``
+        (``rowmap``: see :class:`_StateRound`); a captured step makes
+        them inside its body, so their new-state buffers come from the
+        graphs' pool."""
+        if not self._has_ssm:
+            return None
+        return _StateRound(self.cache.state, srows, rowmap, alive)
+
+    def _arenas(self) -> List[torch.Tensor]:
+        """Every buffer a captured step writes in place."""
+        out = [self.cache.k_arena, self.cache.v_arena]
+        if self.cache.state is not None:
+            out += [self.cache.state.conv, self.cache.state.ssm]
+        return out
+
+    def _specs(self, Bp: int, W: int, block: bool) -> dict:
+        """The static inputs of a decode (or K-block round) step."""
+        i32 = torch.int32
+        specs = {"last": ((Bp,), torch.long) if block else ((Bp, 1), i32),
+                 "bt": ((Bp, W), i32), "lens": ((Bp,), i32),
+                 "pages": ((Bp,), i32), "slots": ((Bp,), i32)}
+        if block:
+            specs["alive"] = ((Bp,), torch.bool)
+        if self._has_ssm:
+            specs.update(srows=((Bp,), i32), rowmap=((Bp,), torch.long))
+        return specs
+
+    def _decode_body(self, last, bt, lens, pages, slots, srows=None,
+                     rowmap=None) -> torch.Tensor:
+        return _fused_decode_step(
+            self.cfg, self.pcfg, self.params, last, self.cache.k_arena,
+            self.cache.v_arena, bt, lens, pages, slots,
+            self._state_of(srows, rowmap))
+
+    def _block_body(self, last, bt, lens, pages, slots, alive, srows=None,
+                    rowmap=None) -> torch.Tensor:
+        return _fused_block_round(
+            self.cfg, self.pcfg, self.params, last, self.cache.k_arena,
+            self.cache.v_arena, bt, lens, pages, slots, alive,
+            self._state_of(srows, rowmap, alive))
 
     def _decode_round(self) -> None:
         if not self.active:
@@ -773,22 +841,31 @@ class PagedEngine:
         self.stats["tokens_out"] += len(rids)
 
     def _decode_round_fused(self, rids: List[int]) -> np.ndarray:
-        """One fused step for the whole round; one host transfer."""
+        """One fused step for the whole round (a replayed graph on the
+        card); one host transfer."""
         B = len(rids)
         Bp = _bucket_pow2(B)
         # pad rows duplicate sequence 0: wasted attention, and a scatter
         # of the same values to the same slot
-        prids = [rids[i] for i in list(range(B)) + [0] * (Bp - B)]
+        idx = _pad_index(B, Bp)
+        prids = [rids[i] for i in idx]
         seqs = [self.cache.seqs[r] for r in prids]
-        last = [[self.active[r].out_tokens[-1]] for r in prids]
-        pages = [s.pages[-1] for s in seqs]
-        slots = [s.length % self.cache.page_size for s in seqs]
-        bt, lens = self.cache.block_table(prids)
-        logits = _fused_decode_step(
-            self.cfg, self.pcfg, self.params, self._tensor(last),
-            self.cache.k_arena, self.cache.v_arena, bt, lens,
-            self._tensor(pages), self._tensor(slots),
-            self._state_round(prids, B))
+        bt, lens = self.cache.block_table_host(prids)
+        step = self._steps.get("jit_traces", (Bp, bt.shape[1]),
+                               self._decode_body,
+                               self._specs(Bp, bt.shape[1], block=False))
+        step.load("last", np.asarray(
+            [[self.active[r].out_tokens[-1]] for r in prids], np.int32))
+        step.load("bt", bt)
+        step.load("lens", lens)
+        step.load("pages", np.asarray([s.pages[-1] for s in seqs], np.int32))
+        step.load("slots", np.asarray(
+            [s.length % self.cache.page_size for s in seqs], np.int32))
+        if self._has_ssm:
+            step.load("srows", np.asarray(
+                self.cache.state.rows_for(prids), np.int32))
+            step.load("rowmap", np.asarray(idx, np.int64))
+        logits = step()
         tokens = self._sample(logits,
                               [self.active[r].temperature for r in prids])
         self.cache.commit_fused_round(rids, wrote_kv=self._has_attn)
@@ -826,11 +903,14 @@ class PagedEngine:
         self.cache.flush_pending()
         B = len(rids)
         Bp = _bucket_pow2(B)
-        idx = list(range(B)) + [0] * (Bp - B)   # pad rows duplicate row 0
+        idx = _pad_index(B, Bp)                 # pad rows duplicate row 0
+        prids = [rids[i] for i in idx]
         ps = self.cache.page_size
-        pages = np.zeros((Bp, K), np.int32)
-        slots = np.zeros((Bp, K), np.int32)
-        last = np.zeros((Bp,), np.int32)
+        # (round, row): each round's page and slot list is one contiguous
+        # row, copied into the round step's inputs
+        pages = np.zeros((K, Bp), np.int32)
+        slots = np.zeros((K, Bp), np.int32)
+        last = np.zeros((Bp,), np.int64)
         steps_arr = np.zeros((Bp,), np.int32)
         eos = np.full((Bp,), -1, np.int32)
         temps = np.zeros((Bp,), np.float32)
@@ -839,8 +919,8 @@ class PagedEngine:
             req, seq, n = self.active[r], self.cache.seqs[r], steps[i]
             for t in range(K):
                 pos = seq.length + min(t, n - 1)
-                pages[row, t] = seq.pages[pos // ps]
-                slots[row, t] = pos % ps
+                pages[t, row] = seq.pages[pos // ps]
+                slots[t, row] = pos % ps
             last[row] = req.out_tokens[-1]
             steps_arr[row] = n
             if req.eos_token_id is not None:
@@ -848,22 +928,23 @@ class PagedEngine:
             temps[row] = req.temperature
         # the table spans the reserved pages; lens stay the committed
         # lengths, carried forward round by round on the device
-        bt, lens = self.cache.block_table([rids[i] for i in idx])
+        bt, lens = self.cache.block_table_host(prids)
         self.rng_ctr += K
         seeds = [self._seed(self.rng_ctr - K + 1 + t)
                  for t in range(max(steps))]
-        state_of = None
+        step = self._steps.get("block_jit_traces", (Bp, bt.shape[1]),
+                               self._block_body,
+                               self._specs(Bp, bt.shape[1], block=True))
+        step.load("bt", bt)
+        rowmap = self._tensor(idx, torch.long)
         if self._has_ssm:
-            srows = self._tensor(
-                self.cache.state.rows_for([rids[i] for i in idx]))
-            state_of = (lambda alive: _StateRound(self.cache.state, srows, B,
-                                                  alive))
-        tokens = _fused_block_step(
-            self.cfg, self.pcfg, self.params, self._tensor(last),
-            self._tensor(steps_arr), self.cache.k_arena, self.cache.v_arena,
-            bt, lens, self._tensor(pages), self._tensor(slots),
-            self._tensor(eos), seeds, temps, self._tensor(idx, torch.long),
-            self._choose, state_of)
+            step.load("srows", np.asarray(
+                self.cache.state.rows_for(prids), np.int32))
+            step.load("rowmap", rowmap)
+        tokens = _run_block(
+            step, self._tensor(last, torch.long), self._tensor(steps_arr),
+            self._tensor(lens), self._tensor(pages), self._tensor(slots),
+            self._tensor(eos), seeds, temps, rowmap, self._choose)
         toks_np = tokens[:B].cpu().numpy()    # the block's one transfer
         counts = []
         for i, r in enumerate(rids):
@@ -947,22 +1028,11 @@ def _select_tokens(logits: torch.Tensor, temps: np.ndarray, seed: Seed,
     u = dr_ops.pim_random_uniform(seed, logits.shape[0], 1, dev)[:, 0]
     if rowmap is not None:
         u = u[rowmap]
-    t = _upload(np.where(temps > 0.0, temps, np.float32(1.0)), dev)
+    t = upload(np.where(temps > 0.0, temps, np.float32(1.0)), dev)
     probs = torch.softmax(logits.float() / t[:, None], dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     drawn = torch.argmax((cum > u[:, None]).to(torch.uint8), dim=-1)
-    return torch.where(_upload(temps == 0.0, dev), greedy, drawn)
-
-
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host array on ``dev`` without waiting for the card: the copy
-    goes through pinned memory, so it queues behind the work already
-    enqueued instead of synchronising with it (a copy from pageable
-    memory would), and a K-block's rounds never stall the host."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type != "cuda":
-        return t
-    return t.pin_memory().to(dev, non_blocking=True)
+    return torch.where(upload(temps == 0.0, dev), greedy, drawn)
 
 
 def _sublayer(cfg: ModelConfig, kind: str, sp, x: torch.Tensor,
@@ -990,26 +1060,31 @@ def _sublayer(cfg: ModelConfig, kind: str, sp, x: torch.Tensor,
 class _StateRound:
     """One forward's Mamba state traffic.  Each Mamba sublayer gathers
     its rows of the batch (``rows``: the padded batch's state rows, on
-    the device) from the arenas, runs, and keeps the new state of the
-    batch's first ``n`` rows (its unique real rows; pad rows duplicate
-    row 0) in (G, M, n, ...) buffers.  :meth:`scatter` then writes the
-    whole depth with ONE ``state_scatter`` launch per arena.  That is
-    the JAX package's in-scan row set: each sublayer reads its rows
-    once, before anything writes them.  ``alive`` (a K-block's row
-    mask) makes a dead row keep its old state, as its KV slot does."""
+    the device) from the arenas, runs, and keeps the new state of every
+    row in (G, M, Bp, ...) buffers, row ``b`` holding the new state of
+    row ``rowmap[b]`` (pad rows duplicate row 0, so they carry row 0's
+    state bit for bit).  :meth:`scatter` then writes the whole depth
+    with ONE ``state_scatter`` launch per arena, the pad rows' duplicate
+    writes carrying identical payloads.  That is the JAX package's
+    in-scan row set: each sublayer reads its rows once, before anything
+    writes them.  ``alive`` (a K-block's row mask) makes a dead row keep
+    its old state, as its KV slot does.  Nothing here depends on the
+    count of real rows, so a captured step serves its whole bucket."""
 
-    def __init__(self, arena: PagedStateArena, rows: torch.Tensor, n: int,
+    def __init__(self, arena: PagedStateArena, rows: torch.Tensor,
+                 rowmap: torch.Tensor,
                  alive: Optional[torch.Tensor] = None) -> None:
         self.conv, self.ssm = arena.conv, arena.ssm
         self.rows = rows
         self.idx = rows.long()
-        self.n = n
+        self.rowmap = rowmap
         self.alive = alive
         G, M = self.conv.shape[:2]
+        Bp = rows.shape[0]
         dev = self.conv.device
-        self.new_conv = torch.empty((G, M, n) + tuple(self.conv.shape[3:]),
+        self.new_conv = torch.empty((G, M, Bp) + tuple(self.conv.shape[3:]),
                                     dtype=self.conv.dtype, device=dev)
-        self.new_ssm = torch.empty((G, M, n) + tuple(self.ssm.shape[3:]),
+        self.new_ssm = torch.empty((G, M, Bp) + tuple(self.ssm.shape[3:]),
                                    dtype=self.ssm.dtype, device=dev)
 
     def run(self, cfg: ModelConfig, pcfg: ParallelConfig, li: int, j: int,
@@ -1031,15 +1106,19 @@ class _StateRound:
         if self.alive is not None:
             nc = torch.where(self.alive[:, None, None], nc, conv_j)
             ns = torch.where(self.alive[:, None, None, None], ns, ssm_j)
-        self.new_conv[li, j] = nc[:self.n]
-        self.new_ssm[li, j] = ns[:self.n]
+        torch.index_select(nc, 0, self.rowmap, out=self.new_conv[li, j])
+        torch.index_select(ns, 0, self.rowmap, out=self.new_ssm[li, j])
         return out
 
     def scatter(self) -> None:
         """Write the whole depth's new rows: one launch per arena."""
-        rows = self.rows[:self.n]
-        ssm_ops.state_scatter_inline(self.conv, rows, self.new_conv)
-        ssm_ops.state_scatter_inline(self.ssm, rows, self.new_ssm)
+        ssm_ops.state_scatter_inline(self.conv, self.rows, self.new_conv)
+        ssm_ops.state_scatter_inline(self.ssm, self.rows, self.new_ssm)
+
+
+def _pad_index(n: int, Bp: int) -> List[int]:
+    """Rows of a batch of ``n`` padded to ``Bp``: pad rows repeat row 0."""
+    return list(range(n)) + [0] * (Bp - n)
 
 
 def _depth(cfg: ModelConfig) -> int:
@@ -1125,14 +1204,14 @@ def _scatter_kv(k_arena, v_arena, k_all, v_all, scatter) -> None:
     ``scatter`` is the engine's (pages, slots, src) plan, entry ``n``
     writing the forward's K/V at flat index ``src[n]`` (over batch and
     sequence) to ``arena[:, pages[n], slots[n]]``; ``None`` writes
-    nothing.  One kernel launch per arena covers every layer."""
+    nothing.  One kernel launch covers both arenas and every layer."""
     if scatter is None:
         return
     pages, slots, src = scatter
     L, Bp, Sp = k_all.shape[:3]
-    for arena, new_all in ((k_arena, k_all), (v_arena, v_all)):
-        flat = new_all.reshape((L, Bp * Sp) + new_all.shape[3:])[:, src]
-        rc_ops.kv_scatter_inline(arena, pages, slots, flat)
+    k, v = (new_all.reshape((L, Bp * Sp) + new_all.shape[3:])[:, src]
+            .to(k_arena.dtype) for new_all in (k_all, v_all))
+    rc_ops.kv_scatter_pair_inline(k_arena, v_arena, pages, slots, k, v)
 
 
 def _fused_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, params,
@@ -1255,56 +1334,68 @@ def _decode_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
 def _fused_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, params, last,
                        k_arena, v_arena, bt, lens, pages, slots,
                        state: Optional[_StateRound] = None) -> torch.Tensor:
-    """Decode forward, then the round's KV scatter and state scatter
-    (one kernel launch per arena each, covering every layer), arenas
-    updated in place.  A pure-SSM round writes no KV.  Returns the
-    logits (B, V)."""
+    """Decode forward, then the round's KV scatter (one launch for both
+    arenas) and state scatter (one per arena), each covering every
+    layer, arenas updated in place.  A pure-SSM round writes no KV.
+    Returns the logits (B, V)."""
     logits, k_new, v_new = _decode_forward(cfg, pcfg, params, last, k_arena,
                                            v_arena, bt, lens, state)
     if k_new is not None:
-        rc_ops.kv_scatter_inline(k_arena, pages, slots, k_new)
-        rc_ops.kv_scatter_inline(v_arena, pages, slots, v_new)
+        rc_ops.kv_scatter_pair_inline(k_arena, v_arena, pages, slots,
+                                      k_new.to(k_arena.dtype),
+                                      v_new.to(v_arena.dtype))
     if state is not None:
         state.scatter()
     return logits
 
 
-def _fused_block_step(cfg: ModelConfig, pcfg: ParallelConfig, params, last,
-                      steps, k_arena, v_arena, bt, lens, pages, slots, eos,
-                      seeds, temps, rowmap, choose: Callable,
-                      state_of: Optional[Callable] = None) -> torch.Tensor:
+def _fused_block_round(cfg: ModelConfig, pcfg: ParallelConfig, params,
+                       last, k_arena, v_arena, bt, lens, pages, slots, alive,
+                       state: Optional[_StateRound] = None) -> torch.Tensor:
+    """One round of a K-block: forward at the carried lengths, a masked
+    KV scatter (a stopped row writes its slot's current value back, so
+    the arena stays bit-identical to round-at-a-time decoding) and the
+    round's state scatter (``state`` carries ``alive``: a stopped row
+    keeps its state).  last, lens, pages, slots, alive: (Bp,).  Returns
+    the logits (Bp, V)."""
+    logits, k_new, v_new = _decode_forward(cfg, pcfg, params, last[:, None],
+                                           k_arena, v_arena, bt, lens, state)
+    if k_new is not None:
+        keep = alive[None, :, None, None]
+        k_val, v_val = (torch.where(keep, new.to(arena.dtype),
+                                    rc_ops.kv_gather_inline(arena, pages,
+                                                            slots))
+                        for arena, new in ((k_arena, k_new),
+                                           (v_arena, v_new)))
+        rc_ops.kv_scatter_pair_inline(k_arena, v_arena, pages, slots, k_val,
+                                      v_val)
+    if state is not None:
+        state.scatter()
+    return logits
+
+
+def _run_block(step, last, steps, lens, pages, slots, eos, seeds, temps,
+               rowmap, choose: Callable) -> torch.Tensor:
     """Up to K decode rounds with one host transfer at the end: a Python
-    loop over ``len(seeds)`` rounds (the block's longest row) whose
-    carry — lengths, last tokens, the alive mask, the (B, K) token
-    buffer — stays on the device, so the host never waits inside the
-    block.  Round ``t``: forward at the carried lengths, a masked KV
-    scatter (a stopped row writes its slot's current value back, so the
-    arena stays bit-identical to round-at-a-time decoding) and the
-    round's state scatter (``state_of(alive)`` gives the round's state
-    operands; a stopped row keeps its state), token choice at
-    ``seeds[t]`` with ``rowmap`` folding pad rows onto row 0, then the
-    stop rule (a row stops after ``steps`` tokens or its EOS).  Tokens
-    after a row stopped are -1; a row that stopped early only runs
-    masked.  Returns the (B, K) tokens."""
-    Bp, K = pages.shape
+    loop over ``len(seeds)`` rounds (the block's longest row), each one
+    call of ``step`` (:func:`_fused_block_round` on the round's inputs,
+    a replayed graph on the card), whose carry — lengths, last tokens,
+    the alive mask, the (B, K) token buffer — stays on the device and is
+    loaded into the step by device copies, so the host never waits
+    inside the block.  After round ``t``: token choice at ``seeds[t]``
+    with ``rowmap`` folding pad rows onto row 0, then the stop rule (a
+    row stops after ``steps`` tokens or its EOS).  pages, slots: (K,
+    Bp).  Tokens after a row stopped are -1; a row that stopped early
+    only runs masked.  Returns the (B, K) tokens."""
+    K, Bp = pages.shape
     alive = steps > 0
     toks = torch.full((Bp, K), -1, dtype=torch.long, device=last.device)
-    last = last.long()
-    lens = lens.clone()
     for t, seed in enumerate(seeds):
-        state = state_of(alive) if state_of is not None else None
-        logits, k_new, v_new = _decode_forward(cfg, pcfg, params,
-                                               last[:, None], k_arena,
-                                               v_arena, bt, lens, state)
-        if k_new is not None:
-            p_t, s_t = pages[:, t], slots[:, t]
-            for arena, new in ((k_arena, k_new), (v_arena, v_new)):
-                old = rc_ops.kv_gather_inline(arena, p_t, s_t)
-                val = torch.where(alive[None, :, None, None],
-                                  new.to(arena.dtype), old)
-                rc_ops.kv_scatter_inline(arena, p_t, s_t, val)
-        if state is not None:
-            state.scatter()
+        for name, value in (("last", last), ("lens", lens),
+                            ("pages", pages[t]), ("slots", slots[t]),
+                            ("alive", alive)):
+            step.load(name, value)
+        logits = step()
         raw = choose(logits, temps, seed, rowmap=rowmap).long()
         toks[:, t] = torch.where(alive, raw, -1)
         lens = lens + alive.to(lens.dtype)

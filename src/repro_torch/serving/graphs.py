@@ -1,0 +1,177 @@
+"""The engine's step cache: one captured CUDA graph per shape bucket.
+
+The port's counterpart of the JAX engine's compiled fused steps (JAX
+``serving/engine.py``: ``_build_fused_step``, ``_build_fused_block_step``),
+which trace once per (padded batch, block-table width) and replay.  Here
+a step is keyed the same way, ``(Bp, W)``; its first call is a miss,
+which bumps the engine's retrace counter (``stats["jit_traces"]`` for the
+decode round, ``stats["block_jit_traces"]`` for the K-block round, the
+JAX names, counted where the JAX closures count a trace).
+
+On the card, with capture on, a miss runs the step's body once eagerly
+on a side stream (its result is the call's: one-time work such as
+kernel attributes, cached scratch and cuBLAS's workspace happens there,
+outside any capture), then captures the body into a ``torch.cuda.CUDAGraph``
+over static input buffers; every later call copies its inputs into those
+buffers (host arrays through pinned memory, device tensors device to
+device, neither waiting for the card) and replays the graph: one launch
+from the host for the whole step.  The engine's graphs share one memory
+pool (they run one after another on one stream).
+
+What a replay relies on, and how it is kept:
+
+* the arenas' addresses are baked into the graph: each replay checks
+  them against the ones captured and raises if an arena moved;
+* the kernel wrappers count their launches on the host, which a replay
+  does not run: each graph keeps the :data:`repro_torch.kernels.LAUNCHES`
+  delta of its capture (taken back out of the counts, since nothing ran
+  then) and adds it at every replay, so the counts stay what the card
+  ran;
+* a body must not synchronise, upload from pageable memory or allocate
+  pinned memory (a capture refuses them, and the capture's error is
+  raised; nothing falls back to eager launches).
+
+Without capture (on the CPU, where the port runs its plain versions, or
+``PagedEngine(cuda_graphs=False)``) the cache keeps the same keys and
+counts, and a call runs the body eagerly on the inputs it was given.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import LAUNCHES, count_launch
+from repro_torch.kernels.rowclone.ops import upload
+
+Spec = Tuple[Tuple[int, ...], torch.dtype]
+
+
+class Step:
+    """One key's step: a body ``fn(**inputs) -> Tensor``, its inputs and,
+    when capturing, the graph with its static inputs and output."""
+
+    def __init__(self, cache: "StepCache", body: Callable[..., torch.Tensor],
+                 specs: Dict[str, Spec]) -> None:
+        self.cache = cache
+        self.body = body
+        self.inputs: Dict[str, torch.Tensor] = {}
+        if cache.capture:
+            self.inputs = {name: torch.empty(shape, dtype=dtype,
+                                             device=cache.device)
+                           for name, (shape, dtype) in specs.items()}
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.output: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+        self.arena_ptrs: Tuple[int, ...] = ()
+
+    def load(self, name: str, value) -> None:
+        """Set input ``name`` from a host array or a device tensor."""
+        if not self.cache.capture:
+            self.inputs[name] = (value if isinstance(value, torch.Tensor)
+                                 else upload(value, self.cache.device))
+            return
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.ascontiguousarray(value)).pin_memory()
+        self.inputs[name].copy_(value, non_blocking=True)
+
+    def __call__(self) -> torch.Tensor:
+        if not self.cache.capture:
+            return self.body(**self.inputs)
+        if self.graph is None:
+            return self._capture()
+        ptrs = self.cache.arena_ptrs()
+        if ptrs != self.arena_ptrs:
+            raise RuntimeError(
+                "a captured step's arenas moved since its capture (the "
+                f"graph writes {self.arena_ptrs}, the arenas are at {ptrs})")
+        self.graph.replay()
+        for name, n in self.launches.items():
+            count_launch(name, n)
+        return self.output
+
+    def _capture(self) -> torch.Tensor:
+        """Warm up eagerly (this call's result), then capture."""
+        cache = self.cache
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(cache.device)
+        side = cache.side_stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.body(**self.inputs)
+        # later side-stream work (the next warm-up) waits for main again,
+        # so the blocks of ``out`` are not reused under main's reads
+        main.wait_stream(side)
+        before = dict(LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin/end rather than torch.cuda.graph, which also
+        # synchronises and empties the allocator's cache: the allocations
+        # after it would all go back to cudaMalloc
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=cache.pool())
+            try:
+                self.output = self.body(**self.inputs)
+            except Exception:
+                # end the broken capture; the body's error is the cause
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                         if LAUNCHES[k] != before[k]}
+        LAUNCHES.update(before)       # the capture ran nothing on the card
+        self.arena_ptrs = cache.arena_ptrs()
+        self.graph = graph
+        cache.capture_seconds += time.perf_counter() - t0
+        return out
+
+
+class StepCache:
+    """Steps keyed by ``(counter, Bp, W)``; ``counter`` names the
+    ``stats`` entry a miss bumps."""
+
+    def __init__(self, device: torch.device, *, capture: bool,
+                 stats: Dict[str, float],
+                 arenas: Callable[[], Sequence[torch.Tensor]]) -> None:
+        self.device = device
+        self.capture = capture and device.type == "cuda"
+        self.stats = stats
+        self._arenas = arenas
+        self._steps: Dict[tuple, Step] = {}
+        self._pool = None
+        self._side: Optional[torch.cuda.Stream] = None
+        #: host seconds of the misses' warm-ups and captures
+        self.capture_seconds = 0.0
+
+    def get(self, counter: str, key: tuple, body: Callable[..., torch.Tensor],
+            specs: Dict[str, Spec]) -> Step:
+        """The step of ``key``, made (and counted) on a miss; ``specs``
+        give its inputs' shapes and dtypes (the static buffers)."""
+        full = (counter,) + tuple(key)
+        step = self._steps.get(full)
+        if step is None:
+            self.stats[counter] += 1
+            step = self._steps[full] = Step(self, body, specs)
+        return step
+
+    def arena_ptrs(self) -> Tuple[int, ...]:
+        return tuple(a.data_ptr() for a in self._arenas())
+
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def side_stream(self) -> torch.cuda.Stream:
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
+    @property
+    def captured(self) -> int:
+        """Steps whose graph exists."""
+        return sum(s.graph is not None for s in self._steps.values())

@@ -65,6 +65,7 @@ from repro_torch.core.op_registry import (StateWriteBatch,
 from repro_torch.core.pimolib import TorchLib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ambit import ops as amb_ops
+from repro_torch.kernels.rowclone.ops import upload, upload_index
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import transformer as T
 from .prefix_cache import RadixPrefixCache
@@ -133,8 +134,8 @@ class PagedStateArena:
     # -- queue flush executors (arena-bound; the KV arenas pass through)
 
     def _flush_write(self, q, arenas, ops: List[StateWriteBatch]):
-        rows = torch.tensor([r for o in ops for r in o.rows],
-                            dtype=torch.int32, device=self.ssm.device)
+        rows = upload_index([r for o in ops for r in o.rows],
+                            self.num_slots, "state row", self.ssm.device)
         if len(ops) == 1:
             conv, ssm = ops[0].conv, ops[0].ssm
         else:
@@ -236,8 +237,8 @@ class PagedStateArena:
         """(conv, ssm) rows of ``seq_ids``, stacked (groups, sublayers,
         batch, ...), after the pending mutations land."""
         self.lib.flush()
-        rows = torch.tensor(self.rows_for(seq_ids), dtype=torch.int32,
-                            device=self.ssm.device)
+        rows = upload_index(self.rows_for(seq_ids), self.num_slots,
+                            "state row", self.ssm.device)
         return (ssm_ops.state_gather_inline(self.conv, rows),
                 ssm_ops.state_gather_inline(self.ssm, rows))
 
@@ -725,12 +726,21 @@ class PagedKVCache:
                     lengths: Optional[List[int]] = None,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Block tables (B, width) and lengths (B,) as int32 tensors on
-        the cache's device.  The width is the widest sequence's page
-        count rounded up to a power of two; padding columns point at
-        page 0 and are never attended.  ``lengths`` overrides each
-        sequence's valid length: chunked prefill exposes only the
-        committed prefix of a sequence mid-prefill, over a table that
-        still spans its full page list."""
+        the cache's device (uploaded without a synchronise; see
+        :meth:`block_table_host`)."""
+        bt, lens = self.block_table_host(seq_ids, lengths)
+        return upload(bt, self.device), upload(lens, self.device)
+
+    def block_table_host(self, seq_ids: List[int],
+                         lengths: Optional[List[int]] = None,
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Block tables (B, width) and lengths (B,) as int32 host arrays.
+        The width is the widest sequence's page count rounded up to a
+        power of two; padding columns point at page 0 and are never
+        attended.  ``lengths`` overrides each sequence's valid length:
+        chunked prefill exposes only the committed prefix of a sequence
+        mid-prefill, over a table that still spans its full page
+        list."""
         width = _bucket_pow2(max(len(self.seqs[sid].pages)
                                  for sid in seq_ids))
         bt = np.zeros((len(seq_ids), width), np.int32)
@@ -739,8 +749,7 @@ class PagedKVCache:
             seq = self.seqs[sid]
             bt[i, :len(seq.pages)] = seq.pages
             lens[i] = seq.length if lengths is None else lengths[i]
-        return (torch.from_numpy(bt).to(self.device),
-                torch.from_numpy(lens).to(self.device))
+        return bt, lens
 
     @property
     def pages_in_use(self) -> int:

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Times the PyTorch/CUDA port's KV-scatter and page-init wrappers of one
+source tree on the card, at the shapes of ``chip_smoke.py``'s phase 2.
+
+    python3 tools/rowclone_ab.py TREE LABEL
+
+TREE is the root of a checkout: its ``src/repro_torch`` is imported and
+its RowClone kernels are built into ``TREE/build/repro_torch``.  Each
+run prints one line ``{"tree": LABEL, ...}`` with the mean ms of a call
+(CUDA events over back-to-back calls) of:
+
+* ``kv_scatter``: one arena (L=40, P=1024, 16 slots of 8 x 128 bf16,
+  B=8 with two pad duplicates), and the (K, V) pair a decode round
+  writes: two single calls, and the pair form where the tree has one;
+* ``page_init_batched``: 16 pages over 40 layers of one arena, and the
+  pair the queue's flush inits: two calls, or the pair form;
+* ``page_init``: 16 pages of one (1024, 16384) bf16 layer;
+* the library calls of the same functions (``index_copy_`` and
+  ``index_fill_`` on indices already on the card).
+
+To compare two commits on one card, unpack the parent with
+``git archive`` into a git-ignored directory and run parent, change,
+change, parent in one call; each run is its own process, so the two
+trees' packages never meet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("tree")
+    ap.add_argument("label")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("rowclone_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.tree) + "/src")
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rowclone import ops as rc_ops
+
+    _build.build(["rowclone"])
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    L, P, S, KVH, D, B = 40, 1024, 16, 8, 128, 8
+    E = KVH * D
+    k_ar, v_ar = randn(L, P, S, KVH, D), randn(L, P, S, KVH, D)
+    k_new, v_new = randn(L, B, KVH, D), randn(L, B, KVH, D)
+    for new in (k_new, v_new):
+        new[:, 6] = new[:, 0]
+        new[:, 7] = new[:, 1]
+    pages = torch.tensor([3, 17, 200, 511, 800, 1000, 3, 17],
+                         dtype=torch.int32, device=dev)
+    slots = torch.tensor([0, 5, 15, 7, 1, 9, 0, 5], dtype=torch.int32,
+                         device=dev)
+    flat_k, flat_v = k_ar.view(L, P * S, E), v_ar.view(L, P * S, E)
+    flat_idx = pages.long() * S + slots.long()
+    out = {"tree": args.label}
+    out["kv_scatter"] = time_ms(
+        lambda: rc_ops.kv_scatter_inline(k_ar, pages, slots, k_new))
+    out["kv_scatter_two_calls"] = time_ms(lambda: (
+        rc_ops.kv_scatter_inline(k_ar, pages, slots, k_new),
+        rc_ops.kv_scatter_inline(v_ar, pages, slots, v_new)))
+    if hasattr(rc_ops, "kv_scatter_pair_inline"):
+        out["kv_scatter_pair"] = time_ms(
+            lambda: rc_ops.kv_scatter_pair_inline(k_ar, v_ar, pages, slots,
+                                                  k_new, v_new))
+    out["index_copy"] = time_ms(
+        lambda: flat_k.index_copy_(1, flat_idx, k_new.view(L, B, E)))
+    out["index_copy_two_calls"] = time_ms(lambda: (
+        flat_k.index_copy_(1, flat_idx, k_new.view(L, B, E)),
+        flat_v.index_copy_(1, flat_idx, v_new.view(L, B, E))))
+
+    init_pages = list(range(200, 215)) + [100]
+    init_idx = torch.tensor(init_pages, device=dev)
+    out["page_init_batched"] = time_ms(
+        lambda: rc_ops.pim_page_init_batched(k_ar, init_pages, 0.0))
+    out["page_init_batched_two_calls"] = time_ms(lambda: (
+        rc_ops.pim_page_init_batched(k_ar, init_pages, 0.0),
+        rc_ops.pim_page_init_batched(v_ar, init_pages, 0.0)))
+    if hasattr(rc_ops, "pim_page_init_batched_pair"):
+        out["page_init_batched_pair"] = time_ms(
+            lambda: rc_ops.pim_page_init_batched_pair(k_ar, v_ar, init_pages,
+                                                      0.0))
+    out["index_fill"] = time_ms(lambda: k_ar.index_fill_(1, init_idx, 0.0))
+    out["index_fill_two_calls"] = time_ms(lambda: (
+        k_ar.index_fill_(1, init_idx, 0.0),
+        v_ar.index_fill_(1, init_idx, 0.0)))
+
+    layer = k_ar[0].reshape(P, -1).clone()
+    dst = list(range(400, 416))
+    dst_idx = torch.tensor(dst, device=dev)
+    out["page_init"] = time_ms(lambda: rc_ops.pim_page_init(layer, dst, 0.0))
+    out["index_fill_layer"] = time_ms(
+        lambda: layer.index_fill_(0, dst_idx, 0.0))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
