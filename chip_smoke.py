@@ -33,7 +33,9 @@ exits nonzero:
 13. RowClone against memcpy and calloc (run right after phase 2):
     ``pim_copy`` against ``Tensor.clone()`` and ``pim_init(..., 0)``
     against ``torch.zeros`` from 8 KiB to 1 GiB with each time's share
-    of the memory rate, then 40 layers of page copies and inits looped
+    of the memory rate and its ratio to the library call (the sizes of
+    1 MiB or more where the kernel loses), then 40 layers of page
+    copies and inits looped
     (40 launches of ``page_copy`` / ``page_init``) against batched
     (one); its launch counts are zeroed just before and read just
     after;
@@ -49,8 +51,10 @@ exits nonzero:
    sampled at temperature 1.0, one with an EOS; its launch counts are
    zeroed and read around it, and mixed rounds, decode blocks, the
    generator and the prefix mode of flash attention must all have run;
-5. trace: ``torch.profiler`` over one mixed round and one decode block
-   of the same workload, the card's busy time by kernel group, then
+5. trace: ``torch.profiler`` over the first chunk step, mixed round and
+   decode block of the same workload that replay their graphs, the
+   card's busy time by kernel group and the kernels it ran held equal
+   to the launches the window counted, then
    over a replayed decode round and a replayed decode block of phase
    3's workload (each one replay of its captured graph: the host's
    calls that put work on the card against the device events it ran);
@@ -85,12 +89,16 @@ exits nonzero:
     CPU from identical weights: prefill and teacher-forced decode
     logits;
 15. CUDA graphs (after phase 12, before phase 5's profiler): phase 3's
-    workload on granite-3-8b and phase 10(a)'s on mamba2-1.3b, each at
-    full width and depth, twice in one process — ``cuda_graphs=False``
-    then ``True`` — with identical greedy streams, ``launches_by_kind``
-    deltas and kernel launch counts required; both decode-round
-    medians, the step-cache misses (``jit_traces``) and capture seconds,
-    and (printed after phase 5) each model's profiled replay;
+    workload on granite-3-8b, phase 4's chunked one on granite-3-8b and
+    phase 10(a)'s on mamba2-1.3b, each at full width and depth, twice in
+    one process — ``cuda_graphs=False`` then ``True`` — with identical
+    streams, ``launches_by_kind`` deltas, kernel launch counts and
+    step-cache misses required and every miss captured; the decode-round
+    medians and prefill milliseconds, the chunk, mixed and block
+    medians, the step-cache misses by counter, the capture seconds and
+    the graphs' pool; phase 8(b)'s open loop with graphs off then on
+    (TTFT, ITL); and (printed after phase 5) each model's profiled
+    replay;
 14. trace and replay (after phase 8): phase 3's workload with
     ``record_trace=True`` at full depth (each kind's trace events equal
     its flushes), replayed on the simulated DDR3 prototype — its
@@ -99,7 +107,9 @@ exits nonzero:
     the card and on the CPU, whose traces and replays must be equal.
 
 Every serving phase runs with the engine's default ``cuda_graphs=True``:
-its decode rounds and K-block rounds replay captured graphs.
+its prefill batches, chunk steps, mixed rounds (two graphs each), decode
+rounds and K-block rounds replay graphs captured per shape bucket; each
+serving line prints its step-cache misses, captures and graph pool.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels' JSON summary, and ``{"ok": true, "device": {...}}``.  Without a
@@ -1023,7 +1033,10 @@ def rowclone_sweep(dev, sizes=SWEEP_BYTES, arena=(40, 1024, 16 * 8 * 128)
         moved = {"pim_copy": 2 * nb, "clone": 2 * nb, "pim_init": nb,
                  "zeros": nb}
         lines.append({"bytes": nb, "ms": t, "memory_rate_share": {
-            k: moved[k] / (t[k] * 1e-3) / HBM_BYTES_PER_S for k in t}})
+            k: moved[k] / (t[k] * 1e-3) / HBM_BYTES_PER_S for k in t},
+            # rows 11-12 against the library call (< 1: the kernel wins)
+            "copy_over_clone": t["pim_copy"] / t["clone"],
+            "init_over_zeros": t["pim_init"] / t["zeros"]})
         del src
 
     L, P, E = arena
@@ -1063,8 +1076,12 @@ def rowclone_sweep(dev, sizes=SWEEP_BYTES, arena=(40, 1024, 16 * 8 * 128)
         raise AssertionError(f"kernels not launched on the path: {missing}")
     del arena
     torch.cuda.empty_cache()
+    slower = {k: [ln["bytes"] for ln in lines
+                  if ln["bytes"] >= (1 << 20) and ln[k] > 1.0]
+              for k in ("copy_over_clone", "init_over_zeros")}
     return ({"phase": "rowclone_vs_memcpy", "dtype": "bfloat16",
-             "sizes": lines, "layers": L, "pages": len(src),
+             "sizes": lines, "slower_than_library_at_1MiB_up": slower,
+             "layers": L, "pages": len(src),
              "page_bytes": page_bytes, **layered,
              "kernel_launches": _nonzero(counts)}, counts)
 
@@ -1298,6 +1315,7 @@ def serving(dev, cfg, params, init_s) -> dict:
           "init_seconds": init_s,
           "prompt_lens": [int(len(r.prompt)) for r in reqs],
           "prefill_ms": st["prefill_seconds"] * 1e3,
+          **_graph_stats(engine),
           "first_round_ms": rs[0] * 1e3,
           "decode_round_ms": [x * 1e3 for x in rs[1:]],
           "decode_round_ms_median": float(np.median(rs[1:])) * 1e3,
@@ -1336,32 +1354,46 @@ def _steps(out) -> dict:
             "step_ms": ms}
 
 
-def serving_chunked(dev, cfg, params, greedy_streams) -> dict:
-    """Phase 4: chunked prefill (256-token chunks), mixed rounds and
-    8-round decode blocks; requests 0-3 first, 4-7 after step 2; even
-    ids greedy, odd ids sampled at temperature 1.0; request 2 stops at
-    an EOS taken from its phase-3 greedy stream."""
-    from repro_torch.kernels import launch_counts, reset_launches
+def _chunked_serve(dev, cfg, params, eos_token, cuda_graphs=True,
+                   misses=None):
+    """Phase 4's workload through ``serve``: chunked prefill (256-token
+    chunks), mixed rounds and 8-round decode blocks; requests 0-3 first,
+    4-7 after step 2; even ids greedy, odd ids sampled at temperature
+    1.0; request 2 stops at ``eos_token``.  ``misses`` (a list) gets the
+    engine's step-cache misses so far after each step."""
     from repro_torch.launch.serve import serve
     from repro_torch.serving.engine import Request
 
     reqs = granite_requests(cfg, Request,
                             temperature=lambda i: float(i % 2))
-    eos = {2: greedy_streams[2][8]}
-    reqs[2].eos_token_id = eos[2]
+    reqs[2].eos_token_id = eos_token
     late = reqs[4:]
 
     def between_rounds(engine, i):
+        if misses is not None:
+            misses.append(sum(engine.stats[k] for k in TRACE_KEYS))
         if i == 1:
             for r in late:
                 engine.submit(r)
 
+    return serve(cfg, params, reqs[:4], page_size=16, num_pages=1024,
+                 device=dev, between_rounds=between_rounds,
+                 max_prefill_chunk=256, mixed_rounds=True,
+                 decode_block_rounds=8, cuda_graphs=cuda_graphs)
+
+
+def serving_chunked(dev, cfg, params, greedy_streams) -> dict:
+    """Phase 4: :func:`_chunked_serve` with request 2's EOS taken from
+    its phase-3 greedy stream."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serving.engine import Request
+
+    reqs = granite_requests(cfg, Request,
+                            temperature=lambda i: float(i % 2))
+    eos = {2: greedy_streams[2][8]}
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    out = serve(cfg, params, reqs[:4], page_size=16, num_pages=1024,
-                device=dev, between_rounds=between_rounds,
-                max_prefill_chunk=256, mixed_rounds=True,
-                decode_block_rounds=8)
+    out = _chunked_serve(dev, cfg, params, eos[2])
     counts = launch_counts()
     engine = out["engine"]
     missing = [k for k in CHUNKED_KERNELS if counts[k] == 0]
@@ -1391,7 +1423,7 @@ def serving_chunked(dev, cfg, params, greedy_streams) -> dict:
               "prefill_chunks", "mixed_dispatches", "multi_round_blocks",
               "decode_rounds", "fused_prefill_dispatches",
               "decode_stall_rounds")},
-          "rng_ctr": engine.rng_ctr,
+          "rng_ctr": engine.rng_ctr, **_graph_stats(engine),
           "pages_in_use": engine.cache.pages_in_use,
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           # greedy rows: tokens before the first difference from phase 3
@@ -1403,10 +1435,11 @@ def serving_chunked(dev, cfg, params, greedy_streams) -> dict:
 def trace(dev, cfg, params) -> dict:
     """``torch.profiler`` over the phase-4 workload on a fresh engine:
     the card's busy time (the sum of its kernel and copy times; one
-    stream, so they do not overlap) in the second mixed round and the
-    second decode block (the first of each kind pays one-time costs),
-    by kernel group, beside the step's host-clock time under the
-    profiler (which slows the host)."""
+    stream, so they do not overlap) in the first chunk step, mixed round
+    and decode block that replay their graphs (no step-cache miss in the
+    step), by kernel group, beside the step's host-clock time under the
+    profiler (which slows the host); each window's kernels held equal to
+    its counted launches (:func:`_ran_as_counted`)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import launch_counts
     from repro_torch.serving.engine import PagedEngine, Request
@@ -1418,14 +1451,14 @@ def trace(dev, cfg, params) -> dict:
     for r in reqs[:4]:
         engine.submit(r)
     queue = engine.cache.queue
-    seen = {"mixed": 0, "decode_block": 0}
+    kinds = ("chunk", "mixed", "decode_block")
     out = {}
     steps = 0
-    while engine.has_work and len(out) < 2:
+    while engine.has_work and len(out) < len(kinds):
         rounds = (engine.decode_block_rounds
                   if engine.prefill_backlog_tokens() == 0 else 1)
         before = queue.snapshot()
-        misses = engine.stats["block_jit_traces"]
+        misses = {k: engine.stats[k] for k in TRACE_KEYS}
         torch.cuda.synchronize(dev)
         counted = launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1439,19 +1472,13 @@ def trace(dev, cfg, params) -> dict:
             for r in reqs[4:]:
                 engine.submit(r)
         kind = _round_kind(queue.delta(before))
-        if kind not in seen:
+        replayed = all(engine.stats[k] == misses[k] for k in TRACE_KEYS)
+        if kind not in kinds or kind in out or not replayed:
             continue
-        seen[kind] += 1
-        if seen[kind] != 2:
-            continue
-        out[kind] = {"profiled_step_ms": wall_ms, **_device_busy(prof),
-                     **_ran_as_counted(prof, counted)}
-        if kind == "decode_block":
-            # a replayed block graph, not a capture
-            out[kind]["captured"] = (
-                engine.stats["block_jit_traces"] == misses)
-    if set(out) != set(seen):
-        raise AssertionError(f"the traced run had only {sorted(out)}")
+        out[kind] = {"profiled_step_ms": wall_ms, "replayed": True,
+                     **_device_busy(prof), **_ran_as_counted(prof, counted)}
+    if set(out) != set(kinds):
+        raise AssertionError(f"the traced run replayed only {sorted(out)}")
     del engine
     # a decode round and a block of phase 3's greedy workload, each a
     # replay of its captured graph
@@ -1641,6 +1668,33 @@ def _nonzero(d):
     return {k: v for k, v in d.items() if v}
 
 
+TRACE_KEYS = ("jit_traces", "block_jit_traces", "prefill_jit_traces",
+              "mixed_jit_traces")
+
+
+def _graph_stats(engine) -> dict:
+    """An engine's step-cache misses by counter (the JAX engine's
+    retrace names), the graphs it captured, their host seconds and the
+    reserved bytes its captures added (the graphs' shared pool)."""
+    cache = engine._steps
+    return {"traces": {k: engine.stats[k] for k in TRACE_KEYS},
+            "graphs_captured": cache.captured,
+            "capture_seconds": cache.capture_seconds,
+            "graph_pool_gib": cache.pool_bytes / 2**30}
+
+
+def _check_captured(engine, what) -> None:
+    """Every step-cache miss captured its graphs (two for a mixed key);
+    none without capture."""
+    st = engine.stats
+    want = (st["jit_traces"] + st["block_jit_traces"]
+            + st["prefill_jit_traces"] + 2 * st["mixed_jit_traces"])
+    got = engine._steps.captured
+    if got != (want if engine._steps.capture else 0):
+        raise AssertionError(f"{what}: {got} graphs for {want} step-cache "
+                             "graphs")
+
+
 # ---------------------------------------------------------------------- #
 # Phase 15: the decode and K-block rounds as captured CUDA graphs
 # ---------------------------------------------------------------------- #
@@ -1651,12 +1705,14 @@ def graphs_ab(dev, cfg, params, make_requests, num_pages) -> dict:
     greedy, monolithic, one round a step, a CoW fork of a live sequence
     after the first decode round and its free after the second — twice
     in this process, first with ``cuda_graphs=False`` (every kernel
-    launched from Python), then with ``True`` (each decode round one
-    replay of its bucket's graph).  Required: token-identical streams,
-    identical ``launches_by_kind`` deltas and kernel launch counts, 0
-    pages and state rows in use.  Reported: both decode-round medians
-    (host clock, each round ending in its token transfer and a
-    synchronise), the step-cache misses and their capture seconds."""
+    launched from Python), then with ``True`` (each prefill batch and
+    decode round one replay of its bucket's graph, or its capture).
+    Required: token-identical streams, identical ``launches_by_kind``
+    deltas and kernel launch counts, 0 pages and state rows in use.
+    Reported: both decode-round medians (host clock, each round ending
+    in its token transfer and a synchronise), the prefill's host
+    milliseconds, the step-cache misses, their capture seconds and the
+    graphs' pool."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
 
@@ -1677,15 +1733,15 @@ def graphs_ab(dev, cfg, params, make_requests, num_pages) -> dict:
                     between_rounds=between_rounds, cuda_graphs=graphs)
         engine = out["engine"]
         _check_drained(engine, f"graphs (cuda_graphs={graphs})")
+        _check_captured(engine, f"{cfg.name} (cuda_graphs={graphs})")
         rs = out["round_seconds"]
         runs[graphs] = {
             "results": out["results"], "deltas": out["round_launches"],
             "kernels": launch_counts(),
             "decode_round_ms_median": float(np.median(rs[1:])) * 1e3,
+            "prefill_ms": engine.stats["prefill_seconds"] * 1e3,
             "tokens_per_s": out["tokens"] / out["seconds"],
-            "jit_traces": engine.stats["jit_traces"],
-            "graphs_captured": engine._steps.captured,
-            "capture_seconds": engine._steps.capture_seconds}
+            **_graph_stats(engine)}
         del engine, out
         _free_card()
     off, on = runs[False], runs[True]
@@ -1698,31 +1754,99 @@ def graphs_ab(dev, cfg, params, make_requests, num_pages) -> dict:
         raise AssertionError(f"{cfg.name}: kernel launches differ with "
                              f"graphs on: {_nonzero(on['kernels'])} against "
                              f"{_nonzero(off['kernels'])}")
-    if on["graphs_captured"] != on["jit_traces"] or off["graphs_captured"]:
-        raise AssertionError(f"{cfg.name}: {on['graphs_captured']} graphs "
-                             f"for {on['jit_traces']} step-cache misses")
-    keep = ("decode_round_ms_median", "tokens_per_s", "jit_traces",
-            "graphs_captured", "capture_seconds")
+    if on["traces"] != off["traces"]:
+        raise AssertionError(f"{cfg.name}: step-cache misses differ with "
+                             f"graphs on: {on['traces']} {off['traces']}")
+    drop = ("results", "deltas", "kernels")
     return {"arch": cfg.name, "layers": cfg.num_layers,
-            "graphs_off": {k: off[k] for k in keep},
-            "graphs_on": {k: on[k] for k in keep},
+            "graphs_off": {k: v for k, v in off.items() if k not in drop},
+            "graphs_on": {k: v for k, v in on.items() if k not in drop},
+            "streams_identical": True, "launch_deltas_identical": True,
+            "kernel_launches": _nonzero(on["kernels"]),
+            # phase 4's EOS rule, from this workload's greedy stream 2
+            "eos_token": off["results"][2][8]}
+
+
+def chunked_ab(dev, cfg, params, eos_token) -> dict:
+    """Phase 15's chunked half: phase 4's workload (:func:`_chunked_serve`)
+    with ``cuda_graphs`` off, then on, in this process.  Required:
+    identical streams, ``launches_by_kind`` deltas, kernel launch counts
+    and step-cache misses, every miss captured.  Reported: the median
+    host milliseconds of each step kind (chunk, mixed, decode block),
+    also apart for the steps with a step-cache miss (a capture, with
+    graphs on) and those without (replays), the prefill seconds, the
+    captures, their seconds and the graphs' pool."""
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    runs = {}
+    for graphs in (False, True):
+        reset_launches()
+        misses = []
+        out = _chunked_serve(dev, cfg, params, eos_token,
+                             cuda_graphs=graphs, misses=misses)
+        engine = out["engine"]
+        split = {}
+        for d, sec, miss in zip(out["round_launches"], out["round_seconds"],
+                                np.diff([0] + misses)):
+            split.setdefault(_round_kind(d), {"miss": [], "replay": []})[
+                "miss" if miss else "replay"].append(sec * 1e3)
+        _check_drained(engine, f"chunked graphs (cuda_graphs={graphs})")
+        _check_captured(engine, f"chunked (cuda_graphs={graphs})")
+        steps = _steps(out)
+        runs[graphs] = {
+            "results": out["results"], "deltas": out["round_launches"],
+            "kernels": launch_counts(),
+            "step_kinds": steps["step_kinds"],
+            "step_ms_median": steps["step_ms_median"],
+            "step_ms_median_miss_replay": {
+                k: {m: float(np.median(v)) if v else None
+                    for m, v in d.items()} for k, d in split.items()},
+            "steps_miss_replay": {k: {m: len(v) for m, v in d.items()}
+                                  for k, d in split.items()},
+            "prefill_seconds": engine.stats["prefill_seconds"],
+            "tokens_per_s": out["tokens"] / out["seconds"],
+            "rng_ctr": engine.rng_ctr, **_graph_stats(engine)}
+        del engine, out
+        _free_card()
+    off, on = runs[False], runs[True]
+    for key in ("results", "deltas", "kernels", "traces", "rng_ctr"):
+        if on[key] != off[key]:
+            raise AssertionError(f"chunked: {key} differ with graphs on")
+    drop = ("results", "deltas", "kernels")
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "max_prefill_chunk": 256, "decode_block_rounds": 8,
+            "graphs_off": {k: v for k, v in off.items() if k not in drop},
+            "graphs_on": {k: v for k, v in on.items() if k not in drop},
             "streams_identical": True, "launch_deltas_identical": True,
             "kernel_launches": _nonzero(on["kernels"])}
 
 
 def graphs_phase(dev, cfg, params) -> dict:
     """Phase 15: :func:`graphs_ab` for granite-3-8b (phase 3's workload,
-    full width and depth) and for mamba2-1.3b (phase 10(a)'s, full width
-    and depth, on its 256-row state arena).  ``main`` adds each model's
-    profiled replay of a decode round from phase 5 (which runs after,
-    since the profiler leaves host cost behind): the host's calls that
-    put work on the card against the device events it ran, and the
+    full width and depth), :func:`chunked_ab` (phase 4's, request 2's
+    EOS from the graphs-off greedy stream, as phase 4 takes it from
+    phase 3's), phase 8(b)'s open loop with graphs off then on (TTFT
+    and ITL), and :func:`graphs_ab` for mamba2-1.3b (phase 10(a)'s, full
+    width and depth, on its 256-row state arena).  ``main`` adds each
+    model's profiled replay of a decode round from phase 5 (which runs
+    after, since the profiler leaves host cost behind): the host's calls
+    that put work on the card against the device events it ran, and the
     card's busy share of the round."""
     from repro_torch.configs import ARCHS
     from repro_torch.serving.engine import Request
 
     granite = graphs_ab(dev, cfg, params,
                         lambda: granite_requests(cfg, Request), 1024)
+    chunked = chunked_ab(dev, cfg, params, granite.pop("eos_token"))
+    open_loop = {}
+    for graphs in (False, True):
+        line, _ = _open_loop(dev, cfg, params, cuda_graphs=graphs)
+        open_loop["graphs_on" if graphs else "graphs_off"] = {
+            k: line[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+                                 "itl_p99_ms", "goodput_rps", "wall_s",
+                                 "traces", "graphs_captured",
+                                 "capture_seconds", "graph_pool_gib")}
+        _free_card()
     scfg = ARCHS["mamba2-1.3b"]
     sparams, _ = _model_params(dev, scfg, 10)
 
@@ -1730,9 +1854,12 @@ def graphs_phase(dev, cfg, params) -> dict:
         return seeded_requests(scfg, Request, 8, 97, 450, 32)
 
     mamba = graphs_ab(dev, scfg, sparams, ssm_requests, 256)
+    mamba.pop("eos_token")
     del sparams
     _free_card()
-    return {"phase": "graphs", "granite": granite, "mamba2": mamba}
+    return {"phase": "graphs", "granite": granite,
+            "granite_chunked": chunked, "granite_open_loop": open_loop,
+            "mamba2": mamba}
 
 
 # ---------------------------------------------------------------------- #
@@ -1797,13 +1924,9 @@ def serving_prefix(dev, cfg, params) -> dict:
     under Poisson arrivals at 4 requests/s on a fresh 1024-page engine,
     with a TTFT SLO that sheds nothing.  Both run the zero scan and end
     with clear_prefix()'s audit."""
-    import asyncio
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
-    from repro_torch.launch.serve_async import (poisson_open_loop,
-                                                shared_prefix_prompts)
-    from repro_torch.serving.engine import PagedEngine, Request
-    from repro_torch.serving.server import AsyncServer
+    from repro_torch.serving.engine import Request
 
     tenants = [[Request(10 * t + i, p, max_new_tokens=32, temperature=0.0)
                 for i, p in enumerate(ps)]
@@ -1857,13 +1980,30 @@ def serving_prefix(dev, cfg, params) -> dict:
         "launches_by_kind": _nonzero(engine.cache.queue.launches_by_kind),
         "saved_by_kind": dict(engine.cache.queue.saved_by_kind),
         "clear_prefix": cleared, "kernel_launches": dict(counts),
-        "pages_in_use": engine.cache.pages_in_use}
+        **_graph_stats(engine), "pages_in_use": engine.cache.pages_in_use}
     del engine, out
+    open_loop, counts_b = _open_loop(dev, cfg, params)
+    total = {k: counts[k] + counts_b[k] for k in counts}
+    return {"phase": "serve_prefix", "arch": cfg.name,
+            "layers": cfg.num_layers, **{k: v for k, v in PREFIX_KW.items()},
+            "zero_scan": True, "closed_loop": closed, "open_loop": open_loop,
+            "kernel_launches": total}
 
-    # (b) the open loop on a fresh engine
+
+def _open_loop(dev, cfg, params, cuda_graphs=True) -> tuple:
+    """Phase 8 (b) on a fresh engine: returns its line and the kernel
+    launch counts of the run."""
+    import asyncio
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve_async import (poisson_open_loop,
+                                                shared_prefix_prompts)
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.server import AsyncServer
+
     scans_b = []
     reset_launches()
-    eng = PagedEngine(cfg, params, num_pages=1024, device=dev, **PREFIX_KW)
+    eng = PagedEngine(cfg, params, num_pages=1024, device=dev,
+                      cuda_graphs=cuda_graphs, **PREFIX_KW)
     _timed_scans(eng, scans_b)
     prompts = shared_prefix_prompts(16, cfg.vocab_size, prefix_len=SYS_LEN,
                                     tail_len=TAIL_LEN, seed=200)
@@ -1899,13 +2039,9 @@ def serving_prefix(dev, cfg, params) -> dict:
         "launches_by_kind": _nonzero(eng.cache.queue.launches_by_kind),
         "saved_by_kind": dict(eng.cache.queue.saved_by_kind),
         "clear_prefix": cleared_b, "kernel_launches": dict(counts_b),
-        "pages_in_use": eng.cache.pages_in_use}
+        **_graph_stats(eng), "pages_in_use": eng.cache.pages_in_use}
     del eng
-    total = {k: counts[k] + counts_b[k] for k in counts}
-    return {"phase": "serve_prefix", "arch": cfg.name,
-            "layers": cfg.num_layers, **{k: v for k, v in PREFIX_KW.items()},
-            "zero_scan": True, "closed_loop": closed, "open_loop": open_loop,
-            "kernel_launches": total}
+    return open_loop, counts_b
 
 
 # ---------------------------------------------------------------------- #
@@ -2212,7 +2348,7 @@ def serving_ssm(dev) -> dict:
             "tokens_per_s": out["tokens"] / out["seconds"],
             "forked_from": forked["from"],
             "launches_by_kind": _nonzero(by_kind),
-            "kernel_launches": _nonzero(counts),
+            "kernel_launches": _nonzero(counts), **_graph_stats(engine),
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     total = dict(counts)
     del engine, out
@@ -2275,7 +2411,7 @@ def serving_ssm(dev) -> dict:
                "tokens_per_s": out["tokens"] / out["seconds"],
                **_steps(out), "rng_ctr": engine.rng_ctr,
                "launches_by_kind": _nonzero(by_kind),
-               "kernel_launches": _nonzero(counts),
+               "kernel_launches": _nonzero(counts), **_graph_stats(engine),
                "peak_memory_gib": torch.cuda.max_memory_allocated(dev)
                / 2**30}
     for k, v in counts.items():
@@ -2339,7 +2475,7 @@ def serving_hybrid(dev) -> dict:
             "tokens": out["tokens"], "seconds": out["seconds"],
             "tokens_per_s": out["tokens"] / out["seconds"], **_steps(out),
             "launches_by_kind": _nonzero(engine.cache.queue.launches_by_kind),
-            "kernel_launches": _nonzero(counts),
+            "kernel_launches": _nonzero(counts), **_graph_stats(engine),
             "pages_in_use": engine.cache.pages_in_use,
             "state_rows_in_use": (engine.cache.state.rows_in_use
                                   if engine.cache.state is not None else None),

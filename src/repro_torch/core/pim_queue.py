@@ -79,7 +79,8 @@ class PimOpQueue:
         self.saved_by_kind: Dict[str, int] = {}
         # optional PimTrace sink (duck-typed: record_from_queue(kind, ops))
         self.trace = None
-        # at most one lib drives a queue (TorchLib claims it)
+        # at most one lib drives a queue (TorchLib claims it: a weak
+        # reference to the lib)
         self.owner = None
         # hazard tracking for deferred clients (see admit())
         self._hazard_rows: Set[Hashable] = set()

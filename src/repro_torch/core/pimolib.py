@@ -27,6 +27,7 @@ from __future__ import annotations
 import abc
 import enum
 import warnings
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -393,11 +394,13 @@ class TorchLib(PimLib):
         self.arena = arena
         self.deferred = deferred
         self.queue = queue if queue is not None else PimOpQueue()
-        if self.queue.owner is not None:
+        if self.queue.owner is not None and self.queue.owner() is not None:
             raise ValueError(
                 "PimOpQueue is already driven by another lib; share ONE lib "
                 "across clients for joint accounting instead")
-        self.queue.owner = self
+        # held weakly: the lib holds its queue, and a dropped lib (with
+        # the arenas it drives) is freed at once, not by a cyclic collection
+        self.queue.owner = weakref.ref(self)
         self.stats = {"copies": 0, "inits": 0, "bitwises": 0, "reads": 0,
                       "writes": 0, "rand_bits": 0}
         self._rand_ctr = 0   # advances the default rand() seed per call

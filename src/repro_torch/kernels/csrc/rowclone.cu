@@ -26,12 +26,41 @@
 // with 16-byte loads and stores when the row length and both base
 // pointers allow it (the arena rows are multiples of 16 bytes), else
 // byte by byte.  The arena is updated in place: untouched rows are
-// never read or written.  The flat copy and fill are grid-stride loops
-// over 16-byte words (a few blocks per SM keep enough loads in flight)
-// with a byte tail, so any length and dtype works.  Fills write a
-// 32-bit pattern word that repeats the value's bytes (1-, 2- and 4-byte
-// dtypes); byte k of a buffer or row holds pattern byte k % 4, so a row
-// whose length is not a multiple of 4 bytes is filled byte by byte.
+// never read or written.  Fills write a 32-bit pattern word that
+// repeats the value's bytes (1-, 2- and 4-byte dtypes); byte k of a
+// buffer or row holds pattern byte k % 4, so a row whose length is not
+// a multiple of 4 bytes is filled byte by byte.
+//
+// The flat copy and fill (RowClone's pim_copy and pim_init against
+// memcpy and calloc) stream a whole buffer, up to GBs: nothing but DRAM
+// bandwidth bounds them.  What loses bandwidth is the access pattern: a
+// grid-stride loop of 16-byte words from a full grid of resident
+// blocks spreads each moment's reads and writes over megabytes of
+// address space; so do persistent blocks that each walk a contiguous
+// span of the buffer (one span per SM, 132 streams at once).  What
+// comes closest to memcpy is a grid of short-lived blocks, each moving a
+// few consecutive tiles, which the hardware dispatches in address
+// order: the card's work sweeps the buffer as one front.  So a buffer
+// of at least kBulkMinBytes whose source and destination share their
+// offset modulo 16 takes the bulk route, on the Tensor Memory
+// Accelerator (TMA), in the same kernel (template MODE 2):
+//   * the copy: a block's one thread bulk-loads its kCopyTilesPerBlock
+//     tiles into dynamic shared memory (cp.async.bulk ...
+//     mbarrier::complete_tx, one mbarrier per tile), all in flight at
+//     once, and writes each back with a bulk store (bulk_group) as soon
+//     as it lands; no register holds the data;
+//   * the fill: the block writes the pattern into one shared tile once,
+//     then one thread bulk-stores that tile kFillTilesPerBlock times; it
+//     reads nothing from device memory;
+//   * every bulk operation carries an L2 evict-first policy, so the
+//     stream does not push the serving path's working set out of L2
+//     (tools/rowclone_ab.py's reread_us: a 16 MiB set is read back
+//     faster after a 256 MiB bulk copy or fill than after clone/zeros).
+// The ragged head (up to the first 16-byte boundary) and tail (under 16
+// bytes) are bytes written by block 0's threads in the same launch.
+// Smaller buffers, and buffers whose offsets differ modulo 16, take the
+// register route (MODE 1: 16-byte words; MODE 0: bytes), a grid-stride
+// loop, where a launch's fixed cost and not the stream sets the time.
 //
 // At the serving path's shapes these kernels move a few MB or less
 // (a decode round's scatter 2 x 40 x 8 x 2 KiB = 1.3 MB), so the card
@@ -155,42 +184,200 @@ __global__ void init_rows_kernel(char* __restrict__ dst0,
   }
 }
 
-// dst[0:nbytes) <- src[0:nbytes), grid-stride
-template <bool VEC>
-__global__ void copy_flat_kernel(char* __restrict__ dst,
-                                 const char* __restrict__ src,
-                                 long long nbytes) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  long long head = 0;
-  if (VEC) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const long long n = nbytes / 16;
-    for (long long k = t; k < n; k += stride) d[k] = s[k];
-    head = n * 16;
-  }
-  for (long long k = head + t; k < nbytes; k += stride) dst[k] = src[k];
+// --- the bulk route's PTX (sm_90) ---------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// dst[0:nbytes) <- the 32-bit pattern, repeated, grid-stride
-template <bool VEC>
-__global__ void fill_flat_kernel(char* __restrict__ dst, long long nbytes,
-                                 unsigned int pattern) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  long long head = 0;
-  if (VEC) {
-    const uint4 v = make_uint4(pattern, pattern, pattern, pattern);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const long long n = nbytes / 16;
-    for (long long k = t; k < n; k += stride) d[k] = v;
-    head = n * 16;
+// the L2 policy of every bulk operation: evict first
+__device__ __forceinline__ uint64_t bulk_l2_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(phase)
+        : "memory");
+}
+
+// global -> shared, completing `bytes` on `bar`
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
+      ::"r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(smem_u32(bar)),
+      "l"(policy)
+      : "memory");
+}
+
+// shared -> global, one bulk group
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
+                                           uint32_t bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0], [%1], %2, %3;"
+      ::"l"(gmem), "r"(smem_u32(smem)), "r"(bytes), "l"(policy)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until every bulk group has completed its writes
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// the bulk route: a copy block moves 4 tiles of 16 KiB, a fill block
+// stores one; buffers of 1 MiB or more take it
+constexpr long long kCopyTile = 16 * 1024;
+constexpr int kCopyTilesPerBlock = 4;
+constexpr long long kFillTile = 16 * 1024;
+constexpr int kFillTilesPerBlock = 1;
+constexpr long long kBulkMinBytes = 1 << 20;
+static_assert(kCopyTile % 16 == 0 && kFillTile % 16 == 0,
+              "bulk tiles are whole 16-byte words");
+static_assert(kCopyTile * kCopyTilesPerBlock <= 227 * 1024 &&
+              kFillTile <= 227 * 1024, "a block's tiles fit shared memory");
+
+// the bytes of tile t of a body of `body` bytes in tiles of `tile`
+__device__ __forceinline__ uint32_t tile_bytes(long long body,
+                                               long long tile, long long t) {
+  const long long left = body - t * tile;
+  return static_cast<uint32_t>(left < tile ? left : tile);
+}
+
+// dst[0:nbytes) <- src[0:nbytes).  MODE 0: bytes, grid-stride; 1:
+// 16-byte words, grid-stride, then a byte tail; 2: bulk, as the note at
+// the top says, the body starting at byte `head` (src and dst are both
+// 16-byte aligned there).
+template <int MODE>
+__global__ void copy_flat_kernel(char* __restrict__ dst,
+                                 const char* __restrict__ src,
+                                 long long nbytes, long long head) {
+  if constexpr (MODE == 2) {
+    extern __shared__ __align__(128) unsigned char ring[];
+    __shared__ __align__(8) uint64_t full[kCopyTilesPerBlock];
+    const long long body = (nbytes - head) & ~15LL;
+    if (blockIdx.x == 0) {
+      // the ragged head and tail: under 16 bytes each
+      for (long long k = threadIdx.x; k < head; k += blockDim.x)
+        dst[k] = src[k];
+      for (long long k = head + body + threadIdx.x; k < nbytes;
+           k += blockDim.x)
+        dst[k] = src[k];
+    }
+    if (threadIdx.x != 0) return;
+    for (int i = 0; i < kCopyTilesPerBlock; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    const uint64_t policy = bulk_l2_policy();
+    const long long tiles = (body + kCopyTile - 1) / kCopyTile;
+    const long long t0 = static_cast<long long>(blockIdx.x) *
+                         kCopyTilesPerBlock;
+    const int n = static_cast<int>(
+        tiles - t0 < kCopyTilesPerBlock ? tiles - t0 : kCopyTilesPerBlock);
+    char* d = dst + head;
+    const char* s = src + head;
+    for (int i = 0; i < n; ++i)
+      bulk_load(ring + i * kCopyTile, s + (t0 + i) * kCopyTile,
+                tile_bytes(body, kCopyTile, t0 + i), &full[i], policy);
+    for (int i = 0; i < n; ++i) {
+      mbar_wait(&full[i], 0);
+      fence_async_shared();
+      bulk_store(d + (t0 + i) * kCopyTile, ring + i * kCopyTile,
+                 tile_bytes(body, kCopyTile, t0 + i), policy);
+    }
+    bulk_wait_all();
+  } else {
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+    long long done = 0;
+    if (MODE == 1) {
+      const uint4* s = reinterpret_cast<const uint4*>(src);
+      uint4* d = reinterpret_cast<uint4*>(dst);
+      const long long n = nbytes / 16;
+      for (long long k = t; k < n; k += stride) d[k] = s[k];
+      done = n * 16;
+    }
+    for (long long k = done + t; k < nbytes; k += stride) dst[k] = src[k];
   }
-  for (long long k = head + t; k < nbytes; k += stride)
-    dst[k] = static_cast<char>((pattern >> (8 * (k & 3))) & 0xFF);
+}
+
+__device__ __forceinline__ char pattern_byte(unsigned int pattern,
+                                             long long k) {
+  return static_cast<char>((pattern >> (8 * (k & 3))) & 0xFF);
+}
+
+// dst[0:nbytes) <- the 32-bit pattern, repeated.  MODE as for the copy.
+template <int MODE>
+__global__ void fill_flat_kernel(char* __restrict__ dst, long long nbytes,
+                                 unsigned int pattern, long long head) {
+  if constexpr (MODE == 2) {
+    extern __shared__ __align__(128) unsigned char tile[];
+    const long long body = (nbytes - head) & ~15LL;
+    // the body starts at byte `head`: rotate the pattern to its phase
+    const int rot = static_cast<int>(head & 3);
+    const unsigned int w =
+        rot ? (pattern >> (8 * rot)) | (pattern << (32 - 8 * rot)) : pattern;
+    const uint4 v = make_uint4(w, w, w, w);
+    for (long long k = threadIdx.x; k < kFillTile / 16; k += blockDim.x)
+      reinterpret_cast<uint4*>(tile)[k] = v;
+    fence_async_shared();
+    __syncthreads();
+    if (blockIdx.x == 0) {
+      for (long long k = threadIdx.x; k < head; k += blockDim.x)
+        dst[k] = pattern_byte(pattern, k);
+      for (long long k = head + body + threadIdx.x; k < nbytes;
+           k += blockDim.x)
+        dst[k] = pattern_byte(pattern, k);
+    }
+    if (threadIdx.x != 0) return;
+    const uint64_t policy = bulk_l2_policy();
+    const long long tiles = (body + kFillTile - 1) / kFillTile;
+    const long long t0 = static_cast<long long>(blockIdx.x) *
+                         kFillTilesPerBlock;
+    for (long long t = t0; t < tiles && t < t0 + kFillTilesPerBlock; ++t)
+      bulk_store(dst + head + t * kFillTile, tile,
+                 tile_bytes(body, kFillTile, t), policy);
+    bulk_wait_all();
+  } else {
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+    long long done = 0;
+    if (MODE == 1) {
+      const uint4 v = make_uint4(pattern, pattern, pattern, pattern);
+      uint4* d = reinterpret_cast<uint4*>(dst);
+      const long long n = nbytes / 16;
+      for (long long k = t; k < n; k += stride) d[k] = v;
+      done = n * 16;
+    }
+    for (long long k = done + t; k < nbytes; k += stride)
+      dst[k] = pattern_byte(pattern, k);
+  }
 }
 
 bool aligned16(const void* a, const void* b, long long row_bytes) {
@@ -199,11 +386,14 @@ bool aligned16(const void* a, const void* b, long long row_bytes) {
 }
 
 constexpr int kThreads = 256;
+// the bulk route's blocks: one thread issues, the rest write the fill's
+// shared tile and the ragged bytes
+constexpr int kBulkThreads = 128;
 // flat kernels: at most this many blocks per SM, each thread then walks
 // the buffer with a grid stride
 constexpr int kFlatBlocksPerSM = 16;
 
-int flat_blocks(long long work) {
+int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -211,10 +401,29 @@ int flat_blocks(long long work) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 132;
   }
+  return sms;
+}
+
+int flat_blocks(long long work) {
   long long want = (work + kThreads - 1) / kThreads;
-  long long cap = static_cast<long long>(sms) * kFlatBlocksPerSM;
+  long long cap = static_cast<long long>(sm_count()) * kFlatBlocksPerSM;
   if (want < 1) want = 1;
   return static_cast<int>(want < cap ? want : cap);
+}
+
+// the bulk route's blocks: one per `per` tiles of a body of `body` bytes
+// in tiles of `tile`
+long long bulk_blocks(long long body, long long tile, int per) {
+  return ((body + tile - 1) / tile + per - 1) / per;
+}
+
+// the byte at which a bulk body starts (the first 16-byte boundary of
+// both buffers), or -1 when the buffer takes the register route
+long long bulk_head(const void* a, const void* b, long long nbytes) {
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(a) & 15;
+  if (nbytes < kBulkMinBytes || (reinterpret_cast<uintptr_t>(b) & 15) != mis)
+    return -1;
+  return static_cast<long long>((16 - mis) & 15);
 }
 
 }  // namespace
@@ -310,12 +519,26 @@ extern "C" int rc_copy_flat(const void* src, void* dst, long long nbytes,
                             void* stream) {
   if (nbytes <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (aligned16(src, dst, 0))
-    copy_flat_kernel<true><<<flat_blocks(nbytes / 16), kThreads, 0, st>>>(
-        static_cast<char*>(dst), static_cast<const char*>(src), nbytes);
-  else
-    copy_flat_kernel<false><<<flat_blocks(nbytes), kThreads, 0, st>>>(
-        static_cast<char*>(dst), static_cast<const char*>(src), nbytes);
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  const long long head = bulk_head(src, dst, nbytes);
+  if (head >= 0) {
+    constexpr int smem = static_cast<int>(kCopyTilesPerBlock * kCopyTile);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        copy_flat_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const long long blocks = bulk_blocks((nbytes - head) & ~15LL, kCopyTile,
+                                         kCopyTilesPerBlock);
+    copy_flat_kernel<2><<<blocks, kBulkThreads, smem, st>>>(d, s, nbytes,
+                                                            head);
+  } else if (aligned16(src, dst, 0)) {
+    copy_flat_kernel<1><<<flat_blocks(nbytes / 16), kThreads, 0, st>>>(
+        d, s, nbytes, 0);
+  } else {
+    copy_flat_kernel<0><<<flat_blocks(nbytes), kThreads, 0, st>>>(
+        d, s, nbytes, 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -323,11 +546,24 @@ extern "C" int rc_fill_flat(void* dst, long long nbytes, unsigned int pattern,
                             void* stream) {
   if (nbytes <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (aligned16(dst, dst, 0))
-    fill_flat_kernel<true><<<flat_blocks(nbytes / 16), kThreads, 0, st>>>(
-        static_cast<char*>(dst), nbytes, pattern);
-  else
-    fill_flat_kernel<false><<<flat_blocks(nbytes), kThreads, 0, st>>>(
-        static_cast<char*>(dst), nbytes, pattern);
+  char* d = static_cast<char*>(dst);
+  const long long head = bulk_head(dst, dst, nbytes);
+  if (head >= 0) {
+    constexpr int smem = static_cast<int>(kFillTile);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        fill_flat_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const long long blocks = bulk_blocks((nbytes - head) & ~15LL, kFillTile,
+                                         kFillTilesPerBlock);
+    fill_flat_kernel<2><<<blocks, kBulkThreads, smem, st>>>(d, nbytes,
+                                                            pattern, head);
+  } else if (aligned16(dst, dst, 0)) {
+    fill_flat_kernel<1><<<flat_blocks(nbytes / 16), kThreads, 0, st>>>(
+        d, nbytes, pattern, 0);
+  } else {
+    fill_flat_kernel<0><<<flat_blocks(nbytes), kThreads, 0, st>>>(
+        d, nbytes, pattern, 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,17 +55,25 @@ back (so the arena stays bit-identical to K=1), a ``(B, K)`` token
 buffer with ``-1`` after a row stopped, and the host replaying the stop
 rule on the one transfer.
 
-The decode round and the K-block's round are captured as CUDA graphs,
-one per (padded batch, block-table width) bucket, and replayed
-(:mod:`.graphs`; ``cuda_graphs=True``, the default): the port's
-counterpart of the JAX engine's one compiled step per bucket, counted
-as JAX counts retraces in ``stats["jit_traces"]`` and
-``stats["block_jit_traces"]``.  Token choice stays outside the graphs
-(its seed is a host argument); a K-block replays its round graph once
-per round, carrying lengths, last tokens and the alive mask into the
-graph's static buffers by device-to-device copies.  Prefill, chunk and
-mixed steps run eagerly.  ``cuda_graphs=False`` launches every kernel
-from Python (the same keys and counts).
+Every fused step is captured as a CUDA graph per shape bucket and
+replayed (:mod:`.graphs`; ``cuda_graphs=True``, the default): the port's
+counterpart of the JAX engine's one compiled step per bucket, keyed and
+counted as JAX counts its retraces.  The decode round and the K-block's
+round per (padded batch, block-table width) in ``stats["jit_traces"]``
+and ``stats["block_jit_traces"]``; the prefill batch per (length
+bucket, padded batch, writes KV) and the chunk step per (chunk bucket,
+padded batch, table width, writes KV), both in
+``stats["prefill_jit_traces"]``; the mixed round per (chunk operands,
+decode operands) in ``stats["mixed_jit_traces"]``.  Token choice stays
+outside the graphs (its seed is a host argument): a mixed round is two
+replays, the chunk half and the decode half, with the chunk's choice
+between them feeding the decode half's last tokens by a device copy,
+and a K-block replays its round graph once per round, carrying lengths,
+last tokens and the alive mask into the graph's static buffers by
+device-to-device copies.  Every host-planned operand (tokens, lengths,
+block tables, scatter plans, state rows) is loaded into a step's static
+buffers through pinned memory.  ``cuda_graphs=False`` launches every
+kernel from Python (the same keys and counts).
 
 The layer loop is a Python loop where the JAX package used
 ``lax.scan``; arenas are updated in place where the JAX package donated
@@ -272,8 +280,9 @@ class PagedEngine:
                       "state_pages": 0, "state_forks": 0,
                       "prefix_declined_ssm": 0,
                       # step-cache misses (captures on the card), as the
-                      # JAX engine counts its decode and block retraces
+                      # JAX engine counts its retraces
                       "jit_traces": 0, "block_jit_traces": 0,
+                      "prefill_jit_traces": 0, "mixed_jit_traces": 0,
                       # host seconds of the prefill steps (a mixed round
                       # counts here) and of the decode rounds and blocks;
                       # each ends in its device-to-host token transfer,
@@ -281,7 +290,7 @@ class PagedEngine:
                       "prefill_seconds": 0.0, "decode_seconds": 0.0}
         # decode tails already reserved this round
         self._reserved_tails: set = set()
-        # the decode and block rounds' steps per (Bp, W) bucket
+        # every fused step, per shape bucket
         self._steps = StepCache(self.device, capture=cuda_graphs,
                                 stats=self.stats, arenas=self._arenas)
 
@@ -459,10 +468,16 @@ class PagedEngine:
         # the step reads the arena (shared prefixes): land the backlog,
         # eviction inits from create-time arena pressure included
         self.cache.flush_pending()
-        logits = _fused_prefill_step(
-            self.cfg, self.pcfg, self.params, self._tensor(toks),
-            self._tensor(lens), self.cache.k_arena, self.cache.v_arena,
-            scatter, self._state_round([reqs[i].req_id for i in idx], B))
+        writes = scatter is not None
+        step = self._steps.get(
+            "prefill_jit_traces", ("prefill", sp, Bp, writes),
+            self._prefill_body,
+            {"toks": ((Bp, sp), torch.int32), "lens": ((Bp,), torch.int32),
+             **self._plan_specs(Bp, sp, writes)})
+        step.load("toks", toks)
+        step.load("lens", lens)
+        self._load_plan(step, scatter, [reqs[i].req_id for i in idx], B)
+        logits = step()
         self.cache.commit_fused_prefill(*kv_plan)
         if self._has_ssm:
             self.cache.state.record_fused_write([r.req_id for r in reqs])
@@ -476,17 +491,17 @@ class PagedEngine:
         self.stats["fused_prefill_dispatches"] += 1
 
     def _scatter_plan(self, plan, sp: int, Bp: int):
-        """Device operands of a batch's KV scatter.  ``plan`` holds one
+        """Host operands of a batch's KV scatter.  ``plan`` holds one
         ``(row, seq, start, stop, first)`` per writing row: prompt
         positions ``[start, stop)`` go to their (page, slot), read from
         flat index ``row * sp + pos - first`` of the forward's K/V
         (``first``: the position of the forward's first token).  Pad
         entries duplicate entry 0 (identical writes, a no-op).  Returns
-        ``(scatter, (pages, slots))``: the device operands (pages, slots,
-        src), ``None`` when the batch writes nothing (every position
-        shared, or no attention sublayer: a pure-SSM model writes no
-        KV), and the host lists of the positions written, for the
-        trace."""
+        ``(scatter, (pages, slots))``: the step's operands (pages, slots,
+        src as int32, int32, int64 arrays), ``None`` when the batch
+        writes nothing (every position shared, or no attention sublayer:
+        a pure-SSM model writes no KV), and the host lists of the
+        positions written, for the trace."""
         if not self._has_attn:
             return None, ([], [])
         pages: List[int] = []
@@ -501,10 +516,37 @@ class PagedEngine:
         if not pages:
             return None, ([], [])
         pad = Bp * sp - len(pages)
-        return ((self._tensor(pages + [pages[0]] * pad),
-                 self._tensor(slots + [slots[0]] * pad),
-                 self._tensor(src + [src[0]] * pad, torch.long)),
+        return ((np.asarray(pages + [pages[0]] * pad, np.int32),
+                 np.asarray(slots + [slots[0]] * pad, np.int32),
+                 np.asarray(src + [src[0]] * pad, np.int64)),
                 (pages, slots))
+
+    def _plan_specs(self, Bp: int, S: int, writes: bool) -> dict:
+        """The static inputs of a step's scatter plan (``S`` tokens a
+        row) and state rows."""
+        specs = {}
+        if writes:
+            specs.update(pages=((Bp * S,), torch.int32),
+                         slots=((Bp * S,), torch.int32),
+                         src=((Bp * S,), torch.long))
+        if self._has_ssm:
+            specs.update(srows=((Bp,), torch.int32),
+                         rowmap=((Bp,), torch.long))
+        return specs
+
+    def _load_plan(self, step, scatter, rids_padded: List[int],
+                   n: int) -> None:
+        """Load a step's scatter plan (``None``: it writes no KV) and the
+        state rows of ``rids_padded``, whose first ``n`` rows are its
+        unique real rows."""
+        if scatter is not None:
+            for name, a in zip(("pages", "slots", "src"), scatter):
+                step.load(name, a)
+        if self._has_ssm:
+            step.load("srows", np.asarray(
+                self.cache.state.rows_for(rids_padded), np.int32))
+            step.load("rowmap", np.asarray(
+                _pad_index(n, len(rids_padded)), np.int64))
 
     # ---------------- chunked prefill (decode-interleaved) ------------- #
 
@@ -594,8 +636,9 @@ class PagedEngine:
             self._chunk_by_id[r.req_id] = st
 
     def _chunk_operands(self, batch: List[tuple], sc: int) -> dict:
-        """A chunk batch's device operands and scatter plan (pad rows
-        duplicate row 0).  The prefix block table spans each sequence's
+        """A chunk batch's host operands and scatter plan (pad rows
+        duplicate row 0), and its step key (chunk bucket, ``Bp``, table
+        width, writes KV).  The prefix block table spans each sequence's
         full page list with the committed length as its valid length."""
         B = len(batch)
         Bp = _bucket_pow2(B)
@@ -611,23 +654,25 @@ class PagedEngine:
             offs[row] = st.off
             temps[row] = st.req.temperature
         rids = [batch[i][0].req.req_id for i in idx]
-        bt, plens = self.cache.block_table(rids,
-                                           lengths=[int(o) for o in offs])
+        bt, plens = self.cache.block_table_host(
+            rids, lengths=[int(o) for o in offs])
         plan = [(i, self.cache.seqs[st.req.req_id], st.off, st.off + clen,
                  st.off) for i, (st, clen) in enumerate(batch) if st.write]
         scatter, kv_plan = self._scatter_plan(plan, sc, Bp)
-        return {"toks": self._tensor(toks), "lens": self._tensor(lens),
-                "offs": self._tensor(offs), "bt": bt, "plens": plens,
-                "scatter": scatter, "kv_plan": kv_plan,
-                "temps": temps, "rids": rids, "n": B}
+        writes = scatter is not None
+        i32 = torch.int32
+        specs = {"toks": ((Bp, sc), i32), "lens": ((Bp,), i32),
+                 "offs": ((Bp,), i32), "bt": ((Bp, bt.shape[1]), i32),
+                 "plens": ((Bp,), i32), **self._plan_specs(Bp, sc, writes)}
+        return {"toks": toks, "lens": lens, "offs": offs, "bt": bt,
+                "plens": plens, "scatter": scatter, "kv_plan": kv_plan,
+                "temps": temps, "rids": rids, "n": B,
+                "key": (sc, Bp, bt.shape[1], writes), "specs": specs}
 
-    def _chunk_forward(self, c: dict) -> torch.Tensor:
-        """The chunk half of a step: forward, then the chunk's KV and
-        state scatters; returns the logits."""
-        return _fused_chunk_prefill_step(
-            self.cfg, self.pcfg, self.params, c["toks"], c["lens"],
-            c["offs"], self.cache.k_arena, self.cache.v_arena, c["bt"],
-            c["plens"], c["scatter"], self._state_round(c["rids"], c["n"]))
+    def _load_chunk(self, step, c: dict) -> None:
+        for name in ("toks", "lens", "offs", "bt", "plens"):
+            step.load(name, c[name])
+        self._load_plan(step, c["scatter"], c["rids"], c["n"])
 
     def _finish_chunks(self, batch: List[tuple],
                        tokens: torch.Tensor) -> List[_ChunkPrefill]:
@@ -660,7 +705,10 @@ class PagedEngine:
         # the step reads the arena (prefix gather): land the backlog
         self.cache.flush_pending()
         c = self._chunk_operands(batch, sc)
-        logits = self._chunk_forward(c)
+        step = self._steps.get("prefill_jit_traces", ("chunk",) + c["key"],
+                               self._chunk_body, c["specs"])
+        self._load_chunk(step, c)
+        logits = step()
         tokens = self._sample(logits, c["temps"])
         self.cache.commit_fused_prefill(*c["kv_plan"])
         if self._has_ssm:
@@ -674,10 +722,12 @@ class PagedEngine:
                      d_rids: List[int]) -> List[_ChunkPrefill]:
         """One fused step for a whole mixed round: the chunk batch, then
         the decode round over every active sequence plus every prompt
-        finishing in this chunk.  The chunk's scatter lands before the
-        decode half reads the arena, and a finishing prompt's first
-        token reaches the decode half on the device (``d_from``).  Both
-        commits count nothing; the round is one ``fused_mixed`` launch.
+        finishing in this chunk, one step-cache key (two captured halves
+        on the card, the chunk's token choice between them).  The
+        chunk's scatter lands before the decode half reads the arena,
+        and a finishing prompt's first token reaches the decode half on
+        the device (``d_from``).  Both commits count nothing; the round
+        is one ``fused_mixed`` launch.
         The seed stream advances twice (chunk, then decode), as two
         separate dispatches would.  A finishing row whose first token is
         its EOS drops its decode token (the KV written past its length
@@ -708,25 +758,33 @@ class PagedEngine:
                 d_from[row] = row_of[rid]
             else:
                 d_last[row] = r.out_tokens[-1]
-        # every decode operand is on the card before the chunk half is
-        # enqueued: nothing between the halves waits for the card
-        d_bt, d_lens = self.cache.block_table(prids)
-        d_pages = self._tensor([s.pages[-1] for s in seqs])
-        d_slots = self._tensor([s.length % self.cache.page_size
-                                for s in seqs])
+        d_bt, d_lens = self.cache.block_table_host(prids)
+        W = d_bt.shape[1]
+        c_step, d_step = self._steps.get_many(
+            "mixed_jit_traces", c["key"] + (Bp, W),
+            [(self._chunk_body, c["specs"]),
+             (self._decode_body, self._specs(Bp, W, block=False))])
+        # every decode operand is loaded before the chunk half is
+        # enqueued: between the halves runs only the chunk's choice
+        d_step.load("bt", d_bt)
+        d_step.load("lens", d_lens)
+        d_step.load("pages", np.asarray([s.pages[-1] for s in seqs],
+                                        np.int32))
+        d_step.load("slots", np.asarray(
+            [s.length % self.cache.page_size for s in seqs], np.int32))
+        self._load_plan(d_step, None, prids, B)
         d_from_t = self._tensor(d_from, torch.long)
         d_last_t = self._tensor(d_last, torch.long)
-        c_logits = self._chunk_forward(c)
+        self._load_chunk(c_step, c)
+        c_logits = c_step()
         c_tokens = self._sample(c_logits, c["temps"])
         last = torch.where(d_from_t >= 0, c_tokens[d_from_t.clamp(min=0)],
                            d_last_t)
+        d_step.load("last", last[:, None])
         # the chunk half's state scatter is enqueued before the decode
         # half gathers: a prompt finishing in this chunk decodes from its
         # own new state
-        d_logits = _fused_decode_step(
-            self.cfg, self.pcfg, self.params, last[:, None],
-            self.cache.k_arena, self.cache.v_arena, d_bt, d_lens, d_pages,
-            d_slots, self._state_round(prids, B))
+        d_logits = d_step()
         d_tokens = self._sample(d_logits, d_temps)
         self.cache.commit_fused_prefill(*c["kv_plan"], kind=None)
         self.cache.commit_fused_round(d_rids, kind=None,
@@ -801,12 +859,26 @@ class PagedEngine:
         i32 = torch.int32
         specs = {"last": ((Bp,), torch.long) if block else ((Bp, 1), i32),
                  "bt": ((Bp, W), i32), "lens": ((Bp,), i32),
-                 "pages": ((Bp,), i32), "slots": ((Bp,), i32)}
+                 "pages": ((Bp,), i32), "slots": ((Bp,), i32),
+                 **self._plan_specs(Bp, 1, False)}
         if block:
             specs["alive"] = ((Bp,), torch.bool)
-        if self._has_ssm:
-            specs.update(srows=((Bp,), i32), rowmap=((Bp,), torch.long))
         return specs
+
+    def _prefill_body(self, toks, lens, pages=None, slots=None, src=None,
+                      srows=None, rowmap=None) -> torch.Tensor:
+        return _fused_prefill_step(
+            self.cfg, self.pcfg, self.params, toks, lens, self.cache.k_arena,
+            self.cache.v_arena, _plan(pages, slots, src),
+            self._state_of(srows, rowmap))
+
+    def _chunk_body(self, toks, lens, offs, bt, plens, pages=None,
+                    slots=None, src=None, srows=None,
+                    rowmap=None) -> torch.Tensor:
+        return _fused_chunk_prefill_step(
+            self.cfg, self.pcfg, self.params, toks, lens, offs,
+            self.cache.k_arena, self.cache.v_arena, bt, plens,
+            _plan(pages, slots, src), self._state_of(srows, rowmap))
 
     def _decode_body(self, last, bt, lens, pages, slots, srows=None,
                      rowmap=None) -> torch.Tensor:
@@ -861,10 +933,7 @@ class PagedEngine:
         step.load("pages", np.asarray([s.pages[-1] for s in seqs], np.int32))
         step.load("slots", np.asarray(
             [s.length % self.cache.page_size for s in seqs], np.int32))
-        if self._has_ssm:
-            step.load("srows", np.asarray(
-                self.cache.state.rows_for(prids), np.int32))
-            step.load("rowmap", np.asarray(idx, np.int64))
+        self._load_plan(step, None, prids, B)
         logits = step()
         tokens = self._sample(logits,
                               [self.active[r].temperature for r in prids])
@@ -1114,6 +1183,11 @@ class _StateRound:
         """Write the whole depth's new rows: one launch per arena."""
         ssm_ops.state_scatter_inline(self.conv, self.rows, self.new_conv)
         ssm_ops.state_scatter_inline(self.ssm, self.rows, self.new_ssm)
+
+
+def _plan(pages, slots, src):
+    """A step's scatter plan from its inputs (``None``: no writes)."""
+    return None if pages is None else (pages, slots, src)
 
 
 def _pad_index(n: int, Bp: int) -> List[int]:

@@ -1,12 +1,20 @@
 """The engine's step cache: one captured CUDA graph per shape bucket.
 
 The port's counterpart of the JAX engine's compiled fused steps (JAX
-``serving/engine.py``: ``_build_fused_step``, ``_build_fused_block_step``),
-which trace once per (padded batch, block-table width) and replay.  Here
-a step is keyed the same way, ``(Bp, W)``; its first call is a miss,
-which bumps the engine's retrace counter (``stats["jit_traces"]`` for the
-decode round, ``stats["block_jit_traces"]`` for the K-block round, the
-JAX names, counted where the JAX closures count a trace).
+``serving/engine.py``: ``_build_fused_step``, ``_build_fused_block_step``,
+``_build_fused_prefill_step``, ``_build_fused_chunk_step``,
+``_build_fused_mixed_step``), which trace once per operand-shape bucket
+and replay.  Here a step is keyed by the same shapes; its first call is
+a miss, which bumps the engine's retrace counter under the JAX name,
+counted where the JAX closures count a trace: ``stats["jit_traces"]``
+for the decode round and ``stats["block_jit_traces"]`` for the K-block
+round, keyed ``(Bp, W)``; ``stats["prefill_jit_traces"]`` for the
+prefill batch (length bucket, ``Bp``, whether it writes KV) and the
+chunk step (chunk bucket, ``Bp``, ``W``, whether it writes);
+``stats["mixed_jit_traces"]`` for the mixed round (its chunk and decode
+operands' shapes).  A mixed key holds two steps, the chunk half and the
+decode half (:meth:`StepCache.get_many`), counted once: the token choice
+runs between them, outside any graph.
 
 On the card, with capture on, a miss runs the step's body once eagerly
 on a side stream (its result is the call's: one-time work such as
@@ -29,7 +37,19 @@ What a replay relies on, and how it is kept:
   ran;
 * a body must not synchronise, upload from pageable memory or allocate
   pinned memory (a capture refuses them, and the capture's error is
-  raised; nothing falls back to eager launches).
+  raised; nothing falls back to eager launches);
+* the bodies and the arena list are bound methods of the engine, which
+  owns the cache, and a step belongs to its cache: each is held weakly
+  the other way, so an engine, its cache and its steps form no reference
+  cycle, and a dropped engine frees its arenas and graphs at once (a
+  cyclic collection that destroyed a graph inside another engine's
+  capture would end that capture);
+* a step's output is its graph's static buffer, rewritten at the next
+  replay of that step: a caller reads it (or enqueues its reads) before
+  then.
+
+``pool_bytes`` is the growth of the allocator's reserved bytes across the
+captures: what the graphs' shared pool holds.
 
 Without capture (on the CPU, where the port runs its plain versions, or
 ``PagedEngine(cuda_graphs=False)``) the cache keeps the same keys and
@@ -40,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,8 +78,8 @@ class Step:
 
     def __init__(self, cache: "StepCache", body: Callable[..., torch.Tensor],
                  specs: Dict[str, Spec]) -> None:
-        self.cache = cache
-        self.body = body
+        self.cache = weakref.proxy(cache)      # the cache holds its steps
+        self._body = weakref.WeakMethod(body)
         self.inputs: Dict[str, torch.Tensor] = {}
         if cache.capture:
             self.inputs = {name: torch.empty(shape, dtype=dtype,
@@ -78,6 +99,10 @@ class Step:
         if not isinstance(value, torch.Tensor):
             value = torch.from_numpy(np.ascontiguousarray(value)).pin_memory()
         self.inputs[name].copy_(value, non_blocking=True)
+
+    @property
+    def body(self) -> Callable[..., torch.Tensor]:
+        return self._body()
 
     def __call__(self) -> torch.Tensor:
         if not self.cache.capture:
@@ -107,6 +132,7 @@ class Step:
         # so the blocks of ``out`` are not reused under main's reads
         main.wait_stream(side)
         before = dict(LAUNCHES)
+        reserved = torch.cuda.memory_reserved(cache.device)
         graph = torch.cuda.CUDAGraph()
         # capture_begin/end rather than torch.cuda.graph, which also
         # synchronises and empties the allocator's cache: the allocations
@@ -121,6 +147,8 @@ class Step:
                     graph.capture_end()
                 raise
             graph.capture_end()
+        cache.pool_bytes += (torch.cuda.memory_reserved(cache.device)
+                             - reserved)
         self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                          if LAUNCHES[k] != before[k]}
         LAUNCHES.update(before)       # the capture ran nothing on the card
@@ -131,7 +159,7 @@ class Step:
 
 
 class StepCache:
-    """Steps keyed by ``(counter, Bp, W)``; ``counter`` names the
+    """Steps keyed by ``(counter, *key)``; ``counter`` names the
     ``stats`` entry a miss bumps."""
 
     def __init__(self, device: torch.device, *, capture: bool,
@@ -140,26 +168,37 @@ class StepCache:
         self.device = device
         self.capture = capture and device.type == "cuda"
         self.stats = stats
-        self._arenas = arenas
+        self._arenas = weakref.WeakMethod(arenas)
         self._steps: Dict[tuple, Step] = {}
         self._pool = None
         self._side: Optional[torch.cuda.Stream] = None
         #: host seconds of the misses' warm-ups and captures
         self.capture_seconds = 0.0
+        #: reserved bytes the captures added (the graphs' pool)
+        self.pool_bytes = 0
 
     def get(self, counter: str, key: tuple, body: Callable[..., torch.Tensor],
             specs: Dict[str, Spec]) -> Step:
         """The step of ``key``, made (and counted) on a miss; ``specs``
         give its inputs' shapes and dtypes (the static buffers)."""
+        return self.get_many(counter, key, [(body, specs)])[0]
+
+    def get_many(self, counter: str, key: tuple,
+                 parts: Sequence[Tuple[Callable[..., torch.Tensor],
+                                       Dict[str, Spec]]]
+                 ) -> Tuple[Step, ...]:
+        """The steps of ``key``, one per ``(body, specs)`` part, made on
+        a miss and counted once for the whole key."""
         full = (counter,) + tuple(key)
-        step = self._steps.get(full)
-        if step is None:
+        steps = self._steps.get(full)
+        if steps is None:
             self.stats[counter] += 1
-            step = self._steps[full] = Step(self, body, specs)
-        return step
+            steps = self._steps[full] = tuple(
+                Step(self, body, specs) for body, specs in parts)
+        return steps
 
     def arena_ptrs(self) -> Tuple[int, ...]:
-        return tuple(a.data_ptr() for a in self._arenas())
+        return tuple(a.data_ptr() for a in self._arenas()())
 
     def pool(self):
         if self._pool is None:
@@ -174,4 +213,5 @@ class StepCache:
     @property
     def captured(self) -> int:
         """Steps whose graph exists."""
-        return sum(s.graph is not None for s in self._steps.values())
+        return sum(s.graph is not None for steps in self._steps.values()
+                   for s in steps)

@@ -51,6 +51,7 @@ Not in this slice (the constructor raises for it): device meshes.
 from __future__ import annotations
 
 import warnings
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence as Seq, Tuple
 
@@ -78,6 +79,17 @@ class Sequence:
     pages: List[int] = field(default_factory=list)
     length: int = 0
     shared_prefix_pages: int = 0
+
+
+def _weakly(method):
+    """``method`` (bound) as a callback that holds its object weakly: a
+    queue or prefix tree the object owns keeps no cycle back to it, so a
+    dropped cache frees its arenas at once, not at a cyclic collection."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        return ref()(*args)
+    return call
 
 
 class PagedStateArena:
@@ -127,9 +139,9 @@ class PagedStateArena:
             trace.num_state_rows = num_slots
         self.rows: Dict[int, int] = {}         # seq_id -> slot
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
-        queue.register_kind("ssm_state_write", self._flush_write)
-        queue.register_kind("state_copy", self._flush_copy)
-        queue.register_kind("state_init", self._flush_init)
+        queue.register_kind("ssm_state_write", _weakly(self._flush_write))
+        queue.register_kind("state_copy", _weakly(self._flush_copy))
+        queue.register_kind("state_init", _weakly(self._flush_init))
 
     # -- queue flush executors (arena-bound; the KV arenas pass through)
 
@@ -305,8 +317,8 @@ class PagedKVCache:
         self.prefix: Optional[RadixPrefixCache] = None
         if prefix_cache:
             self.prefix = RadixPrefixCache(
-                page_size, retain=self._retain_page,
-                release=self._release_evicted_prefix_page)
+                page_size, retain=_weakly(self._retain_page),
+                release=_weakly(self._release_evicted_prefix_page))
         self.trace: Optional[PimTrace] = None
         if record_trace:
             self.trace = PimTrace(num_pages=num_pages, num_slabs=num_slabs,

@@ -18,7 +18,9 @@ choice.
 
 import ast
 import dataclasses
+import gc
 import pathlib
+import weakref
 
 import numpy as np
 import pytest
@@ -32,6 +34,8 @@ from repro.models import transformer as JT  # noqa: E402
 from repro.models.params import init_params as jinit  # noqa: E402
 from repro.serving import engine as JE  # noqa: E402
 from repro_torch.configs import ARCHS, reduced  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.models.params import from_jax_params  # noqa: E402
 from repro_torch.serving.engine import PagedEngine, Request  # noqa: E402
 
@@ -208,6 +212,44 @@ def test_engine_refuses_what_is_not_ported(model):
         scout, moe=dataclasses.replace(scout.moe, first_dense_layers=1))
     with pytest.raises(ValueError, match="single-group"):
         PagedEngine(two_groups, params, device="cpu")
+
+
+@pytest.mark.parametrize("arch,chunk", [("granite-3-8b", 8),
+                                        ("mamba2-1.3b", 32)])
+def test_a_dropped_engine_is_freed_by_refcount_alone(arch, chunk):
+    """The engine, its KV cache, op queue, lib, prefix tree, state arena
+    and step cache hold one another in no reference cycle: with the
+    garbage collector off, dropping a used engine frees its arenas at
+    once.  (On the card a cyclic collection of a dropped engine destroys
+    its graphs, which inside another engine's capture ends the capture.)"""
+    cfg = reduced(ARCHS[arch], num_layers=2)
+    params = init_params(T.model_defs(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    rng = np.random.default_rng(0)
+    collect = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        eng = PagedEngine(cfg, params, page_size=PAGE, num_pages=64,
+                          device="cpu", max_prefill_chunk=chunk,
+                          decode_block_rounds=2,
+                          prefix_cache=cfg.family == "dense")
+        for i, n in enumerate((5, 90, 40)):
+            eng.submit(Request(i, rng.integers(0, cfg.vocab_size, n)
+                               .astype(np.int32), max_new_tokens=5,
+                               temperature=0.0))
+        eng.run()
+        assert eng.stats["mixed_jit_traces"] and eng.stats["block_jit_traces"]
+        held = [eng, eng.cache, eng.cache.queue, eng.cache.lib,
+                eng.cache.k_arena, eng._steps]
+        held += [eng.cache.prefix] if eng.cache.prefix else []
+        held += [eng.cache.state.ssm] if eng.cache.state else []
+        refs = [weakref.ref(o) for o in held]
+        del eng, held
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        if collect:
+            gc.enable()
 
 
 def _imports(path):

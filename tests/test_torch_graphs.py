@@ -294,8 +294,11 @@ def test_cuda_replayed_logits_equal_the_uncaptured_steps(cuda, fam):
     cfg, params = _card_model(fam, cuda)
     off = _card_run(cfg, params, cuda, graphs=False)
     on = _card_run(cfg, params, cuda, graphs=True)
-    assert on[0]._steps.captured == (on[0].stats["jit_traces"]
-                                     + on[0].stats["block_jit_traces"])
+    st = on[0].stats
+    # every fused step is captured: a mixed key holds two graphs
+    assert on[0]._steps.captured == (
+        st["jit_traces"] + st["block_jit_traces"]
+        + st["prefill_jit_traces"] + 2 * st["mixed_jit_traces"])
     assert off[0]._steps.captured == 0
     assert on[1] == off[1]                    # streams
     assert on[2] == off[2]                    # launches_by_kind deltas
@@ -319,7 +322,7 @@ def _captured_decode_step(cuda):
                              temperature=0.0))
     for _ in range(3):           # prefill, capture, one replay
         eng.run(max_rounds=1)
-    (step,) = [s for k, s in eng._steps._steps.items()
+    (step,) = [s for k, (s,) in eng._steps._steps.items()
                if k[0] == "jit_traces"]
     assert step.graph is not None
     return eng, step

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Times the PyTorch/CUDA port's KV-scatter and page-init wrappers of one
-source tree on the card, at the shapes of ``chip_smoke.py``'s phase 2.
+"""Times the PyTorch/CUDA port's RowClone wrappers of one source tree on
+the card, at the shapes of ``chip_smoke.py``'s phases 2 and 13.
 
     python3 tools/rowclone_ab.py TREE LABEL
 
 TREE is the root of a checkout: its ``src/repro_torch`` is imported and
 its RowClone kernels are built into ``TREE/build/repro_torch``.  Each
-run prints one line ``{"tree": LABEL, ...}`` with the mean ms of a call
-(CUDA events over back-to-back calls) of:
+run prints the card's name and power limit, then one line
+``{"tree": LABEL, ...}`` with the mean ms of a call (CUDA events over
+back-to-back calls) of:
 
 * ``kv_scatter``: one arena (L=40, P=1024, 16 slots of 8 x 128 bf16,
   B=8 with two pad duplicates), and the (K, V) pair a decode round
@@ -15,6 +16,13 @@ run prints one line ``{"tree": LABEL, ...}`` with the mean ms of a call
 * ``page_init_batched``: 16 pages over 40 layers of one arena, and the
   pair the queue's flush inits: two calls, or the pair form;
 * ``page_init``: 16 pages of one (1024, 16384) bf16 layer;
+* ``copy_2d`` (``pim_copy``) and ``init_2d`` (``pim_init(..., 0)``) of
+  1 MiB, 32 MiB, 256 MiB and the whole (40, 1024, 16, 8, 128) bf16
+  arena (1.34 GB), each beside ``Tensor.clone()`` and ``torch.zeros``;
+* ``reread_us``: the median µs of one read (``sum``) of a 16 MiB working
+  set enqueued right after a 256 MiB ``copy_2d``, ``clone``, ``init_2d``
+  or ``zeros`` (``warm``: after a read of the set alone), 30 samples of
+  CUDA events around the read: how much of the set the mover left in L2;
 * the library calls of the same functions (``index_copy_`` and
   ``index_fill_`` on indices already on the card).
 
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 
 import torch
@@ -47,6 +56,24 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def reread_us(ws: torch.Tensor, move, samples: int = 30) -> float:
+    """Median µs of reading ``ws`` right after ``move()`` (after a read
+    of ``ws`` alone when ``move`` is None)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(samples + 2):
+        ws.sum()
+        if move is not None:
+            move()
+        start.record()
+        ws.sum()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3)
+    return sorted(times[2:])[samples // 2]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree")
@@ -59,6 +86,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.rowclone import ops as rc_ops
 
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=False).stdout.strip(), flush=True)
     _build.build(["rowclone"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -118,6 +149,28 @@ def main() -> int:
     out["page_init"] = time_ms(lambda: rc_ops.pim_page_init(layer, dst, 0.0))
     out["index_fill_layer"] = time_ms(
         lambda: layer.index_fill_(0, dst_idx, 0.0))
+    del layer, v_ar
+    flat = k_ar.view(-1)
+    for nbytes in (1 << 20, 32 << 20, 256 << 20, flat.numel() * 2):
+        src = flat[:nbytes // 2]
+        iters = 50 if nbytes <= (32 << 20) else 20
+        out[f"copy_2d_{nbytes}"] = time_ms(lambda: rc_ops.pim_copy(src),
+                                           iters)
+        out[f"clone_{nbytes}"] = time_ms(src.clone, iters)
+        out[f"init_2d_{nbytes}"] = time_ms(lambda: rc_ops.pim_init(
+            src.shape, 0, torch.bfloat16, device=dev), iters)
+        out[f"zeros_{nbytes}"] = time_ms(lambda: torch.zeros(
+            src.shape, dtype=torch.bfloat16, device=dev), iters)
+    ws = torch.ones(4 << 20, dtype=torch.float32, device=dev)
+    src = flat[:(256 << 20) // 2]
+    out["reread_us"] = {
+        "warm": reread_us(ws, None),
+        "copy_2d": reread_us(ws, lambda: rc_ops.pim_copy(src)),
+        "clone": reread_us(ws, src.clone),
+        "init_2d": reread_us(ws, lambda: rc_ops.pim_init(
+            src.shape, 0, torch.bfloat16, device=dev)),
+        "zeros": reread_us(ws, lambda: torch.zeros(
+            src.shape, dtype=torch.bfloat16, device=dev))}
     print(json.dumps(out), flush=True)
     return 0
 
