@@ -93,12 +93,15 @@ exits nonzero:
     phase 10(a)'s on mamba2-1.3b, each at full width and depth, twice in
     one process — ``cuda_graphs=False`` then ``True`` — with identical
     streams, ``launches_by_kind`` deltas, kernel launch counts and
-    step-cache misses required and every miss captured; the decode-round
-    medians and prefill milliseconds, the chunk, mixed and block
-    medians, the step-cache misses by counter, the capture seconds and
-    the graphs' pool; phase 8(b)'s open loop with graphs off then on
-    (TTFT, ITL); and (printed after phase 5) each model's profiled
-    replay;
+    step-cache misses required, every key met twice captured (a step is
+    captured on its key's second use) and none met once; the decode-round
+    medians, prefill milliseconds and TTFT, the chunk, mixed and block
+    medians (also apart for first uses, captures and replays), the
+    step-cache misses by counter, the seconds of the eager first uses
+    and of the captures, and the graphs' pool; phase 8(b)'s open loop
+    with graphs off then on (TTFT, ITL); a summary of each workload's
+    prefill milliseconds and TTFT p99 with graphs off and on; and
+    (printed after phase 5) each model's profiled replay;
 14. trace and replay (after phase 8): phase 3's workload with
     ``record_trace=True`` at full depth (each kind's trace events equal
     its flushes), replayed on the simulated DDR3 prototype — its
@@ -108,8 +111,9 @@ exits nonzero:
 
 Every serving phase runs with the engine's default ``cuda_graphs=True``:
 its prefill batches, chunk steps, mixed rounds (two graphs each), decode
-rounds and K-block rounds replay graphs captured per shape bucket; each
-serving line prints its step-cache misses, captures and graph pool.
+rounds and K-block rounds run eagerly on a shape bucket's first use and
+replay a graph captured on its second; each serving line prints its
+step-cache misses, captures and graph pool.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, the
 kernels' JSON summary, and ``{"ok": true, "device": {...}}``.  Without a
@@ -526,25 +530,64 @@ def parity(dev) -> dict:
             qc, kcat, vcat, attn_mask=pmask), iters=10))
     del kcat, vcat, k_ar, v_ar, kp, vp
 
-    # -- random_u32: bit for bit at the sampled path's (8, 1) and at
-    # (4096, 256); the row's times are the serving shape's
+    # -- random_u32: the words and the uniform draw, bit for bit, at the
+    # sampled path's (8, 1) (the draw's pad rows folded by a row map, as
+    # a K-block folds them) and at (4096, 256).  The row's times are the
+    # serving draw's (one launch of the uniform kernel); beside them the
+    # words' wrapper and the draw as the path made it before (the words,
+    # four elementwise passes and the row map's gather)
+    dr_lib = _build.load("drange")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rowmap8 = torch.tensor([0, 1, 2, 3, 4, 5, 0, 0], device=dev)
     for shape in ((4096, 256), (8, 1)):
         seed = (0x9E3779B9, 12345)
+        rm = rowmap8 if shape == (8, 1) else None
+
+        def old_draw():
+            bits = dr_ops.pim_random_u32(seed, *shape,
+                                         device=dev).view(torch.int32)
+            u = ((bits >> 8) & 0xFFFFFF).to(torch.float32) \
+                * (1.0 / (1 << 24))
+            return u if rm is None else u[rm]
+
         got = dr_ops.pim_random_u32(seed, *shape, device=dev)
         want = dr_ref.random_u32(seed, *shape, dev)
+        got_u = dr_ops.pim_random_uniform(seed, *shape, dev, rowmap=rm)
+        want_u = dr_ref.random_uniform(seed, *shape, dev, rowmap=rm)
+        old_u = old_draw()
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int32), want):
             raise AssertionError(f"random_u32 {shape} disagrees with its "
                                  "plain version")
+        if not (same_bits(got_u, want_u) and same_bits(got_u, old_u)):
+            raise AssertionError(f"the uniform draw {shape} disagrees with "
+                                 "its plain version or the words' uniforms")
         n = shape[0] * shape[1]
-        nb, by = bound(4 * n, U32_OPS_PER_WORD * n, CUDA_CORE_OPS)
+        n_out = got_u.numel()
+        # each output word: the generator's operations, then the shift,
+        # the conversion and the scale
+        nb, by = bound(4 * n_out + (0 if rm is None else 8 * rm.numel()),
+                       (U32_OPS_PER_WORD + 3) * n_out, CUDA_CORE_OPS)
+        nb_w = bound(4 * n, U32_OPS_PER_WORD * n, CUDA_CORE_OPS)[0]
+        out_u = torch.empty_like(got_u)
+        bare = (*seed, out_u.data_ptr(), n_out, shape[1],
+                None if rm is None else rm.data_ptr(), stream)
         rows["random_u32" if shape == (8, 1) else "random_u32_4096x256"] = \
             dict(max_abs_err=0.0, shape=list(shape),
-                 ms=time_ms(lambda: dr_ops.pim_random_u32(seed, *shape,
-                                                          device=dev)),
-                 plain_ms=time_ms(lambda: dr_ref.random_u32(seed, *shape,
-                                                            dev)),
-                 bound_ms=nb, bound_by=by, library_ms=None)
+                 row_map=None if rm is None else rm.tolist(),
+                 ms=time_ms(lambda: dr_ops.pim_random_uniform(
+                     seed, *shape, dev, rowmap=rm)),
+                 kernel_only_ms=time_ms(lambda: dr_lib.dr_random_uniform(
+                     *bare)),
+                 plain_ms=time_ms(lambda: dr_ref.random_uniform(
+                     seed, *shape, dev, rowmap=rm)),
+                 bound_ms=nb, bound_by=by, library_ms=None,
+                 old_draw_ms=time_ms(old_draw),
+                 words_ms=time_ms(lambda: dr_ops.pim_random_u32(
+                     seed, *shape, device=dev)),
+                 words_plain_ms=time_ms(lambda: dr_ref.random_u32(
+                     seed, *shape, dev)),
+                 words_bound_ms=nb_w)
     rows.update(ambit_parity(dev, randn, L, P, S, E))
     rows.update(ssm_parity(dev))
     rows["attention_hybrid_heads"] = attention_heads_parity(dev, randn)
@@ -557,13 +600,15 @@ def ambit_parity(dev, randn, L, P, S, E) -> dict:
     128) bf16, batches of 16 pages, bit for bit against their plain
     versions: AND, OR and NOT on a disjoint batch and on a batch whose
     last op writes the page its first op reads (the wrapper stages that
-    one through scratch, two launches); the scan over pages holding
-    zeros, one planted ``-0.0`` (nonzero bits) and random values.  Times
+    one through scratch, two launches); the scan of one arena and of a
+    (K, V) pair over pages holding zeros, one planted ``-0.0`` (nonzero
+    bits), a page nonzero only in V and random values.  Times
     are the disjoint batch's (``staged_ms`` the other's); a wrapper call
     includes uploading its page list from the host, and
     ``kernel_only_ms`` times the bare launch on page lists already on the
-    card.  Bounds: 3 page reads or writes per op for AND/OR, 2 for NOT, 1
-    for the scan.
+    card.  Bounds: 3 page reads or writes per op for AND/OR, 2 for NOT;
+    for the scan, every byte of a page found zero and one word of each
+    other page (it stops at the first set bit).
     Library: ``torch.bitwise_and``/``_or``/``_not`` over the 16 pages
     gathered beforehand (no gather, no write-back), and ``(x != 0)``
     reduced per page over the gathered pages for the scan."""
@@ -622,34 +667,82 @@ def ambit_parity(dev, randn, L, P, S, E) -> dict:
             plain_ms=time_ms(plain), bound_ms=nb, bound_by=by,
             library_ms=time_ms(library))
         del work
-    # the scan: zero pages, a planted -0.0, random pages
+    # the scan of the (K, V) pair: zero pages, a -0.0 planted in K's last
+    # layer (page 3), a page nonzero only in V (page 5), random pages
     zero = torch.zeros_like(arena)
+    zero_v = torch.zeros_like(arena)
     pages = list(range(600, 616))
     zero[:, pages[8:]] = arena[:, pages[8:]]
+    zero_v[:, pages[8:]] = arena[:, pages[8:]]
     zero[L - 1, pages[3], S - 1, E - 1] = -0.0
+    zero_v[0, pages[5], 0, 0] = 1.0
     assert zero[L - 1, pages[3]].view(torch.int16).ne(0).any()
-    want = amb_ref.page_zero_scan(zero, torch.tensor(pages, device=dev))
+    p_t = torch.tensor(pages, dtype=torch.int32, device=dev)
+    want = amb_ref.page_zero_scan(zero, p_t)
     got = amb_ops.pim_page_zero_scan(zero, pages)
+    want_pair = amb_ref.page_zero_scan_pair(zero, zero_v, p_t)
+    got_pair = amb_ops.pim_page_zero_scan_pair(zero, zero_v, pages)
     torch.cuda.synchronize()
     expect = [i < 8 and i != 3 for i in range(16)]
+    expect_pair = [i < 8 and i not in (3, 5) for i in range(16)]
     if not (torch.equal(got, want) and want.tolist() == expect):
         raise AssertionError(f"page_zero_scan {got.tolist()} disagrees with "
                              f"its plain version {want.tolist()} or with "
                              f"{expect}")
-    p_t = torch.tensor(pages, dtype=torch.int32, device=dev)
+    if not (got_pair.tolist() == want_pair.tolist() == expect_pair):
+        raise AssertionError(f"page_zero_scan (pair) {got_pair.tolist()} "
+                             "disagrees with its plain version "
+                             f"{want_pair.tolist()} or with {expect_pair}")
     gz = zero.view(torch.int16)[:, pages].contiguous()
-    flags = torch.zeros(len(pages), dtype=torch.int32, device=dev)
-    nb, by = bound(len(pages) * L * page_bytes + 5 * len(pages), 0)
+    gv = zero_v.view(torch.int16)[:, pages].contiguous()
+    n = len(pages)
+
+    def library(g):
+        return g.ne(0).transpose(0, 1).reshape(n, -1).any(dim=1)
+
+    # what this run's data needs: every byte of a page found zero (in
+    # each arena scanned), one 16-byte word of each other page; the page
+    # list in, the flags out
+    nb, by = bound(sum(expect_pair) * 2 * L * page_bytes
+                   + 16 * (n - sum(expect_pair)) + 5 * n, 0)
+    nb_one, by_one = bound(sum(expect) * L * page_bytes
+                           + 16 * (n - sum(expect)) + 5 * n, 0)
+    scratch = amb_ops._scratch(zero, stream, n)
+    out_dev = torch.empty(n, dtype=torch.bool, device=dev)
+    host_idx = np.asarray(pages, np.int32)
+    bare_pair = (zero.data_ptr(), zero_v.data_ptr(), 2, None,
+                 host_idx.ctypes.data, P, n, L, page_bytes,
+                 scratch.data_ptr(), out_dev.data_ptr(), None, stream)
+    bare_one = (zero.data_ptr(), zero.data_ptr(), 1, None,
+                host_idx.ctypes.data, P, n, L, page_bytes,
+                scratch.data_ptr(), out_dev.data_ptr(), None, stream)
+    # the serving path's scan is the pair's (one launch, the flags in
+    # host memory after one wait); a call's time includes that wait
     rows["page_zero_scan"] = dict(
-        max_abs_err=0.0, pages=len(pages), planted_negative_zero=True,
-        ms=time_ms(lambda: amb_ops.pim_page_zero_scan(zero, pages)),
-        kernel_only_ms=time_ms(lambda: lib.am_zero_scan(
-            zero.data_ptr(), p_t.data_ptr(), P, len(pages), L, page_bytes,
-            flags.data_ptr(), stream)),
-        plain_ms=time_ms(lambda: amb_ref.page_zero_scan(zero, p_t)),
+        max_abs_err=0.0, pages=n, planted_negative_zero=True,
+        nonzero_only_in_v=True,
+        ms=time_ms(lambda: amb_ops.pim_page_zero_scan_pair(zero, zero_v,
+                                                           pages)),
+        kernel_only_ms=time_ms(lambda: lib.am_zero_scan(*bare_pair)),
+        plain_ms=time_ms(lambda: amb_ref.page_zero_scan_pair(zero, zero_v,
+                                                             p_t)),
         bound_ms=nb, bound_by=by,
-        library_ms=time_ms(lambda: gz.ne(0).transpose(0, 1).reshape(
-            len(pages), -1).any(dim=1)))
+        full_read_bound_ms=bound(n * 2 * L * page_bytes + 5 * n, 0)[0],
+        library_ms=time_ms(lambda: library(gz) & library(gv)),
+        # the cache's scan before: two single-arena calls, their AND and
+        # the flags' copy to the host
+        two_calls_ms=time_ms(lambda: (
+            amb_ops.pim_page_zero_scan(zero, pages)
+            & amb_ops.pim_page_zero_scan(zero_v, pages)).cpu()),
+        one_arena_ms=time_ms(lambda: amb_ops.pim_page_zero_scan(zero,
+                                                                pages)),
+        one_arena_kernel_only_ms=time_ms(lambda: lib.am_zero_scan(
+            *bare_one)),
+        one_arena_plain_ms=time_ms(lambda: amb_ref.page_zero_scan(zero,
+                                                                  p_t)),
+        one_arena_bound_ms=nb_one,
+        one_arena_library_ms=time_ms(lambda: library(gz)))
+    del zero_v, gv
     del zero, arena, gs, gd, gz
     return rows
 
@@ -1354,13 +1447,42 @@ def _steps(out) -> dict:
             "step_ms": ms}
 
 
+class _FirstTokens:
+    """Each request's time to first token on the host clock, from its
+    submission to the end of the step that gave its first token."""
+
+    def __init__(self) -> None:
+        self.start: dict = {}
+        self.ms: dict = {}
+
+    def submitted(self, reqs) -> None:
+        now = time.perf_counter()
+        for r in reqs:
+            self.start[r.req_id] = (now, r)
+
+    def step_done(self) -> None:
+        now = time.perf_counter()
+        for rid, (t, r) in self.start.items():
+            if rid not in self.ms and (r.out_tokens or r.done):
+                self.ms[rid] = (now - t) * 1e3
+
+    def summary(self) -> dict:
+        if len(self.ms) != len(self.start):
+            raise AssertionError(f"first tokens of {sorted(self.ms)} of "
+                                 f"{sorted(self.start)}")
+        v = list(self.ms.values())
+        return {"ttft_p50_ms": float(np.percentile(v, 50)),
+                "ttft_p99_ms": float(np.percentile(v, 99))}
+
+
 def _chunked_serve(dev, cfg, params, eos_token, cuda_graphs=True,
-                   misses=None):
+                   uses=None, first=None):
     """Phase 4's workload through ``serve``: chunked prefill (256-token
     chunks), mixed rounds and 8-round decode blocks; requests 0-3 first,
     4-7 after step 2; even ids greedy, odd ids sampled at temperature
-    1.0; request 2 stops at ``eos_token``.  ``misses`` (a list) gets the
-    engine's step-cache misses so far after each step."""
+    1.0; request 2 stops at ``eos_token``.  ``uses`` (a list) gets the
+    engine's step-cache misses and graphs so far after each step;
+    ``first`` (a :class:`_FirstTokens`) the requests' first tokens."""
     from repro_torch.launch.serve import serve
     from repro_torch.serving.engine import Request
 
@@ -1370,14 +1492,21 @@ def _chunked_serve(dev, cfg, params, eos_token, cuda_graphs=True,
     late = reqs[4:]
 
     def between_rounds(engine, i):
-        if misses is not None:
-            misses.append(sum(engine.stats[k] for k in TRACE_KEYS))
+        if first is not None:
+            first.step_done()
+        if uses is not None:
+            uses.append((sum(engine.stats[k] for k in TRACE_KEYS),
+                         engine._steps.captured))
         if i == 1:
             for r in late:
                 engine.submit(r)
+            if first is not None:
+                first.submitted(late)
 
     return serve(cfg, params, reqs[:4], page_size=16, num_pages=1024,
                  device=dev, between_rounds=between_rounds,
+                 setup=None if first is None else
+                 (lambda e: first.submitted(reqs[:4])),
                  max_prefill_chunk=256, mixed_rounds=True,
                  decode_block_rounds=8, cuda_graphs=cuda_graphs)
 
@@ -1436,8 +1565,8 @@ def trace(dev, cfg, params) -> dict:
     """``torch.profiler`` over the phase-4 workload on a fresh engine:
     the card's busy time (the sum of its kernel and copy times; one
     stream, so they do not overlap) in the first chunk step, mixed round
-    and decode block that replay their graphs (no step-cache miss in the
-    step), by kernel group, beside the step's host-clock time under the
+    and decode block that only replay graphs captured before them (no
+    step-cache miss and no capture in the step), by kernel group, beside the step's host-clock time under the
     profiler (which slows the host); each window's kernels held equal to
     its counted launches (:func:`_ran_as_counted`)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1459,6 +1588,7 @@ def trace(dev, cfg, params) -> dict:
                   if engine.prefill_backlog_tokens() == 0 else 1)
         before = queue.snapshot()
         misses = {k: engine.stats[k] for k in TRACE_KEYS}
+        graphs = engine._steps.captured
         torch.cuda.synchronize(dev)
         counted = launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1472,7 +1602,9 @@ def trace(dev, cfg, params) -> dict:
             for r in reqs[4:]:
                 engine.submit(r)
         kind = _round_kind(queue.delta(before))
-        replayed = all(engine.stats[k] == misses[k] for k in TRACE_KEYS)
+        # replays only: no key met first and no graph captured in it
+        replayed = (all(engine.stats[k] == misses[k] for k in TRACE_KEYS)
+                    and engine._steps.captured == graphs)
         if kind not in kinds or kind in out or not replayed:
             continue
         out[kind] = {"profiled_step_ms": wall_ms, "replayed": True,
@@ -1536,9 +1668,9 @@ def trace_ssm(dev) -> dict:
 
 def _profile_replays(dev, cfg, params, reqs, num_pages) -> dict:
     """``torch.profiler`` over one decode round and one 8-round decode
-    block of ``reqs`` (greedy), each a replay of its step's captured
-    graph (a step that captured instead is run again unprofiled until a
-    replay comes): the card's busy time by kernel group, the device
+    block of ``reqs`` (greedy), each only replays of a graph captured
+    before it (a step that met its key first or captured its graph is
+    run again, profiled, until a replay comes): the card's busy time by kernel group, the device
     events it ran and the host's calls that put them there, beside the
     host-clock step time under the profiler (which slows the host).
     The package's kernels the card ran are held equal to the launches
@@ -1556,8 +1688,9 @@ def _profile_replays(dev, cfg, params, reqs, num_pages) -> dict:
         for r in reqs:
             engine.submit(dataclasses.replace(r, out_tokens=[], done=False))
         engine.run(max_rounds=1)                     # prefill
-        for _ in range(4):
+        for _ in range(8):
             misses = engine.stats[stat]
+            graphs = engine._steps.captured
             torch.cuda.synchronize(dev)
             counted = launch_counts()
             with profile(activities=[ProfilerActivity.CPU,
@@ -1566,7 +1699,8 @@ def _profile_replays(dev, cfg, params, reqs, num_pages) -> dict:
                 engine.run(max_rounds=K)
                 torch.cuda.synchronize(dev)
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            if engine.stats[stat] == misses and engine._steps.captured:
+            if engine.stats[stat] == misses and graphs \
+                    and engine._steps.captured == graphs:
                 busy = _device_busy(prof)
                 share = (busy["device_busy_ms"] / wall_ms
                          if wall_ms and busy["device_busy_ms"]
@@ -1576,7 +1710,7 @@ def _profile_replays(dev, cfg, params, reqs, num_pages) -> dict:
                              **_ran_as_counted(prof, counted)}
                 break
         else:
-            raise AssertionError(f"{kind}: no replayed step in 4 tries")
+            raise AssertionError(f"{kind}: no replayed step in 8 tries")
         del engine
     return out
 
@@ -1674,25 +1808,25 @@ TRACE_KEYS = ("jit_traces", "block_jit_traces", "prefill_jit_traces",
 
 def _graph_stats(engine) -> dict:
     """An engine's step-cache misses by counter (the JAX engine's
-    retrace names), the graphs it captured, their host seconds and the
-    reserved bytes its captures added (the graphs' shared pool)."""
+    retrace names), the graphs it captured, the host seconds of the
+    eager first uses and of the captures, and the reserved bytes its
+    captures added (the graphs' shared pool)."""
     cache = engine._steps
     return {"traces": {k: engine.stats[k] for k in TRACE_KEYS},
             "graphs_captured": cache.captured,
+            "first_use_seconds": cache.first_use_seconds,
             "capture_seconds": cache.capture_seconds,
             "graph_pool_gib": cache.pool_bytes / 2**30}
 
 
 def _check_captured(engine, what) -> None:
-    """Every step-cache miss captured its graphs (two for a mixed key);
-    none without capture."""
-    st = engine.stats
-    want = (st["jit_traces"] + st["block_jit_traces"]
-            + st["prefill_jit_traces"] + 2 * st["mixed_jit_traces"])
-    got = engine._steps.captured
-    if got != (want if engine._steps.capture else 0):
-        raise AssertionError(f"{what}: {got} graphs for {want} step-cache "
-                             "graphs")
+    """A step is captured on its key's second use: the graphs are those
+    of the keys met at least twice (two for a mixed key), none without
+    capture."""
+    cache = engine._steps
+    if cache.captured != cache.due:
+        raise AssertionError(f"{what}: {cache.captured} graphs for "
+                             f"{cache.due} steps of keys met twice")
 
 
 # ---------------------------------------------------------------------- #
@@ -1711,14 +1845,19 @@ def graphs_ab(dev, cfg, params, make_requests, num_pages) -> dict:
     deltas and kernel launch counts, 0 pages and state rows in use.
     Reported: both decode-round medians (host clock, each round ending
     in its token transfer and a synchronise), the prefill's host
-    milliseconds, the step-cache misses, their capture seconds and the
-    graphs' pool."""
+    milliseconds, the requests' TTFT (all submitted at the start), the
+    step-cache misses, the seconds of their eager first uses and of the
+    captures, and the graphs' pool."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
 
     runs = {}
     for graphs in (False, True):
+        first = _FirstTokens()
+        reqs = make_requests()
+
         def between_rounds(engine, i):
+            first.step_done()
             if i == 1:
                 rid = next(r for r in sorted(engine.active)
                            if engine.cache.seqs[r].length
@@ -1728,9 +1867,11 @@ def graphs_ab(dev, cfg, params, make_requests, num_pages) -> dict:
                 engine.cache.free(1000)
 
         reset_launches()
-        out = serve(cfg, params, make_requests(), page_size=16,
+        out = serve(cfg, params, reqs, page_size=16,
                     num_pages=num_pages, device=dev,
-                    between_rounds=between_rounds, cuda_graphs=graphs)
+                    between_rounds=between_rounds,
+                    setup=lambda e: first.submitted(reqs),
+                    cuda_graphs=graphs)
         engine = out["engine"]
         _check_drained(engine, f"graphs (cuda_graphs={graphs})")
         _check_captured(engine, f"{cfg.name} (cuda_graphs={graphs})")
@@ -1740,6 +1881,7 @@ def graphs_ab(dev, cfg, params, make_requests, num_pages) -> dict:
             "kernels": launch_counts(),
             "decode_round_ms_median": float(np.median(rs[1:])) * 1e3,
             "prefill_ms": engine.stats["prefill_seconds"] * 1e3,
+            **first.summary(),
             "tokens_per_s": out["tokens"] / out["seconds"],
             **_graph_stats(engine)}
         del engine, out
@@ -1771,25 +1913,33 @@ def chunked_ab(dev, cfg, params, eos_token) -> dict:
     """Phase 15's chunked half: phase 4's workload (:func:`_chunked_serve`)
     with ``cuda_graphs`` off, then on, in this process.  Required:
     identical streams, ``launches_by_kind`` deltas, kernel launch counts
-    and step-cache misses, every miss captured.  Reported: the median
-    host milliseconds of each step kind (chunk, mixed, decode block),
-    also apart for the steps with a step-cache miss (a capture, with
-    graphs on) and those without (replays), the prefill seconds, the
-    captures, their seconds and the graphs' pool."""
+    and step-cache misses, every key met twice captured and none met
+    once.  Reported: the median host milliseconds of each step kind
+    (chunk, mixed, decode block), also apart for the steps that met a
+    key first (eager with graphs on too), those that captured a graph
+    and those that only replayed, the prefill seconds, the requests'
+    TTFT (requests 4-7 from their late submission), the captures and
+    the seconds of the first uses and the captures, and the graphs'
+    pool."""
     from repro_torch.kernels import launch_counts, reset_launches
 
     runs = {}
     for graphs in (False, True):
         reset_launches()
-        misses = []
+        uses, first = [], _FirstTokens()
         out = _chunked_serve(dev, cfg, params, eos_token,
-                             cuda_graphs=graphs, misses=misses)
+                             cuda_graphs=graphs, uses=uses, first=first)
         engine = out["engine"]
         split = {}
-        for d, sec, miss in zip(out["round_launches"], out["round_seconds"],
-                                np.diff([0] + misses)):
-            split.setdefault(_round_kind(d), {"miss": [], "replay": []})[
-                "miss" if miss else "replay"].append(sec * 1e3)
+        prev = (0, 0)
+        for d, sec, now in zip(out["round_launches"], out["round_seconds"],
+                               uses):
+            use = ("first_use" if now[0] != prev[0] else
+                   "capture" if now[1] != prev[1] else "replay")
+            prev = now
+            split.setdefault(_round_kind(d), {
+                "first_use": [], "capture": [], "replay": []})[use].append(
+                    sec * 1e3)
         _check_drained(engine, f"chunked graphs (cuda_graphs={graphs})")
         _check_captured(engine, f"chunked (cuda_graphs={graphs})")
         steps = _steps(out)
@@ -1798,12 +1948,13 @@ def chunked_ab(dev, cfg, params, eos_token) -> dict:
             "kernels": launch_counts(),
             "step_kinds": steps["step_kinds"],
             "step_ms_median": steps["step_ms_median"],
-            "step_ms_median_miss_replay": {
+            "step_ms_median_by_use": {
                 k: {m: float(np.median(v)) if v else None
                     for m, v in d.items()} for k, d in split.items()},
-            "steps_miss_replay": {k: {m: len(v) for m, v in d.items()}
-                                  for k, d in split.items()},
-            "prefill_seconds": engine.stats["prefill_seconds"],
+            "steps_by_use": {k: {m: len(v) for m, v in d.items()}
+                             for k, d in split.items()},
+            "prefill_ms": engine.stats["prefill_seconds"] * 1e3,
+            **first.summary(),
             "tokens_per_s": out["tokens"] / out["seconds"],
             "rng_ctr": engine.rng_ctr, **_graph_stats(engine)}
         del engine, out
@@ -1844,8 +1995,10 @@ def graphs_phase(dev, cfg, params) -> dict:
         open_loop["graphs_on" if graphs else "graphs_off"] = {
             k: line[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
                                  "itl_p99_ms", "goodput_rps", "wall_s",
+                                 "prefill_ms",
                                  "traces", "graphs_captured",
-                                 "capture_seconds", "graph_pool_gib")}
+                                 "first_use_seconds", "capture_seconds",
+                                 "graph_pool_gib")}
         _free_card()
     scfg = ARCHS["mamba2-1.3b"]
     sparams, _ = _model_params(dev, scfg, 10)
@@ -1857,7 +2010,21 @@ def graphs_phase(dev, cfg, params) -> dict:
     mamba.pop("eos_token")
     del sparams
     _free_card()
-    return {"phase": "graphs", "granite": granite,
+    # each workload's prefill and TTFT tail with graphs off and on, and
+    # the host seconds of the first uses and captures with graphs on
+    summary = {}
+    for name, off, on in (
+            ("granite", granite["graphs_off"], granite["graphs_on"]),
+            ("granite_chunked", chunked["graphs_off"], chunked["graphs_on"]),
+            ("granite_open_loop", open_loop["graphs_off"],
+             open_loop["graphs_on"]),
+            ("mamba2", mamba["graphs_off"], mamba["graphs_on"])):
+        summary[name] = {
+            "prefill_ms_off_on": [off["prefill_ms"], on["prefill_ms"]],
+            "ttft_p99_ms_off_on": [off["ttft_p99_ms"], on["ttft_p99_ms"]],
+            "first_use_seconds": on["first_use_seconds"],
+            "capture_seconds": on["capture_seconds"]}
+    return {"phase": "graphs", "summary": summary, "granite": granite,
             "granite_chunked": chunked, "granite_open_loop": open_loop,
             "mamba2": mamba}
 
@@ -2034,6 +2201,7 @@ def _open_loop(dev, cfg, params, cuda_graphs=True) -> tuple:
                                              "prefix_evictions")},
         "zero_scan": {k: eng.cache.stats[k] for k in (
             "init_skips_zero", "zero_audit_pages", "zero_audit_failures")},
+        "prefill_ms": eng.stats["prefill_seconds"] * 1e3,
         "scans": len(scans_b),
         "scan_host_ms_median": float(np.median(scans_b)),
         "launches_by_kind": _nonzero(eng.cache.queue.launches_by_kind),

@@ -61,7 +61,7 @@ DEVICE_KERNEL = {
     "paged_attention": "paged_split_kernel",
     "flash_attention": "flash_(tc|simt)_kernel",
     "flash_attention_prefix": "flash_(tc|simt)_kernel",
-    "random_u32": "drange_kernel",
+    "random_u32": "drange_(uniform_)?kernel",
     "page_bitwise_batched": "bitwise_rows_kernel",
     "page_not_batched": "bitwise_rows_kernel",
     "page_zero_scan": "zero_scan_kernel",

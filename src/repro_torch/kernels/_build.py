@@ -40,6 +40,7 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_PP = ctypes.POINTER(ctypes.c_void_p)
 
 # entry point -> argtypes (every entry point returns a cudaError_t as int)
 SIGNATURES = {
@@ -62,10 +63,15 @@ SIGNATURES = {
     },
     "drange": {
         "dr_random_u32": [_U, _U, _P, _L, _P],
+        "dr_random_uniform": [_U, _U, _P, _L, _L, _P, _P],
     },
     "ambit": {
         "am_bitwise_rows": [_P, _P, _L, _P, _P, _L, _I, _I, _L, _I, _P],
-        "am_zero_scan": [_P, _P, _L, _I, _I, _L, _P, _P],
+        "am_zero_scan": [_P, _P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _P,
+                         _P],
+        "am_alloc_mapped": [_L, _PP],
+        "am_free_mapped": [_P],
+        "am_stream_wait": [_P],
     },
     "ssm_scan": {
         "ss_state_scatter": [_P, _P, _P, _I, _I, _L, _L, _P],

@@ -2,29 +2,38 @@
 
 The port's counterpart of the JAX package's ``kernels/ambit/ops.py``:
 ``pim_page_bitwise_batched`` (AND, OR and NOT) and
-``pim_page_zero_scan``.  The ops are defined on bit patterns, so any
-dtype works and a float arena is never converted.  The JAX versions
-donate the arena and return the new one; these update it in place and
-return it.  On a CPU tensor each runs its plain version in :mod:`.ref`;
-on a CUDA tensor it launches the kernel or raises.  Launches count
-under ``page_bitwise_batched`` (AND, OR), ``page_not_batched`` (NOT)
-and ``page_zero_scan``.
+``pim_page_zero_scan``, and ``pim_page_zero_scan_pair``, the scan of
+a (K, V) pair in one launch whose flags come back to the host.  The ops
+are defined on bit patterns, so any dtype works and a float arena is
+never converted.  The JAX versions donate the arena and return the new
+one; these update it in place and return it.  On a CPU tensor each runs
+its plain version in :mod:`.ref`; on a CUDA tensor it launches the
+kernel or raises.  Launches count under ``page_bitwise_batched`` (AND,
+OR), ``page_not_batched`` (NOT) and ``page_zero_scan`` (one a scan,
+pair or single).  A scan's page list of up to
+:data:`~repro_torch.kernels.rowclone.ops.INLINE_ROWS` pages travels in
+the launch's parameters; a longer one is uploaded.
 """
 
 from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build, count_launch
-from repro_torch.kernels.rowclone.ops import (Index, _check_arena,
+from repro_torch.kernels.rowclone.ops import (INLINE_ROWS, Index,
+                                              _check_arena, _check_rows,
                                               _host_index, _row_bytes,
-                                              _stream, upload_index)
+                                              _stream, upload, upload_index)
 from . import ref
 
 _OP_CODE = {"and": 0, "or": 1, "not": 2}
 _COPY = 3
-_MAX_GRID = 65535          # the kernels' grid y (ops) and z (layers)
+_MAX_GRID = 65535          # the kernels' grid y (ops, pages), z (layers)
 
 
 def _stage(src: np.ndarray, dst: np.ndarray) -> bool:
@@ -88,23 +97,117 @@ def pim_page_bitwise_batched(arena: torch.Tensor, src_pages: Index,
 def pim_page_zero_scan(arena: torch.Tensor, pages: Index) -> torch.Tensor:
     """Per-page zero-compare on bits: bool (n,) on the arena's device,
     True where ``arena[:, pages[i]]`` is all-zero bits in every layer
-    (a bf16 ``-0.0`` is a nonzero bit).  Read-only; one launch."""
+    (a bf16 ``-0.0`` is a nonzero bit).  Read-only; one launch, which
+    writes the bools itself, and no wait for the card."""
     idx = _host_index(pages)
     if idx.size == 0:
         return torch.zeros((0,), dtype=torch.bool, device=arena.device)
     L, P = arena.shape[:2]
-    pages_d = upload_index(idx, P, "page", arena.device)
+    _check_rows(idx, P, "page")
     if arena.device.type == "cpu":
-        return ref.page_zero_scan(arena, pages_d)
+        return ref.page_zero_scan(arena, torch.from_numpy(idx))
     _check_arena(arena)
+    out = torch.empty((idx.size,), dtype=torch.bool, device=arena.device)
+    _launch_scan((arena,), idx, out.data_ptr(), None)
+    return out
+
+
+def pim_page_zero_scan_pair(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                            pages: Index) -> np.ndarray:
+    """The zero-compare of a (K, V) pair of one shape and dtype: bool
+    (n,) on the host, True where page ``pages[i]`` is all-zero bits in
+    every layer of both arenas.  One launch over the pair (grid z picks
+    the arena), which writes the flags into mapped pinned host memory,
+    then one wait for the card before they are read."""
+    if k_arena.shape != v_arena.shape or k_arena.dtype != v_arena.dtype \
+            or k_arena.device != v_arena.device:
+        raise ValueError("the pair's arenas differ in shape, dtype or "
+                         "device")
+    idx = _host_index(pages)
+    if idx.size == 0:
+        return np.zeros((0,), bool)
+    L, P = k_arena.shape[:2]
+    _check_rows(idx, P, "page")
+    if k_arena.device.type == "cpu":
+        return ref.page_zero_scan_pair(k_arena, v_arena,
+                                       torch.from_numpy(idx)).numpy()
+    _check_arena(k_arena)
+    _check_arena(v_arena)
+    with _HOST_FLAGS.lock:
+        flags = _HOST_FLAGS.get(idx.size)
+        stream = _launch_scan((k_arena, v_arena), idx, None,
+                              flags.ctypes.data)
+        # the kernel's writes to mapped memory are visible once it ends
+        _build.check(_build.load("ambit").am_stream_wait(stream),
+                     "page_zero_scan (wait)")
+        return flags[:idx.size].astype(bool)
+
+
+#: (device index, raw stream) -> the scan's device scratch: a counter of
+#: finished blocks and one word a page, zero between launches (each
+#: launch's last block zeroes what it used)
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+class _MappedFlags:
+    """The pair scan's host flags: pinned host memory mapped into the
+    card's address space, allocated at first use and grown on demand;
+    the lock keeps one scan at a time on it."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.ptr = None
+        self.flags = np.zeros((0,), np.uint8)
+
+    def get(self, n: int) -> np.ndarray:
+        if n > self.flags.size:
+            lib = _build.load("ambit")
+            if self.ptr is not None:
+                _build.check(lib.am_free_mapped(self.ptr), "page_zero_scan "
+                             "(free host flags)")
+                self.ptr, self.flags = None, np.zeros((0,), np.uint8)
+            cap = max(n, 2 * INLINE_ROWS)
+            ptr = ctypes.c_void_p()
+            _build.check(lib.am_alloc_mapped(cap, ctypes.byref(ptr)),
+                         "page_zero_scan (host flags)")
+            self.ptr = ptr.value
+            self.flags = np.ctypeslib.as_array(
+                (ctypes.c_ubyte * cap).from_address(self.ptr))
+        return self.flags
+
+
+_HOST_FLAGS = _MappedFlags()
+
+
+def _scratch(arena: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    key = (arena.get_device(), stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n + 1:
+        # zeroed once here; every launch leaves it zero
+        buf = torch.zeros((max(n, INLINE_ROWS) + 1,), dtype=torch.int32,
+                          device=arena.device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def _launch_scan(arenas, idx: np.ndarray, out_dev, out_host) -> int:
+    """One ``am_zero_scan`` launch over one arena or a pair of one shape
+    (pages checked by the caller), counted once.  Returns the stream."""
+    a0 = arenas[0]
+    L, P = a0.shape[:2]
     n = int(idx.size)
-    if n > _MAX_GRID or L > _MAX_GRID:
-        raise ValueError(f"{n} pages over {L} layers: at most {_MAX_GRID} "
-                         "each")
-    lib = _build.load("ambit")
-    flags = torch.zeros((n,), dtype=torch.int32, device=arena.device)
-    _build.check(lib.am_zero_scan(
-        arena.data_ptr(), pages_d.data_ptr(), P, n, L, _row_bytes(arena, 2),
-        flags.data_ptr(), _stream(arena)), "page_zero_scan")
+    if n > _MAX_GRID:
+        raise ValueError(f"{n} pages: a scan takes at most {_MAX_GRID}")
+    dev_idx, host_idx = None, idx.ctypes.data
+    if n > INLINE_ROWS:
+        # freed after the launch; the allocator reuses it only for work
+        # queued behind the launch on the same stream
+        staged = upload(idx, a0.device)
+        dev_idx, host_idx = staged.data_ptr(), None
+    stream = _stream(a0)
+    _build.check(_build.load("ambit").am_zero_scan(
+        a0.data_ptr(), arenas[-1].data_ptr(), len(arenas), dev_idx, host_idx,
+        P, n, L, _row_bytes(a0, 2), _scratch(a0, stream, n).data_ptr(),
+        out_dev, out_host, stream), "page_zero_scan")
     count_launch("page_zero_scan")
-    return flags == 0
+    return stream

@@ -48,3 +48,10 @@ def page_zero_scan(arena: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     layer."""
     sel = bits(arena)[:, pages.long()]                  # (L, n, ...)
     return ~(sel != 0).transpose(0, 1).reshape(len(pages), -1).any(dim=1)
+
+
+def page_zero_scan_pair(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                        pages: torch.Tensor) -> torch.Tensor:
+    """Bool (n,): True where the page holds all-zero bits in every layer
+    of both arenas."""
+    return page_zero_scan(k_arena, pages) & page_zero_scan(v_arena, pages)

@@ -10,8 +10,8 @@
 // What they compute, on the raw bits of an (L, P, row) arena:
 //   AND/OR: arena[l, dst[i]] <- arena[l, src[i]] OP arena[l, dst[i]]
 //   NOT:    arena[l, dst[i]] <- ~arena[l, src[i]]
-//   scan:   flags[i] |= 1 where any bit of arena[l, pages[i]] is set, for
-//           any layer l (the wrapper zeroes the flags first)
+//   scan:   out[i] = 1 where no bit of arena[l, pages[i]] is set, for every
+//           layer l of every arena given (one arena, or a (K, V) pair)
 // The ops act on bits, never on values: a bf16 -0.0 (0x8000) is nonzero
 // to the scan, and NOT of a float is the bit complement.
 //
@@ -20,9 +20,12 @@
 // does one logic instruction a word; the scan only reads.  At the
 // serving path's shapes (granite-3-8b: 40 layers, a page row of 16 slots
 // x 8 KV heads x 128 dims in bf16 = 32 KiB a layer) an AND over 16 pages
-// moves 3 x 16 x 40 x 32 KiB = 63 MB, 19 us at 3.35 TB/s.
+// moves 3 x 16 x 40 x 32 KiB = 63 MB, 19 us at 3.35 TB/s.  The scan of a
+// pair over 16 pages reads 2 x 16 x 40 x 32 KiB = 42 MB, 12.5 us (a page
+// found nonzero needs no more than the word that shows it, but its blocks
+// run side by side with the others, so the kernel reads it all).
 //
-// Design: one thread per 16-byte word of a row (or per byte when a row
+// Design of the bitwise ops: one thread per 16-byte word of a row (or per byte when a row
 // is not a multiple of 16 bytes, or a base is not 16-byte aligned), a
 // grid over (word block, op, layer), so every thread does one load or
 // two and one store.  The arena is updated in place: untouched rows are
@@ -37,11 +40,25 @@
 // in one thread, so it needs no staging.  The op queue never forms a
 // batch with two ops on one destination.
 //
-// The scan's blocks each reduce their words with __syncthreads_or and
-// set the page's flag with one atomicOr where a bit was found, so a
-// page's flag is the OR over all its layers and word blocks.
+// The scan is one launch whatever it serves: grid z picks the arena (a
+// (K, V) pair in one launch, as rc_init_rows does), a page list of up to
+// kInlinePages pages travels in the launch's parameters, and the launch
+// writes its answer itself, so no launch zeroes flags before it and none
+// compares or ANDs after it.  Each block reads kThreads x kScanUnroll
+// words of one row (eight independent 16-byte loads a thread, all issued
+// before any is tested); a block that finds a set bit stores 1 into the
+// page's word of a device scratch (the same value from every block, so a
+// plain store).  The last block to finish (a
+// counter in the scratch) writes out[i] = no bit found, to device memory
+// (the single-arena call's bool tensor) and/or to mapped pinned host
+// memory (the pair's host flags, read after one stream wait), and zeroes
+// the scratch words it used: every launch finds its scratch zero.  The
+// host flags are written by the kernel into mapped memory rather than
+// copied back after it: the pair's answer then costs one launch and one
+// wait, with no copy queued behind the kernel.
 //
-// Each entry point returns cudaGetLastError() after its launch.
+// Each launching entry point returns cudaGetLastError() after its launch;
+// the others return their runtime call's error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,27 +120,72 @@ __global__ void bitwise_rows_kernel(const W* src,
     *d = combine<OP>(s, s);
 }
 
-// grid (word blocks, n, L): flags[i] |= any bit set in arena[l, pages[i]]
+constexpr int kThreads = 256;
+constexpr int kScanUnroll = 8;
+// page lists up to this long travel in a scan launch's parameters (the
+// wrapper's INLINE_ROWS); longer ones are uploaded
+constexpr int kInlinePages = 512;
+struct PageList {
+  int idx[kInlinePages];
+};
+
+// grid (segments x L, n, arenas): the block of segment s, layer l, page i
+// and arena z reads words [s * kThreads * kScanUnroll, ...) of row
+// (l, page i) of arena z (a whole 32 KiB row of the serving arena: eight
+// independent 16-byte loads a thread).  scratch[0] counts finished
+// blocks and scratch[1 + i] becomes 1 once page i is known to hold a set
+// bit.
 template <typename W>
-__global__ void zero_scan_kernel(const W* __restrict__ arena,
-                                 const int* __restrict__ pages,
-                                 long long rows, long long row_words,
-                                 int* __restrict__ flags) {
-  const long long w = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
+__global__ void zero_scan_kernel(const W* __restrict__ a0,
+                                 const W* __restrict__ a1,
+                                 const int* __restrict__ dev_pages,
+                                 const PageList pages, long long rows,
+                                 long long row_words, int segments, int n,
+                                 int* scratch, unsigned char* out_dev,
+                                 unsigned char* out_host) {
+  const int seg = blockIdx.x % segments;
+  const long long l = blockIdx.x / segments;
   const int i = blockIdx.y;
-  const long long l = blockIdx.z;
+  volatile int* found = scratch + 1;
+  const long long page = dev_pages ? dev_pages[i] : pages.idx[i];
+  const W* row = (blockIdx.z ? a1 : a0) + (l * rows + page) * row_words;
+  const long long k0 =
+      static_cast<long long>(seg) * kThreads * kScanUnroll + threadIdx.x;
+  W w[kScanUnroll];
+#pragma unroll
+  for (int u = 0; u < kScanUnroll; ++u) {
+    const long long k = k0 + u * kThreads;
+    w[u] = k < row_words ? row[k] : W{};
+  }
   int nz = 0;
-  if (w < row_words) nz = nonzero(arena[(l * rows + pages[i]) * row_words + w]);
-  if (__syncthreads_or(nz) && threadIdx.x == 0) atomicOr(&flags[i], 1);
+#pragma unroll
+  for (int u = 0; u < kScanUnroll; ++u) nz |= nonzero(w[u]);
+  __shared__ bool last;
+  nz = __syncthreads_or(nz);
+  if (threadIdx.x == 0) {
+    if (nz) {
+      found[i] = 1;
+      __threadfence();      // the flag lands before this block counts
+    }
+    const unsigned total = gridDim.x * gridDim.y * gridDim.z;
+    last = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u) == total - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const unsigned char zero = found[k] == 0;
+    if (out_dev) out_dev[k] = zero;
+    if (out_host) out_host[k] = zero;
+    found[k] = 0;
+  }
+  if (threadIdx.x == 0) scratch[0] = 0;
 }
 
 bool aligned16(const void* a, const void* b, long long row_bytes) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
            static_cast<uintptr_t>(row_bytes)) & 15) == 0;
 }
-
-constexpr int kThreads = 256;
 
 template <typename W, int OP>
 void launch_op(const void* src, const int* src_idx, long long src_rows,
@@ -182,23 +244,73 @@ extern "C" int am_bitwise_rows(const void* src, const int* src_idx,
                                    dst_rows, n, L, row_bytes, st);
 }
 
-// flags: n int32 words, zeroed by the caller; flags[i] becomes 1 where
-// page pages[i] holds a nonzero bit in any layer
-extern "C" int am_zero_scan(const void* arena, const int* pages,
+// The zero scan of the same pages of `arenas` (1 or 2) arenas of one
+// shape, in one launch (a1 is read only when arenas is 2).  Pages: dev_pages
+// on the device, or (dev_pages null) host_pages on the host, at most
+// kInlinePages of them, passed in the launch.  scratch: 1 + n int32 words
+// on the device, zero (every launch leaves them so).  out_dev: n bytes on
+// the device, or null; out_host: n bytes of mapped pinned host memory (see
+// am_alloc_mapped), or null; each gets 1 where the page holds no set bit.
+// n <= 65535.
+extern "C" int am_zero_scan(const void* a0, const void* a1, int arenas,
+                            const int* dev_pages, const int* host_pages,
                             long long rows, int n, int L, long long row_bytes,
-                            int* flags, void* stream) {
+                            int* scratch, unsigned char* out_dev,
+                            unsigned char* out_host, void* stream) {
   if (n <= 0 || L <= 0 || row_bytes <= 0) return 0;
+  if (arenas < 1 || arenas > 2 || n > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (arenas == 1) a1 = a0;
+  PageList pages;
+  if (dev_pages == nullptr) {
+    if (host_pages == nullptr || n > kInlinePages)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < n; ++i) pages.idx[i] = host_pages[i];
+  }
+  unsigned char* host_dev = nullptr;
+  if (out_host != nullptr) {
+    const cudaError_t e =
+        cudaHostGetDevicePointer(reinterpret_cast<void**>(&host_dev),
+                                 out_host, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = aligned16(arena, arena, row_bytes);
+  const bool vec = aligned16(a0, a1, row_bytes);
   const long long row_words = vec ? row_bytes / 16 : row_bytes;
-  dim3 grid(static_cast<unsigned>((row_words + kThreads - 1) / kThreads), n,
-            L);
+  const long long per_block = static_cast<long long>(kThreads) * kScanUnroll;
+  const long long segments = (row_words + per_block - 1) / per_block;
+  if (segments * L > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(segments * L), n, arenas);
   if (vec)
     zero_scan_kernel<uint4><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint4*>(arena), pages, rows, row_words, flags);
+        static_cast<const uint4*>(a0), static_cast<const uint4*>(a1),
+        dev_pages, pages, rows, row_words, static_cast<int>(segments), n,
+        scratch, out_dev, host_dev);
   else
     zero_scan_kernel<unsigned char><<<grid, kThreads, 0, st>>>(
-        static_cast<const unsigned char*>(arena), pages, rows, row_words,
-        flags);
+        static_cast<const unsigned char*>(a0),
+        static_cast<const unsigned char*>(a1), dev_pages, pages, rows,
+        row_words, static_cast<int>(segments), n, scratch, out_dev,
+        host_dev);
   return static_cast<int>(cudaGetLastError());
+}
+
+// `bytes` of pinned host memory mapped into the device's address space on
+// every device (the scan's host flags); *host gets its address.
+extern "C" int am_alloc_mapped(long long bytes, void** host) {
+  return static_cast<int>(cudaHostAlloc(
+      host, static_cast<size_t>(bytes),
+      cudaHostAllocMapped | cudaHostAllocPortable));
+}
+
+extern "C" int am_free_mapped(void* host) {
+  return static_cast<int>(cudaFreeHost(host));
+}
+
+// Wait for the work queued on `stream` (the scan's one wait before its
+// host flags are read).
+extern "C" int am_stream_wait(void* stream) {
+  return static_cast<int>(
+      cudaStreamSynchronize(static_cast<cudaStream_t>(stream)));
 }

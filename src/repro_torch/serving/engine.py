@@ -8,8 +8,9 @@ rounds) -> finish (pages zeroed with RowClone-Init and freed).
 
 Token choice: greedy rows (``temperature == 0``) take the first maximal
 logit; sampled rows take a D-RaNGe inverse-CDF draw at their own
-temperature, one uniform per row from the ``random_u32`` kernel keyed
-by the engine's seed stream (``rng_seed + rng_ctr``, the counter
+temperature, one uniform per row from the D-RaNGe generator kernel
+(one launch a draw, pad rows folded in it, counted as ``random_u32``)
+keyed by the engine's seed stream (``rng_seed + rng_ctr``, the counter
 advancing once per dispatch exactly where the JAX engine advances it,
 greedy dispatches included).  An all-greedy batch skips the draw.
 
@@ -1094,9 +1095,9 @@ def _select_tokens(logits: torch.Tensor, temps: np.ndarray, seed: Seed,
     if np.all(temps == 0.0):
         return greedy
     dev = logits.device
-    u = dr_ops.pim_random_uniform(seed, logits.shape[0], 1, dev)[:, 0]
-    if rowmap is not None:
-        u = u[rowmap]
+    # one launch: the (B, 1) draw, pad rows folded by ``rowmap``
+    u = dr_ops.pim_random_uniform(seed, logits.shape[0], 1, dev,
+                                  rowmap=rowmap).view(-1)
     t = upload(np.where(temps > 0.0, temps, np.float32(1.0)), dev)
     probs = torch.softmax(logits.float() / t[:, None], dim=-1)
     cum = torch.cumsum(probs, dim=-1)

@@ -16,15 +16,21 @@ operands' shapes).  A mixed key holds two steps, the chunk half and the
 decode half (:meth:`StepCache.get_many`), counted once: the token choice
 runs between them, outside any graph.
 
-On the card, with capture on, a miss runs the step's body once eagerly
-on a side stream (its result is the call's: one-time work such as
-kernel attributes, cached scratch and cuBLAS's workspace happens there,
-outside any capture), then captures the body into a ``torch.cuda.CUDAGraph``
-over static input buffers; every later call copies its inputs into those
-buffers (host arrays through pinned memory, device tensors device to
-device, neither waiting for the card) and replays the graph: one launch
-from the host for the whole step.  The engine's graphs share one memory
-pool (they run one after another on one stream).
+On the card, with capture on, a step is captured on its key's second
+use, since most buckets of serving traffic are met once and a capture
+costs about as much host time as the eager launches it records.  The
+first call runs the body eagerly on a side stream over the static input
+buffers and returns that result (one-time work such as kernel
+attributes, cached scratch and cuBLAS's side-stream workspace happens
+there, outside any capture); the second captures the body into a
+``torch.cuda.CUDAGraph`` over the same buffers, then replays it once and
+returns the replay's output; every later call replays.  Each call first
+copies its inputs into the static buffers (host arrays through pinned
+memory, device tensors device to device, neither waiting for the card);
+a replay is one launch from the host for the whole step.  The engine's
+graphs share one memory pool (they run one after another on one
+stream).  The retrace counters count a key's first use, as JAX compiles
+at first use, so they do not change with the capture policy.
 
 What a replay relies on, and how it is kept:
 
@@ -49,7 +55,9 @@ What a replay relies on, and how it is kept:
   then.
 
 ``pool_bytes`` is the growth of the allocator's reserved bytes across the
-captures: what the graphs' shared pool holds.
+captures: what the graphs' shared pool holds.  ``first_use_seconds`` and
+``capture_seconds`` are the host seconds of the eager first calls and of
+the captures.
 
 Without capture (on the CPU, where the port runs its plain versions, or
 ``PagedEngine(cuda_graphs=False)``) the cache keeps the same keys and
@@ -85,6 +93,8 @@ class Step:
             self.inputs = {name: torch.empty(shape, dtype=dtype,
                                              device=cache.device)
                            for name, (shape, dtype) in specs.items()}
+        #: calls so far: the first runs eagerly, the second captures
+        self.calls = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.output: Optional[torch.Tensor] = None
         self.launches: Dict[str, int] = {}
@@ -105,10 +115,13 @@ class Step:
         return self._body()
 
     def __call__(self) -> torch.Tensor:
+        self.calls += 1
         if not self.cache.capture:
             return self.body(**self.inputs)
         if self.graph is None:
-            return self._capture()
+            if self.calls == 1:
+                return self._first_use()
+            self._capture()
         ptrs = self.cache.arena_ptrs()
         if ptrs != self.arena_ptrs:
             raise RuntimeError(
@@ -119,8 +132,9 @@ class Step:
             count_launch(name, n)
         return self.output
 
-    def _capture(self) -> torch.Tensor:
-        """Warm up eagerly (this call's result), then capture."""
+    def _first_use(self) -> torch.Tensor:
+        """Run the body eagerly on the side stream (the warm-up of the
+        capture that a second use makes); its result is this call's."""
         cache = self.cache
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(cache.device)
@@ -128,9 +142,21 @@ class Step:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             out = self.body(**self.inputs)
-        # later side-stream work (the next warm-up) waits for main again,
-        # so the blocks of ``out`` are not reused under main's reads
+        # later side-stream work (the next first use or capture) waits
+        # for main again, so the blocks of ``out`` are not reused under
+        # main's reads
         main.wait_stream(side)
+        cache.first_use_seconds += time.perf_counter() - t0
+        return out
+
+    def _capture(self) -> None:
+        """Capture the body over the static buffers; nothing runs on the
+        card until the first replay."""
+        cache = self.cache
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(cache.device)
+        side = cache.side_stream()
+        side.wait_stream(main)
         before = dict(LAUNCHES)
         reserved = torch.cuda.memory_reserved(cache.device)
         graph = torch.cuda.CUDAGraph()
@@ -155,7 +181,6 @@ class Step:
         self.arena_ptrs = cache.arena_ptrs()
         self.graph = graph
         cache.capture_seconds += time.perf_counter() - t0
-        return out
 
 
 class StepCache:
@@ -172,7 +197,8 @@ class StepCache:
         self._steps: Dict[tuple, Step] = {}
         self._pool = None
         self._side: Optional[torch.cuda.Stream] = None
-        #: host seconds of the misses' warm-ups and captures
+        #: host seconds of the eager first calls and of the captures
+        self.first_use_seconds = 0.0
         self.capture_seconds = 0.0
         #: reserved bytes the captures added (the graphs' pool)
         self.pool_bytes = 0
@@ -215,3 +241,13 @@ class StepCache:
         """Steps whose graph exists."""
         return sum(s.graph is not None for steps in self._steps.values()
                    for s in steps)
+
+    @property
+    def due(self) -> int:
+        """Steps whose graph the policy requires: those of every key
+        whose steps were each called at least twice (none without
+        capture)."""
+        if not self.capture:
+            return 0
+        return sum(len(steps) for steps in self._steps.values()
+                   if min(s.calls for s in steps) >= 2)

@@ -425,22 +425,22 @@ class PagedKVCache:
         self.zero_scan = True
 
     def scan_zero_pages(self, pages) -> np.ndarray:
-        """Batched zero-compare over ``pages``: one read-only launch per
-        arena (k, v) whatever the batch, after the pending mutations
-        land.  Returns bool (n,) on the host, True where the page holds
-        all-zero bits in both arenas; reading it waits for the card."""
+        """Batched zero-compare over ``pages``: one read-only launch over
+        the (k, v) pair whatever the batch, after the pending mutations
+        land, counted as the JAX cache counts it (one launch per arena).
+        Returns bool (n,) on the host, True where the page holds
+        all-zero bits in both arenas; reading it waits once for the
+        card."""
         idx = np.asarray(list(pages), np.int32)
         if idx.size == 0:
             return np.zeros((0,), bool)
         self.flush_pending()
-        flags = None
-        for buf in self.lib.buffers:
-            z = amb_ops.pim_page_zero_scan(buf, idx)
-            flags = z if flags is None else (flags & z)
+        k, v = self.lib.buffers
+        flags = amb_ops.pim_page_zero_scan_pair(k, v, idx)
         self.queue.count_external("page_zero_scan", len(self.lib.buffers))
         if self.trace is not None:
             self.trace.record_zero_scan(idx)
-        return flags.cpu().numpy()
+        return flags
 
     # ------------------------- sequence API ---------------------------- #
 

@@ -29,7 +29,8 @@ bodies, so these run with ``--noconftest`` where JAX is not installed):
   arrivals, sampled rows) on dense, SSM and hybrid layouts: every token
   choice's logits with graphs on are bit-equal to those with graphs
   off, and so are the streams, the launch deltas and the kernel launch
-  counts; every miss captured its graphs (two for a mixed key);
+  counts; every key met twice captured its graphs (two for a mixed
+  key), and no key met once did;
 * a replayed chunk half reads the arena as mutated after its capture;
 * the profiler's count of each kernel the card ran in a replayed mixed
   round equals the launches the round counted (its two replays'
@@ -275,8 +276,8 @@ def _card_requests(cfg):
 
 def _card_chunked_run(cfg, params, cuda, graphs, *, profile_mixed=False):
     """Serve :func:`_card_requests` step by step.  With
-    ``profile_mixed``, profile the first mixed round whose key was
-    already captured and return the kernels it ran and counted."""
+    ``profile_mixed``, profile the first mixed round that replays graphs
+    captured before it and return the kernels it ran and counted."""
     eng = Recording(cfg, params, device=cuda, cuda_graphs=graphs,
                     **CHUNKED)
     first, late = _card_requests(cfg)
@@ -290,7 +291,8 @@ def _card_chunked_run(cfg, params, cuda, graphs, *, profile_mixed=False):
                   if eng.prefill_backlog_tokens() == 0 else 1)
         before = q.snapshot()
         misses = eng.stats["mixed_jit_traces"]
-        watch = profile_mixed and profiled is None and misses > 0
+        graphs = eng._steps.captured
+        watch = profile_mixed and profiled is None and graphs > 0
         if watch:
             from torch.profiler import ProfilerActivity, profile
 
@@ -302,8 +304,10 @@ def _card_chunked_run(cfg, params, cuda, graphs, *, profile_mixed=False):
         else:
             results.update(eng.run(max_rounds=rounds))
         deltas.append(q.delta(before))
+        # a replay: no new key and no capture in the round
         if (watch and deltas[-1].get("fused_mixed")
-                and eng.stats["mixed_jit_traces"] == misses):
+                and eng.stats["mixed_jit_traces"] == misses
+                and eng._steps.captured == graphs):
             from torch.autograd import DeviceType
 
             ran = ran_on_device(e for e in prof.key_averages()
@@ -326,9 +330,8 @@ def test_cuda_replayed_chunk_and_mixed_logits_equal_uncaptured(cuda, fam):
     on = _card_chunked_run(cfg, params, cuda, graphs=True)
     st = on[0].stats
     assert st["mixed_jit_traces"] >= 1 and st["prefill_jit_traces"] >= 1
-    assert on[0]._steps.captured == (
-        st["jit_traces"] + st["block_jit_traces"]
-        + st["prefill_jit_traces"] + 2 * st["mixed_jit_traces"])
+    # captured on a key's second use: two graphs for a mixed key
+    assert on[0]._steps.captured == on[0]._steps.due > 0
     assert off[0]._steps.captured == 0
     for key in TRACE_KEYS:
         assert on[0].stats[key] == off[0].stats[key], key
@@ -348,15 +351,14 @@ def test_cuda_replayed_chunk_half_reads_the_mutated_arena(cuda):
     eng = E.PagedEngine(cfg, params, device=cuda, **CHUNKED)
     for i, p in enumerate(_prompts(cfg.vocab_size, (30, 30), 4)):
         eng.submit(E.Request(i, p, max_new_tokens=4, temperature=0.0))
-    # chunk steps until one replays: a chunk's prefix is committed KV
+    # chunk steps until one is captured (its key's second use): a
+    # chunk's prefix is committed KV
     step = None
     while step is None:
-        misses = eng.stats["prefill_jit_traces"]
         eng.run(max_rounds=1)
-        if eng.stats["prefill_jit_traces"] == misses:
-            step = next(s for k, (s,) in eng._steps._steps.items()
-                        if k[:2] == ("prefill_jit_traces", "chunk")
-                        and s.graph is not None)
+        step = next((s for k, (s,) in eng._steps._steps.items()
+                     if k[:2] == ("prefill_jit_traces", "chunk")
+                     and s.graph is not None), None)
     # the chunk's own slots lie past its prefix: a replay on the same
     # inputs rewrites them with the same values and reads the same
     before = step().clone()
