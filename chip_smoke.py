@@ -18,7 +18,11 @@ exits nonzero:
    whose destination is another op's source and a page holding only a
    ``-0.0``; ``state_scatter`` on mamba2-1.3b's 2 MiB SSD-state rows and
    its conv rows, bit for bit, beside the state arena's row copy and
-   init; the attention kernels at jamba's 64/8 and llama4-scout's 40/8
+   init and the state fork's copy of the conv/SSD pair in one launch;
+   ``page_copy_batched`` on an overlapping batch (the cluster route) and
+   a disjoint one (the direct route), each on one arena and the (K, V)
+   pair, bit for bit before it is timed, with its bare launch and
+   ``index_select`` + ``index_copy_`` (two calls); the attention kernels at jamba's 64/8 and llama4-scout's 40/8
    heads, with ptxas's registers and spills for each attention kernel
    and the count of tensor-core instructions in the built libraries'
    SASS (flash attention's must hold HMMA); the RowClone API's ``copy_2d`` and ``init_2d`` on
@@ -28,8 +32,8 @@ exits nonzero:
    destination included; the (K, V) pair forms of ``kv_scatter`` and
    ``page_init_batched`` bit for bit, timed against the two single
    calls they replace and two library calls, and the bare launches
-   (``kernel_only_ms``) of ``kv_scatter``, ``page_init_batched`` and
-   ``page_init``;
+   (``kernel_only_ms``) of ``kv_scatter``, ``page_copy_batched``,
+   ``page_init_batched``, ``page_copy`` and ``page_init``;
 13. RowClone against memcpy and calloc (run right after phase 2):
     ``pim_copy`` against ``Tensor.clone()`` and ``pim_init(..., 0)``
     against ``torch.zeros`` from 8 KiB to 1 GiB with each time's share
@@ -42,7 +46,9 @@ exits nonzero:
 3. serving: granite-3-8b at full width and depth (40 layers, random
    bf16 weights from a seeded generator) answers 8 greedy requests
    through ``repro_torch.launch.serve.serve``, with a CoW fork of a live
-   sequence and its free between rounds; the kernel launch counts are
+   sequence (its copy flush one launch of the page-copy kernel, counted
+   by the queue as two, one per arena, as the JAX package counts it)
+   and its free between rounds; the kernel launch counts are
    zeroed just before and read just after, and every kernel of the path
    must have launched;
 4. chunked serving: the same model and prompts under chunked prefill
@@ -78,7 +84,8 @@ exits nonzero:
 10. SSM serving (after phase 8; granite's weights are freed first and
     drawn again for phases 5 and 6, so every step time is taken before
     the profiler): mamba2-1.3b at full width and depth on a 256-row
-    paged state arena, monolithic greedy with a fork and its free, one
+    paged state arena, monolithic greedy with a fork (its KV tail and
+    state row copies one launch each) and its free, one
     eager round whose state write goes through the op queue, then
     chunked with mixed rounds, 8-round blocks and sampled odd ids;
 11. hybrid and MoE serving: jamba-1.5-large cut to one 4-layer period
@@ -130,6 +137,7 @@ import shutil
 import subprocess
 import sys
 import time
+from array import array
 from pathlib import Path
 
 import numpy as np
@@ -206,6 +214,95 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------- #
 
 
+def bare_copy(arenas, lead, src, dst, stream):
+    """The arguments of one bare ``rc_copy_pages`` launch (the op list in
+    its parameters, as the wrapper passes it) of ops free of duplicate
+    destinations on one arena or a pair (``lead`` 2: ``(L, P, ...)``; 1:
+    ``(P, ...)``), on the route the wrapper picks, and that route."""
+    from repro_torch.kernels.rowclone import ops as rc_ops
+
+    desc, rows = [], []
+    for a in arenas:
+        L, P = (a.shape[0], a.shape[1]) if lead == 2 else (1, a.shape[0])
+        rows.append(rc_ops._row_bytes(a, lead))
+        desc += [a.data_ptr(), a.data_ptr(), P, P, rows[-1], L]
+    route = "direct"
+    if rc_ops._reads_a_write(src, dst):
+        route = rc_ops.copy_route(rows, len(src), True)
+    if route == "staged":
+        raise AssertionError("a bare launch is one launch: the batch takes "
+                             "the staged route")
+    return (array("q", desc).tobytes(), len(arenas), None,
+            array("i", src + dst).tobytes(), len(src), 0,
+            1 if route == "cluster" else 0, stream), route
+
+
+def page_copy_rows(dev, lib, arena, v_arena, work, work_v, overlapping,
+                   disjoint) -> dict:
+    """Phase 2's row 2, ``page_copy_batched`` at granite-3-8b's shape (40
+    layers of 32 KiB pages): an overlapping batch (a destination that is
+    another op's source: the cluster route) and a disjoint one (the
+    direct route), each on one arena and on the (K, V) pair, bit for bit
+    against the plain version before it is timed.  Timed: the wrapper
+    (``ms``: the overlapping batch on one arena, as before), the bare
+    launch (``kernel_only_ms``), the plain version, and the two calls
+    ``index_select`` + ``index_copy_`` that compute the same function
+    (``two_calls_library_ms``; no single call does); the pair as one
+    launch against the two one-arena calls a flush made before."""
+    from repro_torch.kernels.rowclone import ops as rc_ops
+    from repro_torch.kernels.rowclone import ref as rc_ref
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for what, (src, dst) in (("overlapping", overlapping),
+                             ("disjoint", disjoint)):
+        s_t, d_t = torch.tensor(src), torch.tensor(dst)
+        want = rc_ref.page_copy_batched(arena.clone(), s_t, d_t)
+        got = rc_ops.pim_page_copy_batched(arena.clone(), src, dst)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"page_copy_batched ({what}) disagrees "
+                                 "with its plain version")
+        del got
+        want_v = rc_ref.page_copy_batched(v_arena.clone(), s_t, d_t)
+        got, got_v = arena.clone(), v_arena.clone()
+        rc_ops.pim_page_copy_batched_pair(got, got_v, src, dst)
+        torch.cuda.synchronize()
+        if not (same_bits(got, want) and same_bits(got_v, want_v)):
+            raise AssertionError(f"page_copy_batched (pair, {what}) "
+                                 "disagrees with its plain version")
+        del want, got, want_v, got_v
+    L, page_bytes = arena.shape[0], rc_ops._row_bytes(arena, 2)
+    row = {"max_abs_err": 0.0}
+    for what, (src, dst) in (("", overlapping), ("disjoint_", disjoint)):
+        s_t = torch.tensor(src, device=dev)
+        d_t = torch.tensor(dst, device=dev)
+        nb, by = bound(2 * len(src) * L * page_bytes, 0)
+        bare, route = bare_copy((work,), 2, src, dst, stream)
+        bare_pair, _ = bare_copy((work, work_v), 2, src, dst, stream)
+        row.update({
+            f"{what}route": route,
+            f"{what}ms": time_ms(
+                lambda: rc_ops.pim_page_copy_batched(work, src, dst)),
+            f"{what}kernel_only_ms": time_ms(
+                lambda: lib.rc_copy_pages(*bare)),
+            f"{what}plain_ms": time_ms(
+                lambda: rc_ref.page_copy_batched(work, s_t, d_t)),
+            f"{what}bound_ms": nb, f"{what}bound_by": by,
+            f"{what}two_calls_library_ms": time_ms(
+                lambda: work.index_copy_(1, d_t, work.index_select(1, s_t))),
+            f"{what}pair_ms": time_ms(
+                lambda: rc_ops.pim_page_copy_batched_pair(work, work_v, src,
+                                                          dst)),
+            f"{what}pair_kernel_only_ms": time_ms(
+                lambda: lib.rc_copy_pages(*bare_pair)),
+            f"{what}pair_bound_ms": 2 * nb,
+            f"{what}pair_two_calls_ms": time_ms(lambda: (
+                rc_ops.pim_page_copy_batched(work, src, dst),
+                rc_ops.pim_page_copy_batched(work_v, src, dst)))})
+    row["library_ms"] = None
+    return row
+
+
 def parity(dev) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.drange import ops as dr_ops
@@ -264,8 +361,8 @@ def parity(dev) -> dict:
     flat_idx = (pages.long() * S + slots.long())
     nb, by = bound(2 * L * len(set(zip(pages_l, slots_l))) * E * 2
                    + 2 * B * 4, 0)
-    rc_lib = _build.load("rowclone")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rc_lib = _build.load("rowclone")
     # the bare launches: one arena, and the (K, V) pair
     bare = (work.data_ptr(), work.data_ptr(), new.data_ptr(), new.data_ptr(),
             1, pages.data_ptr(), slots.data_ptr(), L, B, P, S, E * 2, stream)
@@ -302,22 +399,10 @@ def parity(dev) -> dict:
     # -- page copy / init: 16 ops, one op's dst is another op's src
     src = list(range(100, 116))
     dst = list(range(200, 215)) + [100]   # op 15 writes what op 0 reads
-    want = rc_ref.page_copy_batched(arena.clone(), torch.tensor(src),
-                                    torch.tensor(dst))
-    got = rc_ops.pim_page_copy_batched(arena.clone(), src, dst)
-    torch.cuda.synchronize()
-    if not same_bits(got, want):
-        raise AssertionError("page_copy_batched disagrees with its plain "
-                             "version")
     page_bytes = S * E * 2
-    nb, by = bound(len(src) * L * page_bytes * 2, 0)
-    rows["page_copy_batched"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: rc_ops.pim_page_copy_batched(work, src, dst)),
-        plain_ms=time_ms(lambda: rc_ref.page_copy_batched(
-            work, torch.tensor(src, device=dev),
-            torch.tensor(dst, device=dev))),
-        bound_ms=nb, bound_by=by, library_ms=None)
+    rows["page_copy_batched"] = page_copy_rows(
+        dev, rc_lib, arena, v_arena, work, work_v, (src, dst),
+        (list(range(300, 316)), list(range(400, 416))))
     init_pages = dst
     want = rc_ref.page_init_batched(arena.clone(),
                                     torch.tensor(init_pages), 0.0)
@@ -816,18 +901,76 @@ def ssm_parity(dev) -> dict:
                 src, dst = list(range(n)), list(range(R - n, R))
                 nb_c, _ = bound(2 * L * n * row_bytes, 0)
                 nb_i, _ = bound(L * n * row_bytes, 0)
+                bare, _ = bare_copy((flat,), 2, src, dst, stream)
                 rows_out[f"state_copy_{n}_rows"] = dict(
                     ms=time_ms(lambda: ss_ops.pim_state_copy(work, src,
                                                              dst)),
+                    kernel_only_ms=time_ms(
+                        lambda: _build.load("rowclone").rc_copy_pages(
+                            *bare)),
                     bound_ms=nb_c, bound_by="bytes")
                 rows_out[f"state_init_{n}_rows"] = dict(
                     ms=time_ms(lambda: ss_ops.pim_state_init(work, dst,
                                                              0.0)),
                     bound_ms=nb_i, bound_by="bytes")
         del work, flat, arena, new
+    rows_out.update(state_pair_rows(dev, gen, L, R))
     row = rows_out.pop("ssm")
     row["conv"] = rows_out.pop("conv")
     return {"state_scatter": row, "state_rows": rows_out}
+
+
+def state_pair_rows(dev, gen, L, R) -> dict:
+    """The state fork's copy as the flush runs it: the conv (rows of 3 x
+    4352 bf16, 26 KB) and SSD (64 x 64 x 128 f32, 2 MiB) arenas of
+    mamba2-1.3b, ``L`` layers of ``R`` rows, in one launch of
+    ``page_copy_batched``.  Bit for bit against the plain version on 1
+    and 8 disjoint rows (forks; the direct route) and a chain of 8 (the
+    staged route: two 2 MiB rows overflow a cluster) before it is timed:
+    the wrapper, the bare launch, and the two one-arena calls a flush
+    made before."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rowclone import ref as rc_ref
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+
+    conv = torch.randn((L, 1, R, 3, 4352), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    ssm = torch.randn((L, 1, R, 64, 64, 128), generator=gen, device=dev,
+                      dtype=torch.float32)
+    lib = _build.load("rowclone")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    row_bytes = (3 * 4352 * 2, 64 * 64 * 128 * 4)
+    cases = {1: ([0], [R - 1]), 8: (list(range(8)), list(range(R - 8, R))),
+             "chain": (list(range(8)), list(range(1, 9)))}
+    for n, (src, dst) in cases.items():
+        want = [rc_ref.page_copy_batched(a.clone().view(L, R, -1),
+                                         torch.tensor(src), torch.tensor(dst))
+                for a in (conv, ssm)]
+        got = [conv.clone(), ssm.clone()]
+        ss_ops.pim_state_copy_pair(*got, src, dst)
+        torch.cuda.synchronize()
+        if not all(same_bits(g.view(L, R, -1), w)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"page_copy_batched (state pair, {n}) "
+                                 "disagrees with its plain version")
+        del want, got
+    out = {}
+    flat = (conv.view(L, R, -1), ssm.view(L, R, -1))
+    for n in (1, 8):
+        src, dst = cases[n]
+        bare, route = bare_copy(flat, 2, src, dst, stream)
+        out[f"state_copy_pair_{n}_rows"] = dict(
+            route=route,
+            ms=time_ms(lambda: ss_ops.pim_state_copy_pair(conv, ssm, src,
+                                                          dst)),
+            kernel_only_ms=time_ms(lambda: lib.rc_copy_pages(*bare)),
+            two_calls_ms=time_ms(lambda: (
+                ss_ops.pim_state_copy(conv, src, dst),
+                ss_ops.pim_state_copy(ssm, src, dst))),
+            bound_ms=bound(2 * L * n * sum(row_bytes), 0)[0],
+            bound_by="bytes")
+    del conv, ssm, flat
+    return out
 
 
 def _tool(name: str):
@@ -1047,11 +1190,27 @@ def rowclone_api_parity(dev, shape=(40, 1024, 16, 8, 128)) -> dict:
     src_t = torch.tensor(src, device=dev)
     dst_t = torch.tensor(dst, device=dev)
     nb, by = bound(2 * len(src) * page_bytes, 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc_lib = _build.load("rowclone")
+    bare, _ = bare_copy((work,), 1, src, dst, stream)
+    # the overlapping batch as the kernel gets it: the duplicate dropped
+    keep = rc_ref.last_op_per_dst(staged[1])
+    o_src = [staged[0][i] for i in keep]
+    o_dst = [staged[1][i] for i in keep]
+    bare_o, route_o = bare_copy((work,), 1, o_src, o_dst, stream)
     rows["page_copy"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: rc_ops.pim_page_copy(work, src, dst)),
+        kernel_only_ms=time_ms(lambda: rc_lib.rc_copy_pages(*bare)),
         plain_ms=time_ms(lambda: rc_ref.page_copy(work, src_t, dst_t)),
-        bound_ms=nb, bound_by=by, library_ms=None)
+        bound_ms=nb, bound_by=by, library_ms=None,
+        two_calls_library_ms=time_ms(
+            lambda: work.index_copy_(0, dst_t, work.index_select(0, src_t))),
+        overlapping_route=route_o,
+        overlapping_ms=time_ms(
+            lambda: rc_ops.pim_page_copy(work, *staged)),
+        overlapping_kernel_only_ms=time_ms(
+            lambda: rc_lib.rc_copy_pages(*bare_o)))
     for pages, value in ((dst, 0.1), (staged[1], 0.0)):
         want = rc_ref.page_init(layer.clone(), torch.tensor(pages,
                                                             device=dev),
@@ -1065,9 +1224,7 @@ def rowclone_api_parity(dev, shape=(40, 1024, 16, 8, 128)) -> dict:
     nb, by = bound(len(dst) * page_bytes, 0)
     dst_host = np.asarray(dst, np.int32)
     bare = (work.data_ptr(), work.data_ptr(), 1, None, dst_host.ctypes.data,
-            layer.shape[0], len(dst), 1, page_bytes, 0,
-            torch.cuda.current_stream(dev).cuda_stream)
-    rc_lib = _build.load("rowclone")
+            layer.shape[0], len(dst), 1, page_bytes, 0, stream)
     rows["page_init"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: rc_ops.pim_page_init(work, dst, 0.0)),
@@ -1360,6 +1517,33 @@ def check_streams(cfg, results, n, eos=None, new_tokens=32):
                                  "vocabulary")
 
 
+def counted_fork(engine, rid) -> dict:
+    """Fork ``rid`` into sequence 1000 (its flush runs inside ``fork``)
+    and return the fork's copy launches (``page_copy_batched`` in
+    :data:`LAUNCHES`) and the queue's deltas by kind."""
+    from repro_torch.kernels import LAUNCHES
+
+    q = engine.cache.queue
+    before, launches = q.snapshot(), LAUNCHES["page_copy_batched"]
+    engine.cache.fork(rid, 1000)
+    return {"from": rid,
+            "copy_launches": LAUNCHES["page_copy_batched"] - launches,
+            "launches_by_kind": q.delta(before)}
+
+
+def check_fork(forked, copies, what) -> None:
+    """Each copy kind a fork flushes (the KV tail's ``page_copy``, the
+    state row's ``state_copy``) is one launch of the page-copy kernel
+    over its arena pair, while the queue counts ``copies`` (the JAX
+    package's count: one per arena)."""
+    got = {k: forked["launches_by_kind"].get(k, 0) for k in copies}
+    if forked["copy_launches"] != len(copies) or got != copies:
+        raise AssertionError(f"{what}: a fork's copy flush made "
+                             f"{forked['copy_launches']} launches, the "
+                             f"queue counted {got} (want {len(copies)} "
+                             f"and {copies})")
+
+
 def serving(dev, cfg, params, init_s) -> dict:
     """Phase 3: 8 greedy requests, monolithic prefill, one round a step,
     a CoW fork and its free between rounds."""
@@ -1380,8 +1564,7 @@ def serving(dev, cfg, params, init_s) -> dict:
             for rid in sorted(engine.active):
                 seq = engine.cache.seqs[rid]
                 if seq.length % engine.cache.page_size:
-                    engine.cache.fork(rid, 1000)
-                    forked["from"] = rid
+                    forked.update(counted_fork(engine, rid))
                     break
         elif i == 2 and forked:
             engine.cache.free(1000)
@@ -1397,6 +1580,7 @@ def serving(dev, cfg, params, init_s) -> dict:
         raise AssertionError(f"kernels not launched on the path: {missing}")
     if not forked:
         raise AssertionError("no live sequence with a partial tail to fork")
+    check_fork(forked, {"page_copy": 2}, "serve")
     if engine.cache.pages_in_use != 0:
         raise AssertionError(f"{engine.cache.pages_in_use} pages leaked")
     results = out["results"]
@@ -1417,7 +1601,7 @@ def serving(dev, cfg, params, init_s) -> dict:
           "weight_stream_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
           "launches_by_kind": _nonzero(engine.cache.queue.launches_by_kind),
           "kernel_launches": counts,
-          "forked_from": forked["from"],
+          "forked_from": forked["from"], "fork_flush": forked,
           "pages_in_use": engine.cache.pages_in_use,
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           "streams_head": {k: v[:8] for k, v in sorted(results.items())}})
@@ -2478,8 +2662,7 @@ def serving_ssm(dev) -> dict:
         if i == 1:
             for rid in sorted(engine.active):
                 if engine.cache.seqs[rid].length % engine.cache.page_size:
-                    engine.cache.fork(rid, 1000)
-                    forked["from"] = rid
+                    forked.update(counted_fork(engine, rid))
                     break
         elif i == 2 and forked:
             engine.cache.free(1000)
@@ -2496,6 +2679,9 @@ def serving_ssm(dev) -> dict:
     if not forked or not by_kind.get("state_copy") \
             or not by_kind.get("state_init"):
         raise AssertionError(f"serve_ssm (a): no state fork/free {by_kind}")
+    # the pure SSM cache keeps a phantom KV arena pair, as the JAX
+    # package does: its tail page is copied too
+    check_fork(forked, {"page_copy": 2, "state_copy": 2}, "serve_ssm (a)")
     attn = {k: counts[k] for k in ("kv_scatter", "paged_attention",
                                    "flash_attention",
                                    "flash_attention_prefix")}
@@ -2514,7 +2700,7 @@ def serving_ssm(dev) -> dict:
             "decode_round_bound_ms": bound_ms,
             "tokens": out["tokens"], "seconds": out["seconds"],
             "tokens_per_s": out["tokens"] / out["seconds"],
-            "forked_from": forked["from"],
+            "forked_from": forked["from"], "fork_flush": forked,
             "launches_by_kind": _nonzero(by_kind),
             "kernel_launches": _nonzero(counts), **_graph_stats(engine),
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}

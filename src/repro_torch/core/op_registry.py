@@ -23,8 +23,9 @@ no DDR3 sequence: the model face accounts it as a CPU write).
 
 The torch-face flush executors below cover the built-in kinds:
 
-* ``page_copy`` — RowClone copy (CoW forks), one batched launch per
-  arena for the whole pending batch;
+* ``page_copy`` — RowClone copy (CoW forks), one batched launch for
+  the whole pending batch over an arena pair (else one per arena),
+  accounted per arena;
 * ``page_init`` — RowClone-Init (init-on-free), one launch per arena per
   distinct fill value;
 * ``page_and`` / ``page_or`` / ``page_not`` — Ambit bulk bitwise ops
@@ -205,10 +206,16 @@ def _flush_ssm_state_write(q, arenas, ops: List[StateWriteBatch]):
 
 
 def _flush_page_copy(q, arenas, ops):
+    """One launch for an arena pair (the (K, V) pages of a CoW fork),
+    else one per arena; accounted as ``len(arenas)`` launches, as the
+    JAX package counts them."""
     src = [s for s, _ in ops]
     dst = [d for _, d in ops]
-    for a in arenas:
-        rc_ops.pim_page_copy_batched(a, src, dst)
+    if len(arenas) == 2:
+        rc_ops.pim_page_copy_batched_pair(arenas[0], arenas[1], src, dst)
+    else:
+        for a in arenas:
+            rc_ops.pim_page_copy_batched(a, src, dst)
     q._count_launch("page_copy", len(arenas))
     return arenas
 

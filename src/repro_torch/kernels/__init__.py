@@ -54,8 +54,8 @@ def count_launch(name: str, n: int = 1) -> None:
 #: the name a profiler gives it; names that share a kernel share it
 DEVICE_KERNEL = {
     "kv_scatter": "kv_scatter_kernel",
-    "page_copy_batched": "copy_rows_kernel",
-    "page_copy": "copy_rows_kernel",
+    "page_copy_batched": "copy_pages_(cluster_)?kernel",
+    "page_copy": "copy_pages_(cluster_)?kernel",
     "page_init_batched": "init_rows_kernel",
     "page_init": "init_rows_kernel",
     "paged_attention": "paged_split_kernel",

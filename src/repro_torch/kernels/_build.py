@@ -47,7 +47,8 @@ SIGNATURES = {
     "rowclone": {
         "rc_kv_scatter": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _L, _I, _L,
                           _P],
-        "rc_copy_rows": [_P, _P, _L, _P, _P, _L, _I, _I, _L, _P],
+        "rc_copy_pages": [_P, _I, _P, _P, _I, _I, _I, _P],
+        "rc_copy_cluster_chunks": [],
         "rc_init_rows": [_P, _P, _I, _P, _P, _L, _I, _I, _L, _U, _P],
         "rc_copy_flat": [_P, _P, _L, _P],
         "rc_fill_flat": [_P, _L, _U, _P],

@@ -4,7 +4,9 @@
 // src/repro/kernels/rowclone/rowclone.py:
 //   rc_kv_scatter  <- kv_scatter         (rowclone.py:215; one arena, or
 //                     a (K, V) arena pair in one launch)
-//   rc_copy_rows   <- page_copy_batched  (rowclone.py:140)
+//   rc_copy_pages  <- page_copy_batched  (rowclone.py:140; one arena,
+//                     or one op list over a pair: (K, V), or the
+//                     conv and SSD state arenas, rows of unequal size)
 //                     and page_copy      (rowclone.py:105, one layer)
 //   rc_init_rows   <- page_init_batched  (rowclone.py:178; one arena, or
 //                     one page list in a (K, V) arena pair)
@@ -22,9 +24,10 @@
 // calloc-vs-RowClone-Init point).
 //
 // Design: every kernel treats a row as raw bytes, so one kernel serves
-// every dtype.  One block per (row, layer); its threads stream the row
-// with 16-byte loads and stores when the row length and both base
-// pointers allow it (the arena rows are multiples of 16 bytes), else
+// every dtype.  The scatter and the init run one block per (row,
+// layer) (the page copy: see below); its threads stream the row with
+// 16-byte loads and stores when the row length and both base pointers
+// allow it (the arena rows are multiples of 16 bytes), else
 // byte by byte.  The arena is updated in place: untouched rows are
 // never read or written.  Fills write a 32-bit pattern word that
 // repeats the value's bytes (1-, 2- and 4-byte dtypes); byte k of a
@@ -71,14 +74,29 @@
 // each), and one init launch covers the K and V pages of a freed page
 // list (grid z = arena), where two launches did before.
 //
-// Ordering: GPU blocks run in no order.  A batched copy whose
-// destination set meets its source set must read every source before
-// any write (the Pallas grid ran in order and the reference gathers
-// first), so the wrapper stages such a batch through a scratch buffer
-// in two launches of rc_copy_rows (gather, then scatter).  Duplicate
-// (page, slot) pairs in one scatter are allowed only with identical
-// payloads (batch pad rows); the op queue removes real duplicates on
-// the host before it launches.
+// The page copy (rows 2 and 13) serves the copy-on-write fork of a
+// shared tail page (a K and a V row of 32 KiB in each of 40 layers) and
+// the SSM state fork (a conv row of 26 KB and an SSD row of 2 MiB in
+// each of 48 layers).  It is one launch per flush over both arenas,
+// each with its own base, rows, row bytes and layers (grid z = arena on
+// the cluster route, the arenas' chunks side by side on the direct
+// one), with up to kInlinePairs (src, dst) pairs in the launch's
+// parameters, so no upload precedes it.  Rows are cut into kChunk pieces, one block a
+// piece, so a 32 KiB page and a 2 MiB row alike fill the card.  GPU
+// blocks run in no order, and a batch whose destination is another op's
+// source must read every source before any write (the Pallas grid ran
+// in order; the reference gathers first).  Such a hazard stays inside
+// one layer of one arena, so the wrapper sends that batch down the
+// cluster route: one thread-block cluster per (layer, arena) stages the
+// layer's sources in its blocks' shared memory (TMA bulk loads), meets
+// at one cluster barrier, then writes: one read and one write of each
+// row, no scratch.  A layer's batch over the cluster's capacity
+// (rc_copy_cluster_chunks) is staged through a scratch buffer in two
+// direct launches (gather, then scatter) instead.  Of several ops with
+// one destination only the last reaches the kernel (the wrapper drops
+// the rest).  Duplicate (page, slot) pairs in one scatter are allowed
+// only with identical payloads (batch pad rows); the op queue removes
+// real duplicates on the host before it launches.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -86,21 +104,6 @@
 #include <stdint.h>
 
 namespace {
-
-template <bool VEC>
-__device__ __forceinline__ void copy_row(char* __restrict__ dst,
-                                         const char* __restrict__ src,
-                                         long long nbytes) {
-  if (VEC) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    long long n = nbytes / 16;
-    for (long long i = threadIdx.x; i < n; i += blockDim.x) d[i] = s[i];
-  } else {
-    for (long long i = threadIdx.x; i < nbytes; i += blockDim.x)
-      dst[i] = src[i];
-  }
-}
 
 // grid (B, L): dst_a[l, pages[b], slots[b]] <- src_a[l, b] for each arena
 // a < arenas (arena 0 is dst0/src0, arena 1 dst1/src1); the block's
@@ -129,22 +132,6 @@ __global__ void kv_scatter_kernel(char* __restrict__ dst0,
     else
       d[w] = s[w];
   }
-}
-
-// grid (n, L): dst[l, dst_idx[i]] <- src[l, src_idx[i]]; a null index
-// array means the identity (row i).
-template <bool VEC>
-__global__ void copy_rows_kernel(const char* __restrict__ src,
-                                 const int* __restrict__ src_idx,
-                                 long long src_rows, char* __restrict__ dst,
-                                 const int* __restrict__ dst_idx,
-                                 long long dst_rows, long long row_bytes) {
-  const int i = blockIdx.x;
-  const long long l = blockIdx.y;
-  const long long sr = src_idx ? src_idx[i] : i;
-  const long long dr = dst_idx ? dst_idx[i] : i;
-  copy_row<VEC>(dst + (l * dst_rows + dr) * row_bytes,
-                src + (l * src_rows + sr) * row_bytes, row_bytes);
 }
 
 // A short page list travels in the launch's parameters: no upload, no
@@ -215,13 +202,39 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
         : "memory");
 }
 
+// arrive on `bar` once, expecting `bytes` from the bulk loads that
+// complete on it
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// global -> shared, completing `bytes` on `bar` (no arrival: one
+// mbar_expect covers a block's loads), L2 policy left to the hardware
+__device__ __forceinline__ void bulk_load_tx(void* smem, const void* gmem,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared -> global in the open bulk group, L2 policy left to the hardware
+__device__ __forceinline__ void bulk_store_tx(void* gmem, const void* smem,
+                                              uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+      ::"l"(gmem), "r"(smem_u32(smem)), "r"(bytes)
+      : "memory");
+}
+
 // global -> shared, completing `bytes` on `bar`
 __device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
                                           uint32_t bytes, uint64_t* bar,
                                           uint64_t policy) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
+  mbar_expect(bar, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
       ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
@@ -393,6 +406,191 @@ constexpr int kBulkThreads = 128;
 // the buffer with a grid stride
 constexpr int kFlatBlocksPerSM = 16;
 
+// --- the page copy (rows 2 and 13) --------------------------------------
+
+// the bytes of a row one block moves on the direct route, and one bulk
+// tile on the cluster route
+constexpr long long kChunk = 16 * 1024;
+constexpr int kWordsPerThread = static_cast<int>(kChunk / 16 / kThreads);
+static_assert(kWordsPerThread * 16 * kThreads == kChunk,
+              "a direct block's threads cover a chunk in whole words");
+// (src, dst) pairs that travel in the launch's parameters: 2 KiB of
+// indices, inside the 4 KiB kernel-parameter limit of every CUDA version
+constexpr int kInlinePairs = 256;
+// the cluster route: at most this many blocks a cluster, each staging at
+// most kClusterBlockBytes of its layer's sources in shared memory
+constexpr int kMaxCluster = 16;
+constexpr long long kClusterBlockBytes = 128 * 1024;
+
+// one arena of a copy: row r of layer l starts at base + (l * rows + r) *
+// row_bytes on either side (the arena on both, or the arena and a
+// scratch buffer on the staged route's two launches)
+struct CopyArena {
+  const char* src;
+  char* dst;
+  long long src_rows;
+  long long dst_rows;
+  long long row_bytes;
+  long long chunks;  // ceil(row_bytes / kChunk)
+  long long layers;
+};
+
+// the whole launch, by value: no upload precedes it for up to
+// kInlinePairs ops
+struct CopyPlan {
+  CopyArena arena[2];
+  const int* dev_idx;  // 2n ints on the card, or null: idx below
+  int n;
+  int identity;        // bit 0: op i reads row i; bit 1: it writes row i
+  int idx[2 * kInlinePairs];  // sources at [0, n), destinations at [n, 2n)
+};
+
+struct Chunk {
+  const char* src;
+  char* dst;
+  int bytes;
+};
+
+// chunk t (op t / chunks, its (t % chunks)-th kChunk bytes) of layer l
+__device__ __forceinline__ Chunk chunk_of(const CopyPlan& p,
+                                          const CopyArena& a, long long l,
+                                          long long t) {
+  const long long i = t / a.chunks;
+  const long long off = (t - i * a.chunks) * kChunk;
+  const long long sr =
+      (p.identity & 1) ? i : (p.dev_idx ? p.dev_idx[i] : p.idx[i]);
+  const long long dr = (p.identity & 2)
+                           ? i
+                           : (p.dev_idx ? p.dev_idx[p.n + i] : p.idx[p.n + i]);
+  const long long left = a.row_bytes - off;
+  return {a.src + (l * a.src_rows + sr) * a.row_bytes + off,
+          a.dst + (l * a.dst_rows + dr) * a.row_bytes + off,
+          static_cast<int>(left < kChunk ? left : kChunk)};
+}
+
+// the direct route (no destination is another op's source), grid
+// (n * chunks of arena 0 [+ n * chunks of arena 1], max layers): block
+// (x, l) moves chunk x of layer l of arena 0, or chunk x - n * chunks_0
+// of arena 1 (so a pair of unequal rows, a conv row of 26 KB beside an
+// SSD row of 2 MiB, launches no idle blocks).  VEC: 16-byte words, a
+// thread's loads all in flight before its stores; else bytes.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    copy_pages_kernel(const CopyPlan p) {
+  const long long first = p.n * p.arena[0].chunks;
+  const bool second = blockIdx.x >= first;
+  const CopyArena a = second ? p.arena[1] : p.arena[0];
+  const long long l = blockIdx.y;
+  if (l >= a.layers) return;
+  const Chunk c = chunk_of(p, a, l, blockIdx.x - (second ? first : 0));
+  if (VEC) {
+    const uint4* s = reinterpret_cast<const uint4*>(c.src);
+    uint4* d = reinterpret_cast<uint4*>(c.dst);
+    const int words = c.bytes / 16;
+    uint4 v[kWordsPerThread];
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+      const int w = threadIdx.x + k * kThreads;
+      if (w < words) v[k] = s[w];
+    }
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+      const int w = threadIdx.x + k * kThreads;
+      if (w < words) d[w] = v[k];
+    }
+  } else {
+    for (int k = threadIdx.x; k < c.bytes; k += blockDim.x) c.dst[k] = c.src[k];
+  }
+}
+
+// the cluster route (some destination is another op's source), grid
+// (C, max layers, arenas) in clusters of (C, 1, 1): cluster (l, a) holds
+// layer l's whole batch of arena a.  Its n * chunks chunks are dealt out
+// ceil(n * chunks / C) to a block; the block's thread 0 bulk-loads its
+// chunks into shared memory (one mbarrier), every block of the cluster
+// meets at one barrier, so every source of the layer has been read before
+// any destination is written, and thread 0 then bulk-stores each chunk
+// to its destination.  Rows and bases are 16-byte aligned.
+__global__ void __launch_bounds__(kBulkThreads)
+    copy_pages_cluster_kernel(const CopyPlan p) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t full;
+  const CopyArena a = blockIdx.z ? p.arena[1] : p.arena[0];
+  const long long l = blockIdx.y;
+  // the whole cluster leaves together: its blocks share (l, a)
+  if (l >= a.layers) return;
+  const long long total = p.n * a.chunks;
+  const long long per = (total + gridDim.x - 1) / gridDim.x;
+  const long long t0 = blockIdx.x * per;
+  const long long t1 = t0 + per < total ? t0 + per : total;
+  if (threadIdx.x == 0 && t0 < t1) {
+    mbar_init(&full);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    uint32_t bytes = 0;
+    for (long long t = t0; t < t1; ++t) bytes += chunk_of(p, a, l, t).bytes;
+    mbar_expect(&full, bytes);
+    for (long long t = t0; t < t1; ++t) {
+      const Chunk c = chunk_of(p, a, l, t);
+      bulk_load_tx(stage + (t - t0) * kChunk, c.src, c.bytes, &full);
+    }
+    mbar_wait(&full, 0);
+  }
+  __syncthreads();
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;" ::: "memory");
+  if (threadIdx.x == 0 && t0 < t1) {
+    for (long long t = t0; t < t1; ++t) {
+      const Chunk c = chunk_of(p, a, l, t);
+      bulk_store_tx(c.dst, stage + (t - t0) * kChunk, c.bytes);
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    bulk_wait_all();
+  }
+}
+
+void cluster_launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           dim3 grid, int cluster, size_t smem,
+                           cudaStream_t st) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = grid;
+  cfg->blockDim = dim3(kBulkThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// the largest cluster the card schedules with every block at
+// kClusterBlockBytes: kMaxCluster (beyond the portable 8) when the card
+// holds one such cluster, else 8
+int max_cluster() {
+  static int size = 0;
+  if (size == 0) {
+    size = 8;
+    cudaFuncSetAttribute(copy_pages_cluster_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(kClusterBlockBytes));
+    cudaFuncSetAttribute(copy_pages_cluster_kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_launch_config(&cfg, &attr, dim3(kMaxCluster), kMaxCluster,
+                          kClusterBlockBytes, nullptr);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, copy_pages_cluster_kernel,
+                                       &cfg) == cudaSuccess &&
+        clusters > 0)
+      size = kMaxCluster;
+    cudaGetLastError();  // a refused query leaves no error behind
+  }
+  return size;
+}
+
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -456,21 +654,84 @@ extern "C" int rc_kv_scatter(void* dst0, void* dst1, const void* src0,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rc_copy_rows(const void* src, const int* src_idx,
-                            long long src_rows, void* dst, const int* dst_idx,
-                            long long dst_rows, int n, int L,
-                            long long row_bytes, void* stream) {
-  if (n <= 0 || L <= 0) return 0;
-  dim3 grid(n, L);
+// the chunks a cluster holds at most: the wrapper stages a layer's batch
+// of more through scratch (two direct launches) instead
+extern "C" int rc_copy_cluster_chunks() {
+  return max_cluster() * static_cast<int>(kClusterBlockBytes / kChunk);
+}
+
+// one copy over `arenas` (1 or 2) arenas in one launch.  desc: 6 values an
+// arena (source base, destination base, source rows a layer, destination
+// rows a layer, row bytes, layers).  The ops' rows: dev_idx on the card,
+// or (dev_idx null) host_idx on the host, at most kInlinePairs ops (the
+// wrapper's INLINE_PAIRS), passed in the launch; each 2n ints, sources
+// then destinations.  identity: bit 0, op i reads row i; bit 1, it writes
+// row i.  route 0: direct; 1: cluster (the wrapper picks it when a
+// destination is another op's source and the batch fits).
+extern "C" int rc_copy_pages(const long long* desc, int arenas,
+                             const int* dev_idx, const int* host_idx, int n,
+                             int identity, int route, void* stream) {
+  if (n <= 0) return 0;
+  if (arenas < 1 || arenas > 2 || route < 0 || route > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CopyPlan plan;
+  plan.dev_idx = dev_idx;
+  plan.n = n;
+  plan.identity = identity;
+  if (dev_idx == nullptr) {
+    if (host_idx == nullptr || n > kInlinePairs)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < 2 * n; ++i) plan.idx[i] = host_idx[i];
+  }
+  long long most_chunks = 0, all_chunks = 0, most_layers = 0;
+  uintptr_t align = 0;
+  for (int z = 0; z < 2; ++z) {
+    const long long* d = desc + 6 * (z < arenas ? z : 0);
+    CopyArena& a = plan.arena[z];
+    a.src = reinterpret_cast<const char*>(d[0]);
+    a.dst = reinterpret_cast<char*>(d[1]);
+    a.src_rows = d[2];
+    a.dst_rows = d[3];
+    a.row_bytes = d[4];
+    a.layers = d[5];
+    a.chunks = (a.row_bytes + kChunk - 1) / kChunk;
+    if (a.row_bytes <= 0 || a.layers <= 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    most_chunks = n * a.chunks > most_chunks ? n * a.chunks : most_chunks;
+    if (z < arenas) all_chunks += n * a.chunks;
+    most_layers = a.layers > most_layers ? a.layers : most_layers;
+    align |= static_cast<uintptr_t>(d[0]) | static_cast<uintptr_t>(d[1]) |
+             static_cast<uintptr_t>(a.row_bytes);
+  }
+  if (most_layers > 65535 || all_chunks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (aligned16(src, dst, row_bytes))
-    copy_rows_kernel<true><<<grid, kThreads, 0, st>>>(
-        static_cast<const char*>(src), src_idx, src_rows,
-        static_cast<char*>(dst), dst_idx, dst_rows, row_bytes);
-  else
-    copy_rows_kernel<false><<<grid, kThreads, 0, st>>>(
-        static_cast<const char*>(src), src_idx, src_rows,
-        static_cast<char*>(dst), dst_idx, dst_rows, row_bytes);
+  const bool vec = (align & 15) == 0;
+  if (route == 0) {
+    dim3 grid(static_cast<unsigned>(all_chunks),
+              static_cast<unsigned>(most_layers));
+    if (vec)
+      copy_pages_kernel<true><<<grid, kThreads, 0, st>>>(plan);
+    else
+      copy_pages_kernel<false><<<grid, kThreads, 0, st>>>(plan);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the cluster route: as many blocks a cluster as the card allows, up to
+  // one a chunk, each staging ceil(chunks / C) of them
+  const int cluster = static_cast<int>(
+      most_chunks < max_cluster() ? most_chunks : max_cluster());
+  const long long per = (most_chunks + cluster - 1) / cluster;
+  if (!vec || per * kChunk > kClusterBlockBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch_config(&cfg, &attr,
+                        dim3(cluster, static_cast<unsigned>(most_layers),
+                             arenas),
+                        cluster, static_cast<size_t>(per * kChunk), st);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, copy_pages_cluster_kernel, plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

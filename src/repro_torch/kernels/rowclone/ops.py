@@ -3,8 +3,9 @@
 The port's counterpart of the JAX package's ``kernels/rowclone/ops.py``:
 the public RowClone API (``pim_copy``, ``pim_init``, ``pim_page_copy``,
 ``pim_page_init``), the layer-batched ``pim_page_copy_batched`` and
-``pim_page_init_batched`` (and ``pim_page_init_batched_pair``, one
-launch for a (K, V) arena pair), and ``kv_scatter_inline`` /
+``pim_page_init_batched`` (and ``pim_page_copy_batched_pair`` /
+``pim_page_init_batched_pair``, one launch for an arena pair), and
+``kv_scatter_inline`` /
 ``kv_scatter_pair_inline`` / ``kv_gather_inline``.  The JAX versions
 donate the arena and return the new one; these update the arena in
 place and return it.  On a CPU
@@ -17,8 +18,9 @@ slot scatters.  An empty op batch launches nothing.
 Host page lists reach the card through :func:`upload_index`: checked on
 the host, staged in pinned memory and copied without a synchronise, so
 no wrapper waits for the card (and a CUDA-graph capture can run beside
-them).  The init launches skip even that for lists of up to
-:data:`INLINE_ROWS` pages, which travel in the launch's parameters.
+them).  The init and copy launches skip even that for lists of up to
+:data:`INLINE_ROWS` pages and :data:`INLINE_PAIRS` (src, dst) pairs,
+which travel in the launch's parameters.
 The slot scatters take int32 indices already on the device and convert
 nothing: a wrong dtype, device or layout raises.
 """
@@ -27,7 +29,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Union
+from array import array
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -88,46 +91,163 @@ def upload_index(idx: Index, limit: int, what: str,
     return upload(a, device)
 
 
+#: (src, dst) pairs up to this many travel in a copy launch's parameters
+#: (``kInlinePairs`` in ``csrc/rowclone.cu``); longer lists are uploaded
+INLINE_PAIRS = 256
+#: the bytes of a row one block of the copy moves (``kChunk``)
+COPY_CHUNK = 16 * 1024
+
+
+def _int_list(idx: Index) -> List[int]:
+    if isinstance(idx, (list, tuple)):
+        return list(map(int, idx))
+    if isinstance(idx, torch.Tensor):
+        return idx.reshape(-1).tolist()
+    return np.asarray(idx).reshape(-1).tolist()
+
+
+def _copy_ops(src_pages: Index, dst_pages: Index,
+              limit: int) -> Tuple[List[int], List[int]]:
+    """A copy batch's page lists as host ints, each checked to lie in
+    ``[0, limit)`` (``IndexError`` otherwise), with every op but the last
+    of each destination dropped (the last wins, as in the reference)."""
+    src, dst = _int_list(src_pages), _int_list(dst_pages)
+    if len(src) != len(dst):
+        raise ValueError("src and dst page lists differ in length")
+    if not src:
+        return src, dst
+    for what, rows in (("src page", src), ("dst page", dst)):
+        if min(rows) < 0 or max(rows) >= limit:
+            raise IndexError(f"{what} out of range [0, {limit})")
+    if len(set(dst)) != len(dst):
+        keep = ref.last_op_per_dst(dst)
+        src, dst = [src[i] for i in keep], [dst[i] for i in keep]
+    return src, dst
+
+
+def _reads_a_write(src: List[int], dst: List[int]) -> bool:
+    """Whether some op reads a row that another op writes (a row copied
+    onto itself keeps its bytes, so it is no hazard)."""
+    if set(src).isdisjoint(dst):
+        return False
+    writer = {d: i for i, d in enumerate(dst)}
+    return any(writer.get(s, i) != i for i, s in enumerate(src))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_chunks() -> int:
+    """The most ``COPY_CHUNK`` pieces of one layer's batch that the
+    cluster route stages in shared memory (``rc_copy_cluster_chunks``:
+    the card's largest cluster at the route's shared memory a block)."""
+    return _build.load("rowclone").rc_copy_cluster_chunks()
+
+
+def copy_route(row_bytes: Sequence[int], n: int, aligned: bool) -> str:
+    """How a copy of ``n`` ops over arenas of ``row_bytes`` rows runs when
+    an op reads another's destination (without one it runs direct, one
+    launch): ``"cluster"`` (one launch, each layer's batch staged in a
+    cluster's shared memory), or ``"staged"`` (a layer's batch past the
+    cluster's capacity, or rows not 16-byte aligned: two launches
+    through a scratch buffer)."""
+    chunks = max(n * -(-r // COPY_CHUNK) for r in row_bytes)
+    if aligned and chunks <= cluster_chunks():
+        return "cluster"
+    return "staged"
+
+
+def _launch_copy(arenas, lead: int, src: List[int], dst: List[int],
+                 name: str) -> None:
+    """``arena[l, dst[i]] <- arena[l, src[i]]`` for every layer ``l`` of
+    each arena (``lead`` 2: ``(L, P, ...)``; 1: one layer ``(P, ...)``),
+    the ops already checked and free of duplicate destinations, in one
+    launch of ``rc_copy_pages`` (two on the staged route).  The op list
+    travels in the launch's parameters when it is short, else it is
+    uploaded by :func:`upload`."""
+    n = len(src)
+    geo = []                   # (base, layers, rows a layer, row bytes)
+    for a in arenas:
+        L, P = (a.shape[0], a.shape[1]) if lead == 2 else (1, a.shape[0])
+        geo.append((a.data_ptr(), L, P, _row_bytes(a, lead)))
+    lib = _build.load("rowclone")
+    stream = _stream(arenas[0])
+    dev_idx, host_idx = None, None
+    if n > INLINE_PAIRS:
+        # freed after the launch; the allocator reuses it only for work
+        # queued behind the launch on the same stream
+        uploaded = upload(np.asarray(src + dst, np.int32), arenas[0].device)
+        dev_idx = uploaded.data_ptr()
+    else:
+        host_idx = array("i", src + dst).tobytes()
+
+    def launch(desc, identity: int, route: int, what: str) -> None:
+        _build.check(lib.rc_copy_pages(
+            array("q", [v for d in desc for v in d]).tobytes(), len(desc),
+            dev_idx, host_idx, n, identity, route, stream), what)
+
+    route = "direct"
+    if _reads_a_write(src, dst):
+        route = copy_route([g[3] for g in geo], n,
+                           all((b | r) % 16 == 0 for b, _, _, r in geo))
+    if route != "staged":
+        launch([(b, b, P, P, r, L) for b, L, P, r in geo], 0,
+               0 if route == "direct" else 1, name)
+        count_launch(name)
+        return
+    # every source of every layer into scratch, then scratch into the
+    # destinations: two direct launches
+    offs, total = [], 0
+    for _, L, _, r in geo:
+        offs.append(total)
+        total += -(-(L * n * r) // 256) * 256
+    scratch = torch.empty(total, dtype=torch.uint8, device=arenas[0].device)
+    base = scratch.data_ptr()
+    launch([(b, base + o, P, n, r, L) for (b, L, P, r), o in zip(geo, offs)],
+           2, 0, f"{name} (gather)")
+    launch([(base + o, b, n, P, r, L) for (b, L, P, r), o in zip(geo, offs)],
+           1, 0, f"{name} (scatter)")
+    count_launch(name, 2)
+
+
 def pim_page_copy_batched(arena: torch.Tensor, src_pages: Index,
                           dst_pages: Index) -> torch.Tensor:
     """``arena[:, dst[i]] <- arena[:, src[i]]`` across every layer, in
-    place.  The page lists are host data (the op queue's records), so
-    the wrapper sees on the host whether a destination is also a source;
-    only then does it stage the sources through a scratch buffer (one
-    gather launch, one scatter launch), so every copy reads the
-    pre-batch arena as the reference does."""
-    src = _host_index(src_pages)
-    dst = _host_index(dst_pages)
-    if src.size != dst.size:
-        raise ValueError("src and dst page lists differ in length")
-    if src.size == 0:
-        return arena
+    place.  Every copy reads the arena as it was before the batch, and
+    of several ops with one destination the last wins: the wrapper drops
+    the earlier ones on the host.  The page lists are host data (the op
+    queue's records), so the wrapper also sees on the host whether a
+    destination is another op's source, and picks the kernel's route
+    (direct, or :func:`copy_route`)."""
     L, P = arena.shape[:2]
-    src_d = upload_index(src, P, "src page", arena.device)
-    dst_d = upload_index(dst, P, "dst page", arena.device)
-    if arena.device.type == "cpu":
-        return ref.page_copy_batched(arena, src_d, dst_d)
-    _check_arena(arena)
-    lib = _build.load("rowclone")
-    row = _row_bytes(arena, 2)
-    n = int(src.size)
-    stream = _stream(arena)
-    if np.intersect1d(src, dst).size == 0:
-        _build.check(lib.rc_copy_rows(
-            arena.data_ptr(), src_d.data_ptr(), P, arena.data_ptr(),
-            dst_d.data_ptr(), P, n, L, row, stream), "page_copy_batched")
-        count_launch("page_copy_batched")
+    src, dst = _copy_ops(src_pages, dst_pages, P)
+    if not src:
         return arena
-    scratch = torch.empty((L, n) + tuple(arena.shape[2:]), dtype=arena.dtype,
-                          device=arena.device)
-    _build.check(lib.rc_copy_rows(
-        arena.data_ptr(), src_d.data_ptr(), P, scratch.data_ptr(), None, n,
-        n, L, row, stream), "page_copy_batched (gather)")
-    _build.check(lib.rc_copy_rows(
-        scratch.data_ptr(), None, n, arena.data_ptr(), dst_d.data_ptr(), P,
-        n, L, row, stream), "page_copy_batched (scatter)")
-    count_launch("page_copy_batched", 2)
+    if arena.device.type == "cpu":
+        return ref.page_copy_batched(arena, torch.tensor(src),
+                                     torch.tensor(dst))
+    _check_cuda(arena, "pim_page_copy_batched")
+    _launch_copy((arena,), 2, src, dst, "page_copy_batched")
     return arena
+
+
+def pim_page_copy_batched_pair(a0: torch.Tensor, a1: torch.Tensor,
+                               src_pages: Index, dst_pages: Index) -> None:
+    """:func:`pim_page_copy_batched` with one op list on both arenas of a
+    pair, in one launch (grid z picks the arena): a (K, V) pair of one
+    shape, or the conv and SSD state arenas, whose rows differ in size
+    and dtype.  Each arena is ``(L, P, ...)``; the pages must lie in
+    both."""
+    if a0.device != a1.device:
+        raise ValueError("the pair's arenas lie on different devices")
+    src, dst = _copy_ops(src_pages, dst_pages, min(a0.shape[1], a1.shape[1]))
+    if not src:
+        return
+    if a0.device.type == "cpu":
+        ref.page_copy_batched_pair(a0, a1, torch.tensor(src),
+                                   torch.tensor(dst))
+        return
+    _check_cuda(a0, "pim_page_copy_batched_pair")
+    _check_cuda(a1, "pim_page_copy_batched_pair")
+    _launch_copy((a0, a1), 2, src, dst, "page_copy_batched")
 
 
 def fill_pattern(value, dtype: torch.dtype) -> int:
@@ -265,47 +385,15 @@ def pim_init(shape, value, dtype: torch.dtype = torch.float32, *,
 def pim_page_copy(arena: torch.Tensor, src_pages: Index,
                   dst_pages: Index) -> torch.Tensor:
     """``arena[dst[i]] <- arena[src[i]]`` on a ``(pages, ...)`` arena, in
-    place.  Every copy reads the arena as it was before the batch, and
-    of several ops with one destination the last wins (as the
-    reference's scatter resolves them): the wrapper drops the earlier
-    ones on the host, and stages the sources through scratch (a gather
-    and a scatter launch) only when a destination is also a source."""
-    src = _host_index(src_pages)
-    dst = _host_index(dst_pages)
-    if src.size != dst.size:
-        raise ValueError("src and dst page lists differ in length")
-    if src.size == 0:
+    place: :func:`pim_page_copy_batched`'s semantics and kernel on one
+    layer."""
+    src, dst = _copy_ops(src_pages, dst_pages, arena.shape[0])
+    if not src:
         return arena
-    P = arena.shape[0]
-    _check_rows(src, P, "src page")
-    _check_rows(dst, P, "dst page")
     if arena.device.type == "cpu":
-        return ref.page_copy(arena, torch.from_numpy(src),
-                             torch.from_numpy(dst))
+        return ref.page_copy(arena, torch.tensor(src), torch.tensor(dst))
     _check_cuda(arena, "pim_page_copy")
-    keep = ref.last_op_per_dst(dst)
-    src, dst = src[keep], dst[keep]
-    lib = _build.load("rowclone")
-    row = _row_bytes(arena, 1)
-    n = int(src.size)
-    stream = _stream(arena)
-    src_d = upload(src, arena.device)
-    dst_d = upload(dst, arena.device)
-    if np.intersect1d(src, dst).size == 0:
-        _build.check(lib.rc_copy_rows(
-            arena.data_ptr(), src_d.data_ptr(), P, arena.data_ptr(),
-            dst_d.data_ptr(), P, n, 1, row, stream), "page_copy")
-        count_launch("page_copy")
-        return arena
-    scratch = torch.empty((n,) + tuple(arena.shape[1:]), dtype=arena.dtype,
-                          device=arena.device)
-    _build.check(lib.rc_copy_rows(
-        arena.data_ptr(), src_d.data_ptr(), P, scratch.data_ptr(), None, n,
-        n, 1, row, stream), "page_copy (gather)")
-    _build.check(lib.rc_copy_rows(
-        scratch.data_ptr(), None, n, arena.data_ptr(), dst_d.data_ptr(), P,
-        n, 1, row, stream), "page_copy (scatter)")
-    count_launch("page_copy", 2)
+    _launch_copy((arena,), 1, src, dst, "page_copy")
     return arena
 
 

@@ -7,7 +7,8 @@ the kernels are held against on the card.
 
 from __future__ import annotations
 
-import numpy as np
+from typing import List
+
 import torch
 
 
@@ -24,23 +25,27 @@ def init_2d(shape, value, dtype: torch.dtype = torch.float32,
     return fill.to(device).expand(tuple(shape)).clone()
 
 
-def last_op_per_dst(dst_pages) -> np.ndarray:
+def last_op_per_dst(dst_pages: List[int]) -> List[int]:
     """Indices of the ops that survive when duplicate destinations
     resolve to the last op, in op order."""
-    dst = np.asarray(dst_pages).reshape(-1)
-    _, first_from_end = np.unique(dst[::-1], return_index=True)
-    return np.sort(dst.size - 1 - first_from_end)
+    return sorted({d: i for i, d in enumerate(dst_pages)}.values())
+
+
+def _last_ops(src_pages: torch.Tensor, dst_pages: torch.Tensor):
+    """The (src, dst) index tensors of the ops that survive
+    :func:`last_op_per_dst` (``index_put`` with duplicate indices has no
+    defined order, so they are resolved here)."""
+    keep = torch.tensor(last_op_per_dst(dst_pages.tolist()),
+                        device=dst_pages.device)
+    return src_pages.long()[keep], dst_pages.long()[keep]
 
 
 def page_copy(arena: torch.Tensor, src_pages: torch.Tensor,
               dst_pages: torch.Tensor) -> torch.Tensor:
     """``arena[dst[i]] <- arena[src[i]]`` on a (pages, ...) arena: every
     source is read before any destination is written, and of several
-    ops with one destination the last wins.  (``index_put`` with
-    duplicate indices has no defined order, so they are resolved here.)"""
-    keep = torch.from_numpy(last_op_per_dst(dst_pages.cpu().numpy()))
-    src = src_pages.long()[keep.to(src_pages.device)]
-    dst = dst_pages.long()[keep.to(dst_pages.device)]
+    ops with one destination the last wins."""
+    src, dst = _last_ops(src_pages, dst_pages)
     arena[dst] = arena[src]
     return arena
 
@@ -55,9 +60,19 @@ def page_init(arena: torch.Tensor, dst_pages: torch.Tensor,
 def page_copy_batched(arena: torch.Tensor, src_pages: torch.Tensor,
                       dst_pages: torch.Tensor) -> torch.Tensor:
     """``arena[:, dst[i]] <- arena[:, src[i]]``; every source is read
-    (gathered into a copy) before any destination is written."""
-    arena[:, dst_pages.long()] = arena[:, src_pages.long()]
+    (gathered into a copy) before any destination is written, and of
+    several ops with one destination the last wins."""
+    src, dst = _last_ops(src_pages, dst_pages)
+    arena[:, dst] = arena[:, src]
     return arena
+
+
+def page_copy_batched_pair(a0: torch.Tensor, a1: torch.Tensor,
+                           src_pages: torch.Tensor,
+                           dst_pages: torch.Tensor) -> None:
+    """``page_copy_batched`` on both arenas of a pair, one op list."""
+    page_copy_batched(a0, src_pages, dst_pages)
+    page_copy_batched(a1, src_pages, dst_pages)
 
 
 def page_init_batched(arena: torch.Tensor, dst_pages: torch.Tensor,

@@ -13,7 +13,8 @@ nothing.
 the ``ssm_state_write`` flush: the whole depth of the model in one
 launch of the ``state_scatter`` kernel.  Row copy (copy-on-fork) and
 row init (init-on-free) ride the RowClone batched page kernels, as in
-the JAX package: a state row is a page of the ``(L, R, E)`` view.
+the JAX package: a state row is a page of the ``(L, R, E)`` view (the
+fork's copy of both arenas is one launch, ``pim_state_copy_pair``).
 """
 
 from __future__ import annotations
@@ -85,6 +86,15 @@ def pim_state_copy(arena: torch.Tensor, src_rows: Index,
     across every sublayer, in one RowClone batched copy."""
     rc_ops.pim_page_copy_batched(_flat3(arena), src_rows, dst_rows)
     return arena
+
+
+def pim_state_copy_pair(conv: torch.Tensor, ssm: torch.Tensor,
+                        src_rows: Index, dst_rows: Index) -> None:
+    """:func:`pim_state_copy` on the conv and SSD state arenas with one
+    row list, in one RowClone launch (their rows differ in size and
+    dtype)."""
+    rc_ops.pim_page_copy_batched_pair(_flat3(conv), _flat3(ssm), src_rows,
+                                      dst_rows)
 
 
 def pim_state_init(arena: torch.Tensor, dst_rows: Index,

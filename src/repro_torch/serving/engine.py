@@ -211,6 +211,11 @@ class PagedEngine:
             raise ValueError(
                 "paged engine: MLA latent-KV attention is not paged — "
                 "deepseek-style archs serve through the dense path")
+        if cfg.family == "hybrid" and cfg.num_layers < cfg.attn_every:
+            raise ValueError(
+                f"paged engine: a hybrid cut of {cfg.num_layers} layers "
+                f"holds no attention layer (one in {cfg.attn_every}); cut "
+                "to a whole period")
         if len(T.layer_groups(cfg)) != 1:
             raise ValueError(
                 "paged engine: single-group layouts only (leading dense "

@@ -104,7 +104,8 @@ class PagedStateArena:
 
     Mutations route through the owning cache's op queue under three
     kinds, each flushed as one launch per arena whatever the depth or
-    batch: ``ssm_state_write`` (the eager round's state write, through
+    batch (``state_copy`` as one launch over both, accounted as two):
+    ``ssm_state_write`` (the eager round's state write, through
     the ``state_scatter`` kernel), ``state_copy`` (copy-on-fork) and
     ``state_init`` (init-on-free, so a fresh slot is zero and no request
     sees another's state).  Hazard rows are ``("state", slot)`` tuples,
@@ -161,8 +162,9 @@ class PagedStateArena:
     def _flush_copy(self, q, arenas, ops):
         src = [s for s, _ in ops]
         dst = [d for _, d in ops]
-        ssm_ops.pim_state_copy(self.conv, src, dst)
-        ssm_ops.pim_state_copy(self.ssm, src, dst)
+        # one launch over both arenas; accounted as two, one per arena,
+        # as the JAX package counts them
+        ssm_ops.pim_state_copy_pair(self.conv, self.ssm, src, dst)
         q._count_launch("state_copy", 2)
         return arenas
 

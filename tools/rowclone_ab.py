@@ -16,6 +16,20 @@ back-to-back calls) of:
 * ``page_init_batched``: 16 pages over 40 layers of one arena, and the
   pair the queue's flush inits: two calls, or the pair form;
 * ``page_init``: 16 pages of one (1024, 16384) bf16 layer;
+* ``page_copy_batched``: 16 pages over 40 layers of one arena, an
+  overlapping batch (op 15 writes the page op 0 reads) and a disjoint
+  one, and the (K, V) pair a CoW flush copies: two calls, or the pair
+  form where the tree has one; mamba2-1.3b's state fork, 1 and 8 rows
+  of its conv (48 layers, 3 x 4352 bf16) and SSD (64 x 64 x 128 f32,
+  2 MiB) arenas: two ``pim_state_copy`` calls, or the pair form;
+* ``page_copy``: 16 pages of one (1024, 16384) bf16 layer, disjoint and
+  overlapping (a duplicate destination too), with ``index_select`` +
+  ``index_copy_`` (``two_calls``) beside it, and phase 13's 40 looped
+  calls (one a layer of the KV arena);
+* ``copy_routes`` (trees with ``rc_copy_pages``): the bare kernel on a
+  disjoint batch down its direct route (16-byte loads and stores in
+  registers) and down the cluster route (TMA bulk copies through shared
+  memory), for the 16 KV pages and one 2 MiB state row;
 * ``copy_2d`` (``pim_copy``) and ``init_2d`` (``pim_init(..., 0)``) of
   1 MiB, 32 MiB, 256 MiB and the whole (40, 1024, 16, 8, 128) bf16
   arena (1.34 GB), each beside ``Tensor.clone()`` and ``torch.zeros``;
@@ -72,6 +86,85 @@ def reread_us(ws: torch.Tensor, move, samples: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) * 1e3)
     return sorted(times[2:])[samples // 2]
+
+
+def copy_routes(rc_ops, k_ar, ssm, disjoint, dev) -> dict:
+    """The bare ``rc_copy_pages`` launch of a disjoint batch down each of
+    its two one-launch routes (0: direct, 1: cluster)."""
+    from array import array
+
+    from repro_torch.kernels import _build
+
+    lib = _build.load("rowclone")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for what, arena, (src, dst) in (("kv_16_pages", k_ar, disjoint),
+                                    ("state_1_row", ssm, ([0], [15]))):
+        L, P = arena.shape[:2]
+        desc = array("q", [arena.data_ptr(), arena.data_ptr(), P, P,
+                           rc_ops._row_bytes(arena, 2), L]).tobytes()
+        pairs = array("i", src + dst).tobytes()
+        for route in (0, 1):
+            args = (desc, 1, None, pairs, len(src), 0, route, stream)
+            if lib.rc_copy_pages(*args) != 0:
+                raise RuntimeError(f"rc_copy_pages route {route} refused")
+            out[f"{what}_route{route}"] = time_ms(
+                lambda: lib.rc_copy_pages(*args))
+    return out
+
+
+def page_copies(rc_ops, k_ar, v_ar, layer, dev) -> dict:
+    """The page copy's wrappers at ``chip_smoke.py`` phase 2's shapes."""
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+
+    out = {}
+    over = (list(range(100, 116)), list(range(200, 215)) + [100])
+    disjoint = (list(range(300, 316)), list(range(400, 416)))
+    for what, (src, dst) in (("overlapping", over), ("disjoint", disjoint)):
+        s_t = torch.tensor(src, device=dev)
+        d_t = torch.tensor(dst, device=dev)
+        out[f"page_copy_batched_{what}"] = time_ms(
+            lambda: rc_ops.pim_page_copy_batched(k_ar, src, dst))
+        out[f"page_copy_batched_{what}_two_calls"] = time_ms(lambda: (
+            rc_ops.pim_page_copy_batched(k_ar, src, dst),
+            rc_ops.pim_page_copy_batched(v_ar, src, dst)))
+        if hasattr(rc_ops, "pim_page_copy_batched_pair"):
+            out[f"page_copy_batched_{what}_pair"] = time_ms(
+                lambda: rc_ops.pim_page_copy_batched_pair(k_ar, v_ar, src,
+                                                          dst))
+        out[f"index_select_copy_{what}"] = time_ms(
+            lambda: k_ar.index_copy_(1, d_t, k_ar.index_select(1, s_t)))
+        out[f"page_copy_{what}"] = time_ms(
+            lambda: rc_ops.pim_page_copy(layer, src, dst))
+        out[f"page_copy_{what}_two_calls"] = time_ms(
+            lambda: layer.index_copy_(0, d_t, layer.index_select(0, s_t)))
+    out["page_copy_duplicate"] = time_ms(lambda: rc_ops.pim_page_copy(
+        layer, over[0], list(range(200, 214)) + [213, 100]))
+
+    def looped():
+        for l in range(k_ar.shape[0]):
+            rc_ops.pim_page_copy(k_ar[l], list(range(100, 116)),
+                                 list(range(200, 216)))
+    out["page_copy_looped_40"] = time_ms(looped, 20)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    L, R = 48, 16
+    conv = torch.randn((L, 1, R, 3, 4352), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    ssm = torch.randn((L, 1, R, 64, 64, 128), generator=gen, device=dev)
+    if hasattr(rc_ops, "copy_route"):
+        out["copy_routes"] = copy_routes(rc_ops, k_ar, ssm.view(L, R, -1),
+                                         disjoint, dev)
+    for n in (1, 8):
+        src, dst = list(range(n)), list(range(R - n, R))
+        out[f"state_copy_{n}_rows"] = time_ms(
+            lambda: ss_ops.pim_state_copy(ssm, src, dst))
+        out[f"state_fork_{n}_rows_two_calls"] = time_ms(lambda: (
+            ss_ops.pim_state_copy(conv, src, dst),
+            ss_ops.pim_state_copy(ssm, src, dst)))
+        if hasattr(ss_ops, "pim_state_copy_pair"):
+            out[f"state_fork_{n}_rows_pair"] = time_ms(
+                lambda: ss_ops.pim_state_copy_pair(conv, ssm, src, dst))
+    return out
 
 
 def main() -> int:
@@ -149,6 +242,7 @@ def main() -> int:
     out["page_init"] = time_ms(lambda: rc_ops.pim_page_init(layer, dst, 0.0))
     out["index_fill_layer"] = time_ms(
         lambda: layer.index_fill_(0, dst_idx, 0.0))
+    out.update(page_copies(rc_ops, k_ar, v_ar, layer, dev))
     del layer, v_ar
     flat = k_ar.view(-1)
     for nbytes in (1 << 20, 32 << 20, 256 << 20, flat.numel() * 2):
