@@ -14,9 +14,11 @@ exits nonzero:
    plain version's, the least time the card could take (``bound_ms``)
    and one PyTorch call computing the same function where there is one
    (``library_ms``, a yardstick the port never calls); the Ambit
-   kernels on the KV arena's layout, bit for bit, including a batch
-   whose destination is another op's source and a page holding only a
-   ``-0.0``; ``state_scatter`` on mamba2-1.3b's 2 MiB SSD-state rows and
+   kernels on the KV arena's layout, bit for bit, on one arena and on
+   the (K, V) pair in one launch, including a batch whose destination
+   is another op's source (one launch, staged in a thread-block
+   cluster) and a page holding only a ``-0.0``, each time beside its
+   goal; ``state_scatter`` on mamba2-1.3b's 2 MiB SSD-state rows and
    its conv rows, bit for bit, beside the state arena's row copy and
    init and the state fork's copy of the conv/SSD pair in one launch;
    ``page_copy_batched`` on an overlapping batch (the cluster route) and
@@ -80,7 +82,9 @@ exits nonzero:
    system prompt through ``AsyncServer`` under Poisson arrivals — each
    ending in ``clear_prefix()`` and its zero audit;
 9. ``TorchLib.bitwise`` through the op queue on a full-size arena pair:
-   OR, AND and NOT batches, one launch per kind per arena, bit for bit;
+   OR, AND and NOT batches, bit for bit, each flush one kernel launch
+   over the pair while the queue counts one per arena (as the JAX
+   package counts), so 2 / 1 launches of the bitwise / NOT kernels;
 10. SSM serving (after phase 8; granite's weights are freed first and
     drawn again for phases 5 and 6, so every step time is taken before
     the profiler): mamba2-1.3b at full width and depth on a 256-row
@@ -114,7 +118,32 @@ exits nonzero:
     its flushes), replayed on the simulated DDR3 prototype — its
     RowClone-vs-CPU totals and speedups are the prototype's
     nanoseconds, not the card's — then the same workload at 2 layers on
-    the card and on the CPU, whose traces and replays must be equal.
+    the card and on the CPU, whose traces and replays must be equal;
+16. the eager prefill oracle (after phase 6, on its weights: every
+    ``wq`` scaled by 0.01): granite-3-8b at full width and depth serves
+    phase 6's three prompts one at a time with ``fused_prefill=False``
+    (each prompt through the dense forward, its KV through the op
+    queue's ``kv_write``: the ``kv_scatter`` kernel), teacher-forced by
+    the fused path's run of the same prompts: first-token logits within
+    ``LOGIT_ATOL``, greedy choices equal where the fused margin exceeds
+    ``MARGIN``, 0 pages at the end;
+17. the dense forward (``models/transformer.forward``) of every family
+    at 2 layers, the same weights on the card and on the CPU, both
+    computing in float32 (TF32 off), every ``wq`` x 0.01 as in phase 6:
+    granite, llava (with patch embeds),
+    mamba2 and seamless (with frames) at full width; llama4-scout, the
+    MLA deepseek and jamba at ``reduced()`` widths (their full-width
+    expert layers would run expert-dense on the host CPU); logits held
+    within ``FORWARD_RTOL`` of the largest |logit|, beside a probe of
+    one float32 GEMM on the card against float64 on the host (the
+    card's float32 matmul precision);
+18. llava-next-34b at full width (60 layers, d_model 7168, 56/8 heads,
+    d_ff 20480; 34.4 B parameters, 68.8 GB of bf16; the depth cut only
+    if the card cannot hold it, printed with the bytes), served
+    text-only from a 256-page arena: 4 greedy requests monolithic, then
+    chunked (256) with mixed rounds, 8-round blocks and a sampled
+    request; each run's decode round in ms against its bound (the
+    weights and the KV read once) and its tokens/s.
 
 Every serving phase runs with the engine's default ``cuda_graphs=True``:
 its prefill batches, chunk steps, mixed rounds (two graphs each), decode
@@ -165,6 +194,11 @@ SSM_FIRST_ATOL = 0.05
 # phase 7's sampled choice: uniforms within this of a CDF boundary may
 # fall on either side of it (float32 cumulative sums in another order)
 BOUNDARY = 1e-5
+# phase 17: float32 logits of the card and the CPU, whose matmuls sum
+# in other orders, relative to the largest |logit|: two layers of
+# float32 sums over up to 20480 terms, each off by a few ulps, then the
+# logits' own sums over d_model
+FORWARD_RTOL = 2e-3
 
 
 def emit(obj) -> None:
@@ -193,6 +227,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms_least(fn, repeats: int = 5) -> float:
+    """The least of ``repeats`` :func:`time_ms` means: a host-bound
+    wrapper's time without the host's pauses between its calls."""
+    return min(time_ms(fn) for _ in range(repeats))
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
@@ -680,78 +720,162 @@ def parity(dev) -> dict:
     return rows
 
 
+def bare_bitwise(arenas, src, dst, op, stream):
+    """The arguments of one bare ``am_page_rows`` launch of ``op`` (the op
+    list in its parameters, as the wrapper passes it) on one arena or a
+    pair, on the route the wrapper picks, and that route."""
+    from repro_torch.kernels.ambit import ops as amb_ops
+    from repro_torch.kernels.rowclone import ops as rc_ops
+
+    desc, rows = [], []
+    for a in arenas:
+        rows.append(rc_ops._row_bytes(a, 2))
+        desc += [a.data_ptr(), a.data_ptr(), a.shape[1], a.shape[1],
+                 rows[-1], a.shape[0]]
+    route = "direct"
+    if rc_ops._reads_a_write(src, dst):
+        route = rc_ops.copy_route(rows, len(src), True,
+                                  amb_ops.cluster_chunks())
+    if route == "staged":
+        raise AssertionError("a bare launch is one launch: the batch takes "
+                             "the staged route")
+    return (array("q", desc).tobytes(), len(arenas), None,
+            array("i", src + dst).tobytes(), len(src), 0,
+            1 if route == "cluster" else 0, amb_ops._OP_CODE[op],
+            stream), route
+
+
+# rows 8-9's goals (ms), stated before their first timing on the card
+AMBIT_GOALS = {"and": {"ms": 0.03, "pair_ms": 0.05, "overlapping_ms": 0.04},
+               "or": {"ms": 0.03, "pair_ms": 0.05, "overlapping_ms": 0.04},
+               "not": {"ms": 0.025, "pair_ms": 0.04,
+                       "overlapping_ms": 0.04}}
+
+
 def ambit_parity(dev, randn, L, P, S, E) -> dict:
     """The Ambit kernels on the KV arena's layout (40, 1024, 16 x 8 x
     128) bf16, batches of 16 pages, bit for bit against their plain
-    versions: AND, OR and NOT on a disjoint batch and on a batch whose
-    last op writes the page its first op reads (the wrapper stages that
-    one through scratch, two launches); the scan of one arena and of a
+    versions: AND, OR and NOT on one arena and on the (K, V) pair in one
+    launch, each on a disjoint batch (the direct route) and on a batch
+    whose last op writes the page its first op reads (the cluster route:
+    one launch, where two did before); the scan of one arena and of a
     (K, V) pair over pages holding zeros, one planted ``-0.0`` (nonzero
-    bits), a page nonzero only in V and random values.  Times
-    are the disjoint batch's (``staged_ms`` the other's); a wrapper call
-    includes uploading its page list from the host, and
-    ``kernel_only_ms`` times the bare launch on page lists already on the
-    card.  Bounds: 3 page reads or writes per op for AND/OR, 2 for NOT;
-    for the scan, every byte of a page found zero and one word of each
-    other page (it stops at the first set bit).
-    Library: ``torch.bitwise_and``/``_or``/``_not`` over the 16 pages
-    gathered beforehand (no gather, no write-back), and ``(x != 0)``
-    reduced per page over the gathered pages for the scan."""
-    from repro_torch.kernels import _build
+    bits), a page nonzero only in V and random values.  Times: the
+    wrapper on one arena (``ms``, the disjoint batch), on the
+    overlapping batch and on the pair (against the two one-arena calls
+    a flush made before), each with its bare launch (``kernel_only_ms``:
+    the op list in the launch's parameters, as the wrapper passes it),
+    beside each goal of ``AMBIT_GOALS``.  Bounds: 3 page reads or writes
+    per op for AND/OR, 2 for NOT; for the scan, every byte of a page
+    found zero and one word of each other page (it stops at the first
+    set bit).  No single PyTorch call computes a gathered page op
+    (``library_ms`` null); ``library_sequence_ms`` times the calls that
+    do: ``index_select`` of the sources (AND/OR: and of the
+    destinations), ``torch.bitwise_and``/``_or``/``_not`` and
+    ``index_copy_``.  The scan's library yardstick is ``(x != 0)``
+    reduced per page over the pages gathered beforehand."""
+    from repro_torch.kernels import _build, launch_counts, reset_launches
     from repro_torch.kernels.ambit import ops as amb_ops
     from repro_torch.kernels.ambit import ref as amb_ref
 
     rows = {}
     arena = randn(L, P, S, E)
+    v_arena = randn(L, P, S, E)
     page_bytes = S * E * 2
     lib = _build.load("ambit")
     stream = torch.cuda.current_stream(dev).cuda_stream
     src = list(range(300, 316))
     disjoint = list(range(400, 416))
-    staged = list(range(500, 515)) + [300]   # op 15 writes what op 0 reads
+    overlapping = list(range(500, 515)) + [300]  # op 15 writes op 0's source
     lib_fn = {"and": torch.bitwise_and, "or": torch.bitwise_or}
-    bits = arena.view(torch.int16)
-    gs = bits[:, src].contiguous()
-    gd = bits[:, disjoint].contiguous()
+
+    def plain(a, s, d, op):
+        if op == "not":
+            return amb_ref.page_not_batched(a, s, d)
+        return amb_ref.page_bitwise_batched(a, s, d, op)
+
     for op, name in (("and", "page_bitwise_batched"),
                      ("or", "page_bitwise_batched_or"),
                      ("not", "page_not_batched")):
-        for dst in (disjoint, staged):
+        for what, dst in (("disjoint", disjoint),
+                          ("overlapping", overlapping)):
             s_t, d_t = torch.tensor(src, device=dev), \
                 torch.tensor(dst, device=dev)
-            want = (amb_ref.page_not_batched(arena.clone(), s_t, d_t)
-                    if op == "not" else amb_ref.page_bitwise_batched(
-                        arena.clone(), s_t, d_t, op))
-            got = amb_ops.pim_page_bitwise_batched(arena.clone(), src, dst,
-                                                   op=op)
+            want = plain(arena.clone(), s_t, d_t, op)
+            want_v = plain(v_arena.clone(), s_t, d_t, op)
+            got = arena.clone()
+            reset_launches()
+            amb_ops.pim_page_bitwise_batched(got, src, dst, op=op)
             torch.cuda.synchronize()
-            if not same_bits(got, want):
-                raise AssertionError(f"{name} ({op}, {len(set(dst))} pages) "
-                                     "disagrees with its plain version")
-            del want, got
-        work = arena.clone()
-        d_t = torch.tensor(disjoint, dtype=torch.int32, device=dev)
-        s_t = torch.tensor(src, dtype=torch.int32, device=dev)
+            one = sum(launch_counts().values())
+            if not same_bits(got, want) or one != 1:
+                raise AssertionError(f"{name} ({op}, {what}) disagrees with "
+                                     f"its plain version or made {one} "
+                                     "launches")
+            got_v = v_arena.clone()
+            got.copy_(arena)
+            reset_launches()
+            amb_ops.pim_page_bitwise_batched_pair(got, got_v, src, dst,
+                                                  op=op)
+            torch.cuda.synchronize()
+            pair = sum(launch_counts().values())
+            if not (same_bits(got, want) and same_bits(got_v, want_v)) \
+                    or pair != 1:
+                raise AssertionError(f"{name} (pair, {op}, {what}) disagrees "
+                                     "with its plain version or made "
+                                     f"{pair} launches")
+            del want, want_v, got, got_v
+        work, work_v = arena.clone(), v_arena.clone()
+        s_t = torch.tensor(src, dtype=torch.long, device=dev)
+        d_t = torch.tensor(disjoint, dtype=torch.long, device=dev)
+        bits = work.view(torch.int16)
         n_rw = 2 if op == "not" else 3
         nb, by = bound(n_rw * len(src) * L * page_bytes + 8 * len(src), 0)
-        plain = (lambda: amb_ref.page_not_batched(work, s_t, d_t)) \
-            if op == "not" else \
-            (lambda: amb_ref.page_bitwise_batched(work, s_t, d_t, op))
-        library = (lambda: torch.bitwise_not(gs)) if op == "not" else \
-            (lambda: lib_fn[op](gs, gd))
-        rows[name] = dict(
-            max_abs_err=0.0, pages=len(src), op=op,
-            ms=time_ms(lambda: amb_ops.pim_page_bitwise_batched(
+        bare, route = bare_bitwise((work,), src, disjoint, op, stream)
+        bare_over, over_route = bare_bitwise((work,), src, overlapping, op,
+                                             stream)
+        bare_pair, _ = bare_bitwise((work, work_v), src, disjoint, op,
+                                    stream)
+        if op == "not":
+            def sequence():
+                bits.index_copy_(1, d_t, torch.bitwise_not(
+                    bits.index_select(1, s_t)))
+        else:
+            def sequence():
+                bits.index_copy_(1, d_t, lib_fn[op](
+                    bits.index_select(1, s_t), bits.index_select(1, d_t)))
+        row = dict(
+            max_abs_err=0.0, pages=len(src), op=op, route=route,
+            overlapping_route=over_route,
+            timing="least of 5 means of 20 back-to-back calls",
+            ms=time_ms_least(lambda: amb_ops.pim_page_bitwise_batched(
                 work, src, disjoint, op=op)),
-            staged_ms=time_ms(lambda: amb_ops.pim_page_bitwise_batched(
-                work, src, staged, op=op)),
-            kernel_only_ms=time_ms(lambda: lib.am_bitwise_rows(
-                work.data_ptr(), s_t.data_ptr(), P, work.data_ptr(),
-                d_t.data_ptr(), P, len(src), L, page_bytes,
-                amb_ops._OP_CODE[op], stream)),
-            plain_ms=time_ms(plain), bound_ms=nb, bound_by=by,
-            library_ms=time_ms(library))
-        del work
+            kernel_only_ms=time_ms_least(lambda: lib.am_page_rows(*bare)),
+            overlapping_ms=time_ms_least(
+                lambda: amb_ops.pim_page_bitwise_batched(
+                    work, src, overlapping, op=op)),
+            overlapping_kernel_only_ms=time_ms_least(
+                lambda: lib.am_page_rows(*bare_over)),
+            pair_ms=time_ms_least(
+                lambda: amb_ops.pim_page_bitwise_batched_pair(
+                    work, work_v, src, disjoint, op=op)),
+            pair_kernel_only_ms=time_ms_least(lambda: lib.am_page_rows(
+                *bare_pair)),
+            pair_overlapping_ms=time_ms_least(
+                lambda: amb_ops.pim_page_bitwise_batched_pair(
+                    work, work_v, src, overlapping, op=op)),
+            pair_two_calls_ms=time_ms_least(lambda: (
+                amb_ops.pim_page_bitwise_batched(work, src, disjoint, op=op),
+                amb_ops.pim_page_bitwise_batched(work_v, src, disjoint,
+                                                 op=op))),
+            plain_ms=time_ms(lambda: plain(work, s_t, d_t, op)),
+            bound_ms=nb, bound_by=by, pair_bound_ms=2 * nb,
+            library_ms=None, library_sequence_ms=time_ms(sequence))
+        row["goals"] = {k: {"goal_ms": g, "ms": row[k], "met": row[k] <= g}
+                        for k, g in AMBIT_GOALS[op].items()}
+        rows[name] = row
+        del work, work_v, bits
+    del v_arena
     # the scan of the (K, V) pair: zero pages, a -0.0 planted in K's last
     # layer (page 3), a page nonzero only in V (page 5), random pages
     zero = torch.zeros_like(arena)
@@ -828,7 +952,7 @@ def ambit_parity(dev, randn, L, P, S, E) -> dict:
         one_arena_bound_ms=nb_one,
         one_arena_library_ms=time_ms(lambda: library(gz)))
     del zero_v, gv
-    del zero, arena, gs, gd, gz
+    del zero, arena, gz
     return rows
 
 
@@ -2404,9 +2528,10 @@ def _open_loop(dev, cfg, params, cuda_graphs=True) -> tuple:
 def ambit_lib(dev, shape=(40, 1024, 16, 8, 128)) -> tuple:
     """``TorchLib.bitwise`` on a deferred lib bound to a full-size (k, v)
     arena pair (40 layers, 1024 pages of 16 x 8 x 128 bf16): an OR, an
-    AND and a NOT batch of 16 page pairs in one slab, each one launch per
-    arena for its kind, the arenas held bit for bit against the plain
-    versions."""
+    AND and a NOT batch of 16 page pairs in one slab, each flush one
+    kernel launch over the pair (``LAUNCHES``) while the queue counts two
+    for its kind (one per arena, the JAX package's count), the arenas
+    held bit for bit against the plain versions."""
     from repro_torch.core.allocator import SubarrayAllocator, arena_groups
     from repro_torch.core.pimolib import Blocking, TorchLib
     from repro_torch.kernels import launch_counts, reset_launches
@@ -2432,22 +2557,27 @@ def ambit_lib(dev, shape=(40, 1024, 16, 8, 128)) -> tuple:
             else:
                 amb_ref.page_bitwise_batched(w, s_t, d_t, op)
         before = lib.queue.snapshot()
+        kernels = sum(launch_counts().values())
         t0 = time.perf_counter()
         rec = lib.bitwise(op, src, dst, blocking=Blocking.FIN)
         host_ms = (time.perf_counter() - t0) * 1e3
         delta = lib.queue.delta(before)
-        if delta != {f"page_{op}": 2} or rec.launches != 2:
-            raise AssertionError(f"bitwise {op}: launches {delta}")
+        kernels = sum(launch_counts().values()) - kernels
+        if delta != {f"page_{op}": 2} or rec.launches != 2 or kernels != 1:
+            raise AssertionError(f"bitwise {op}: queue launches {delta}, "
+                                 f"{kernels} kernel launches")
         for a, w in zip(arenas, want):
             if not same_bits(a, w):
                 raise AssertionError(f"bitwise {op} disagrees with the "
                                      "plain version")
-        deltas[op] = {"launches": delta, "host_ms": host_ms}
+        deltas[op] = {"launches": delta, "kernel_launches": kernels,
+                      "host_ms": host_ms}
         del want
     counts = launch_counts()
-    missing = [k for k in LIB_KERNELS if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the path: {missing}")
+    got = {k: counts[k] for k in LIB_KERNELS}
+    if got != {"page_bitwise_batched": 2, "page_not_batched": 1}:
+        raise AssertionError(f"phase 9's kernel launches {got}: one a "
+                             "kind over the pair expected")
     out = {"phase": "ambit_lib", "arena": list(shape), "pages": 16,
            "ops": deltas, "bitwises": lib.stats["bitwises"],
            "kernel_launches": dict(counts)}
@@ -2574,6 +2704,312 @@ def sampled_choice(card_logits, dev, select, dr_ops) -> dict:
 
 # ---------------------------------------------------------------------- #
 # Phases 10-12: paged SSM, hybrid and MoE serving at full width
+# ---------------------------------------------------------------------- #
+# Phases 16-18: the eager prefill oracle, the dense forward, llava
+# ---------------------------------------------------------------------- #
+
+
+def eager_oracle(dev, cfg, params) -> dict:
+    """Phase 16: granite-3-8b at full width and depth on phase 6's
+    weights (``wq`` x 0.01), phase 6's three prompts one at a time (8
+    greedy new tokens each): the fused path first, recording its logits,
+    then ``fused_prefill=False`` teacher-forced by it.  The eager
+    first-token logits are held within ``LOGIT_ATOL`` of the fused
+    ones, and every greedy choice where the fused margin exceeds
+    ``MARGIN`` must agree; the eager prefill's launches are one
+    ``kv_write`` flush (``kv_scatter``, counted two by the queue) and
+    no ``fused_prefill``; 0 pages in use at the end."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.serving.engine import PagedEngine, Request
+
+    class Recording(_Recording, PagedEngine):
+        pass
+
+    prompts = [r.prompt for r in granite_requests(cfg, Request)]
+    out = {"phase": "eager_oracle", "arch": cfg.name,
+           "layers": cfg.num_layers, "wq_scale": 0.01, "requests": {}}
+    checked = agree = total = 0
+    reset_launches()
+    for i in (0, 2, 4):
+        runs = {}
+        for name, kw in (("fused", {}), ("eager", {"fused_prefill": False})):
+            forced = runs["fused"][0].logits if name == "eager" else None
+            eng = Recording(cfg, params, page_size=16, num_pages=256,
+                            device=dev, forced=forced, **kw)
+            eng.submit(Request(i, prompts[i], max_new_tokens=8,
+                               temperature=0.0))
+            before = eng.cache.queue.snapshot()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            delta = eng.cache.queue.delta(before)
+            stream = eng.run()[i]
+            if eng.cache.pages_in_use:
+                raise AssertionError(f"eager oracle ({name}): "
+                                     f"{eng.cache.pages_in_use} pages "
+                                     "leaked")
+            runs[name] = (eng, stream, delta, first_ms)
+        (f_eng, f_stream, _, f_ms), (e_eng, e_stream, e_delta, e_ms) = \
+            runs["fused"], runs["eager"]
+        if e_delta.get("kv_write") != 2 or "fused_prefill" in e_delta:
+            raise AssertionError(f"eager prefill launches {e_delta}")
+        first_err = float((e_eng.logits[0] - f_eng.logits[0]).abs().max())
+        if first_err > LOGIT_ATOL:
+            raise AssertionError(f"eager and fused first-token logits "
+                                 f"differ by {first_err}")
+        step_err = 0.0
+        for ours, ref in zip(e_eng.logits, f_eng.logits):
+            step_err = max(step_err, float((ours - ref).abs().max()))
+            top2 = ref.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > MARGIN
+            checked += int(sure.sum())
+            agree += int((ours.argmax(-1) == ref.argmax(-1))[sure].sum())
+            total += ref.shape[0]
+        if e_stream != f_stream:
+            raise AssertionError("teacher-forced streams differ")
+        out["requests"][i] = {
+            "prompt_len": int(len(prompts[i])),
+            "first_logits_max_abs_err": first_err,
+            "logits_max_abs_err": step_err,
+            "eager_first_step_ms": e_ms, "fused_first_step_ms": f_ms,
+            "eager_prefill_launches": e_delta}
+    if agree != checked:
+        raise AssertionError(f"greedy choices differ where the margin "
+                             f"exceeds {MARGIN}: {agree}/{checked}")
+    counts = launch_counts()
+    _check_launched(counts, ("kv_scatter", "paged_attention"),
+                    "eager oracle")
+    out.update(logit_atol=LOGIT_ATOL, margin=MARGIN,
+               choices_checked=checked, choices_total=total,
+               kernel_launches=_nonzero(counts))
+    return out
+
+
+def _scale_queries(params, scale: float) -> None:
+    """Scale every attention sublayer's ``wq`` (self, cross and MLA) in
+    place: phase 6's cure for the near-one-hot attention of random
+    weights at full width (query and key entries of 10-30 give scores of
+    hundreds, whose near-ties amplify any rounding difference)."""
+    for name, group in params.items():
+        if not name.startswith("group"):
+            continue
+        for key, sub in group.items():
+            if key.endswith(("_attn", "_mla", "_cross")):
+                sub["attn"]["wq"].mul_(scale)
+
+
+def forward_cross_check(dev) -> dict:
+    """Phase 17: ``models/transformer.forward`` (train mode) for every
+    family at 2 layers, the same random weights (a seeded generator on
+    the card, copied to the host) on the card and on the CPU, both with
+    ``layers.COMPUTE_DTYPE`` set to float32 for the phase: logits within
+    ``FORWARD_RTOL`` of the largest |logit| (every family is run and
+    printed before any failure raises), every ``wq`` scaled by 0.01
+    first, as in phase 6 (unscaled, llava's 2-layer logits part by
+    2.2e-3 of the largest on an H100, on float32 rounding alone).  A
+    probe first multiplies one (272, 7168) x (7168, 20480) float32 pair
+    on the card and in float64 on the host: its relative error is
+    float32's (about 1e-6) unless the card's matmuls run in TF32 (about
+    1e-3).  Full width for granite, llava (16 tokens after its 256 patch
+    embeds), mamba2 and seamless (1 + 1 layers, 32 frames); ``reduced()``
+    widths for llama4-scout (a leading dense layer), the MLA deepseek
+    and jamba (one 4-layer period), whose full-width expert layers (2-10
+    B parameters each) would run expert-dense on the host CPU in
+    float32."""
+    from repro_torch.configs import ARCHS, ParallelConfig, reduced
+    from repro_torch.models import layers, transformer as T
+    from repro_torch.models.params import init_params, tree_map
+
+    full = dataclasses.replace
+    cases = {
+        "dense": full(ARCHS["granite-3-8b"], num_layers=2),
+        "vlm": full(ARCHS["llava-next-34b"], num_layers=2),
+        "ssm": full(ARCHS["mamba2-1.3b"], num_layers=2),
+        "encdec": full(ARCHS["seamless-m4t-medium"], num_layers=2,
+                       enc_layers=1, dec_layers=1),
+        "moe": reduced(ARCHS["llama4-scout-17b-a16e"], num_layers=2),
+        "mla": reduced(ARCHS["deepseek-v2-236b"], num_layers=2),
+        "hybrid": reduced(ARCHS["jamba-1.5-large-398b"], num_layers=4,
+                          attn_every=4),
+    }
+    cases["moe"] = full(cases["moe"], moe=full(cases["moe"].moe,
+                                               first_dense_layers=1))
+    pcfg = ParallelConfig(remat="none", attention_impl="naive",
+                          moe_impl="dense")
+    rng = np.random.default_rng(17)
+    a = torch.from_numpy(rng.normal(size=(272, 7168)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(7168, 20480)).astype(np.float32))
+    ref = a.double() @ b.double()
+    probe = float(((a.to(dev) @ b.to(dev)).double().cpu() - ref).abs().max()
+                  / ref.abs().max())
+    out = {"phase": "forward_cross_check", "compute_dtype": "float32",
+           "rtol": FORWARD_RTOL, "wq_scale": 0.01,
+           "float32_matmul_precision": torch.get_float32_matmul_precision(),
+           "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "gemm_probe_rel_err": probe, "families": {}}
+    del a, b, ref
+    failed = []
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        for family, cfg in cases.items():
+            gen = torch.Generator(device=dev).manual_seed(17)
+            p_gpu = init_params(T.model_defs(cfg), gen, dev, torch.bfloat16)
+            _scale_queries(p_gpu, 0.01)
+            p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, 16))
+                     .astype(np.int32)}
+            fd = cfg.frontend_dim or cfg.d_model
+            if family == "vlm":
+                batch["patch_embeds"] = rng.normal(
+                    size=(1, cfg.num_patch_tokens, fd)).astype(np.float32)
+            if family == "encdec":
+                batch["frames"] = rng.normal(size=(1, 32, fd)).astype(
+                    np.float32)
+            logits = {}
+            for name, params, d in (("gpu", p_gpu, dev),
+                                    ("cpu", p_cpu, "cpu")):
+                b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+                t0 = time.perf_counter()
+                lg, _ = T.forward(cfg, pcfg, params, b, mode="train")
+                logits[name] = lg.float().cpu()
+                logits[f"{name}_s"] = time.perf_counter() - t0
+            err = float((logits["gpu"] - logits["cpu"]).abs().max())
+            top = float(logits["cpu"].abs().max())
+            if not bool(torch.isfinite(logits["gpu"]).all()) \
+                    or err > FORWARD_RTOL * top:
+                failed.append(family)
+            out["families"][family] = {
+                "arch": cfg.name, "d_model": cfg.d_model,
+                "kinds": [k for _, ks in T.layer_groups(cfg) for k in ks],
+                "logits_shape": list(logits["gpu"].shape),
+                "max_abs_logit": top, "max_abs_err": err,
+                "rel_err": err / top, "card_s": logits["gpu_s"],
+                "cpu_s": logits["cpu_s"]}
+            del p_gpu, p_cpu
+            _free_card()
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    if failed:
+        raise AssertionError(f"forward: card and CPU logits differ beyond "
+                             f"{FORWARD_RTOL} of the largest |logit| for "
+                             f"{failed}: {json.dumps(out)}")
+    return out
+
+
+def _llava_depth(dev, cfg, num_pages, page_size, reserve) -> tuple:
+    """The deepest cut of ``cfg`` (at most its own depth) whose bf16
+    weights and KV arena fit the card's free memory less ``reserve``
+    bytes, and the bytes each takes at that depth."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
+
+    free, _ = torch.cuda.mem_get_info(dev)
+    one = param_count(T.model_defs(dataclasses.replace(cfg, num_layers=1)))
+    two = param_count(T.model_defs(dataclasses.replace(cfg, num_layers=2)))
+    per_layer = 2 * (two - one)                 # bf16 bytes a layer
+    fixed = 2 * one - per_layer                 # embeddings, norm, patch
+    kv_layer = (2 * num_pages * page_size * cfg.num_kv_heads
+                * cfg.resolved_head_dim * 2)
+    depth = min(cfg.num_layers,
+                int((free - reserve - fixed) // (per_layer + kv_layer)))
+    return depth, {"free_bytes": free, "reserve_bytes": reserve,
+                   "weight_bytes": fixed + depth * per_layer,
+                   "kv_arena_bytes": depth * kv_layer,
+                   "layer_bytes": per_layer, "kv_layer_bytes": kv_layer}
+
+
+def serving_llava(dev) -> tuple:
+    """Phase 18: llava-next-34b at full width (and full depth unless the
+    card cannot hold it: :func:`_llava_depth`, the cut printed with its
+    bytes) served text-only through the dense layout from a 256-page
+    arena of 16 tokens: 4 greedy requests of 257-512 tokens, 32 new
+    tokens, monolithic; then the same prompts chunked at 256 with mixed
+    rounds and 8-round blocks, request 1 sampled.  Each run prints its
+    decode round on the host clock, each step ending in its token
+    transfer (monolithic: the median of the one-round steps; chunked:
+    the K-blocks' milliseconds over their rounds), against the round's
+    bound (every weight a round reads and each row's KV at its mid-run
+    length, read once at 3.35 TB/s), and its tokens/s.  Returns the line
+    and the kernel launches of both runs."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
+    from repro_torch.serving.engine import Request
+
+    _free_card()
+    full = ARCHS["llava-next-34b"]
+    pages, ps = 256, 16
+    depth, mem = _llava_depth(dev, full, pages, ps, reserve=6 * 2**30)
+    if depth < 1:
+        raise AssertionError(f"llava-next-34b: not one layer fits ({mem})")
+    cfg = dataclasses.replace(full, num_layers=depth)
+    params, init_s = _model_params(dev, cfg, 18)
+    weight_bytes = param_count(T.model_defs(cfg)) * 2
+    kv_tok = 2 * depth * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    line = {"phase": "serve_llava", "arch": cfg.name, "layers": depth,
+            "full_depth": full.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+            "params": param_count(T.model_defs(cfg)),
+            "init_seconds": init_s, "memory": mem, "runs": {}}
+    # a decode round reads every weight but the input embedding and the
+    # patch projection (the tokens' rows only), and each row's KV
+    read_bytes = weight_bytes - 2 * cfg.d_model * (
+        cfg.frontend_dim + (0 if cfg.tie_embeddings else cfg.vocab_size))
+    total = None
+    for name, temps, kw, need in (
+            ("monolithic", lambda i: 0.0, {}, MOE_KERNELS),
+            ("chunked", lambda i: float(i == 1),
+             dict(max_prefill_chunk=256, mixed_rounds=True,
+                  decode_block_rounds=8), CHUNKED_KERNELS)):
+        reqs = seeded_requests(cfg, Request, 4, 257, 513, 32,
+                               temperature=temps)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        out = serve(cfg, params, reqs, page_size=ps, num_pages=pages,
+                    device=dev, **kw)
+        counts = launch_counts()
+        engine = out["engine"]
+        _check_launched(counts, need, f"serve_llava ({name})")
+        _check_drained(engine, f"serve_llava ({name})")
+        check_streams(cfg, out["results"], 4, new_tokens=32)
+        steps = _steps(out)
+        ms = steps["step_ms"]
+        if kw:
+            # the K-blocks' rounds: all rounds but the mixed rounds'
+            block_rounds = (engine.stats["decode_rounds"]
+                            - len(ms.get("mixed", []))
+                            - len(ms.get("decode", [])))
+            round_ms = sum(ms.get("decode_block", [])) / max(block_rounds, 1)
+        else:
+            round_ms = float(np.median(ms["decode"]))
+        # each row's KV at its mid-run length
+        ctx = sum(len(r.prompt) + 16 for r in reqs)
+        bound_ms = (read_bytes + ctx * kv_tok) / HBM_BYTES_PER_S * 1e3
+        line["runs"][name] = {
+            **kw, "prompt_lens": [int(len(r.prompt)) for r in reqs],
+            "decode_round_ms": round_ms,
+            "decode_round_bound_ms": bound_ms,
+            "decode_round_share_of_bound": bound_ms / round_ms,
+            "decode_round_bound_by": "bytes",
+            "tokens": out["tokens"], "seconds": out["seconds"],
+            "tokens_per_s": out["tokens"] / out["seconds"],
+            "prefill_s": engine.stats["prefill_seconds"], **steps,
+            "launches_by_kind": _nonzero(engine.cache.queue.launches_by_kind),
+            "kernel_launches": _nonzero(counts), **_graph_stats(engine),
+            "pages_in_use": engine.cache.pages_in_use,
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        total = counts if total is None else {k: total[k] + counts[k]
+                                              for k in counts}
+        del engine, out
+    del params
+    _free_card()
+    return line, total
+
+
 # ---------------------------------------------------------------------- #
 
 
@@ -2976,6 +3412,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     card = card_line()
     t0 = time.perf_counter()
     build_s = _build.build()
@@ -3019,11 +3456,16 @@ def main() -> int:
     graphs["mamba2"]["profiled_replay"] = traced_ssm["decode_captured"]
     emit(graphs)
     emit(chunked_vs_monolithic(dev, cfg, params))
+    oracle = eager_oracle(dev, cfg, params)
+    emit(oracle)
     del params
     torch.cuda.empty_cache()
     emit(cross_check(dev))
     lib_line, counts_lib = ambit_lib(dev)
     emit(lib_line)
+    emit(forward_cross_check(dev))
+    llava, counts_llava = serving_llava(dev)
+    emit(llava)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3032,7 +3474,9 @@ def main() -> int:
                     + prefix["kernel_launches"][name] + counts_lib[name]
                     + counts_sweep[name]
                     + ssm["kernel_launches"][name]
-                    + hybrid["kernel_launches"][name])
+                    + hybrid["kernel_launches"][name]
+                    + oracle["kernel_launches"].get(name, 0)
+                    + counts_llava[name])
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

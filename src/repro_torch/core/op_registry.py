@@ -29,8 +29,9 @@ The torch-face flush executors below cover the built-in kinds:
 * ``page_init`` — RowClone-Init (init-on-free), one launch per arena per
   distinct fill value;
 * ``page_and`` / ``page_or`` / ``page_not`` — Ambit bulk bitwise ops
-  (``dst <- src OP dst``, ``dst <- ~src``), one launch per arena per
-  kind for the whole pending batch;
+  (``dst <- src OP dst``, ``dst <- ~src``), one launch a kind for the
+  whole pending batch over an arena pair (else one per arena),
+  accounted per arena;
 * ``kv_write`` — token KV slot writes, one scatter launch per arena;
 * ``ssm_state_write`` — SSM recurrent-state row writes.  The state lives
   in a state arena of its own, not in the (k, v) pair a generic queue
@@ -248,13 +249,19 @@ def _flush_page_init(q, arenas, ops):
 
 
 def _make_flush_bitwise(op: str, kind: str) -> Callable:
-    """Flush executor of an Ambit kind: one layer-batched launch per
-    arena for the whole pending (src, dst) batch, on bit patterns."""
+    """Flush executor of an Ambit kind: the whole pending (src, dst)
+    batch, on bit patterns, in one layer-batched launch for an arena
+    pair (the (K, V) pages), else one per arena; accounted as
+    ``len(arenas)`` launches, as the JAX package counts them."""
     def _flush(q, arenas, ops):
         src = [s for s, _ in ops]
         dst = [d for _, d in ops]
-        for a in arenas:
-            amb_ops.pim_page_bitwise_batched(a, src, dst, op=op)
+        if len(arenas) == 2:
+            amb_ops.pim_page_bitwise_batched_pair(arenas[0], arenas[1], src,
+                                                  dst, op=op)
+        else:
+            for a in arenas:
+                amb_ops.pim_page_bitwise_batched(a, src, dst, op=op)
         q._count_launch(kind, len(arenas))
         return arenas
     return _flush

@@ -463,7 +463,9 @@ class TorchLib(PimLib):
     def bitwise(self, op: str, src: Allocation, dst: Allocation,
                 blocking: Blocking = Blocking.ACK) -> OpReceipt:
         """Ambit ``dst <- src OP dst`` (or ``~src`` for "not") on pages:
-        one coalesced bitwise launch per bound arena at flush.  ``admit``
+        one coalesced bitwise launch at flush over a bound (K, V) pair,
+        else one per bound arena (the queue counts one per arena, as the
+        JAX package does).  ``admit``
         registers the source pages as reads, so a pending op that wrote
         either operand flushes first."""
         kind = self._BITWISE_KIND.get(op)

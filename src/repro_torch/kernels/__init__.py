@@ -54,16 +54,16 @@ def count_launch(name: str, n: int = 1) -> None:
 #: the name a profiler gives it; names that share a kernel share it
 DEVICE_KERNEL = {
     "kv_scatter": "kv_scatter_kernel",
-    "page_copy_batched": "copy_pages_(cluster_)?kernel",
-    "page_copy": "copy_pages_(cluster_)?kernel",
+    "page_copy_batched": "page_rows(_cluster)?_kernel.*CopyOp",
+    "page_copy": "page_rows(_cluster)?_kernel.*CopyOp",
     "page_init_batched": "init_rows_kernel",
     "page_init": "init_rows_kernel",
     "paged_attention": "paged_split_kernel",
     "flash_attention": "flash_(tc|simt)_kernel",
     "flash_attention_prefix": "flash_(tc|simt)_kernel",
     "random_u32": "drange_(uniform_)?kernel",
-    "page_bitwise_batched": "bitwise_rows_kernel",
-    "page_not_batched": "bitwise_rows_kernel",
+    "page_bitwise_batched": "page_rows(_cluster)?_kernel.*(And|Or)Op",
+    "page_not_batched": "page_rows(_cluster)?_kernel.*NotOp",
     "page_zero_scan": "zero_scan_kernel",
     "state_scatter": "state_scatter_kernel",
     "copy_2d": "copy_flat_kernel",

@@ -8,8 +8,10 @@ use, on the machine with the card, into a shared library loaded with
         -Xcompiler -fPIC -Xptxas -v \\
         -o build/repro_torch/lib<name>-<hash>.so <name>.cu
 
-The library's name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded.  ptxas's report (registers,
+The library's name carries a hash of its source and of the headers
+beside it (``page_rows.cuh``, which ``rowclone.cu`` and ``ambit.cu``
+include), so an edited source or header is rebuilt and a stale library
+is never loaded.  ptxas's report (registers,
 spills and shared memory of each kernel) is kept beside the library as
 ``lib<name>-<hash>.log``.  Nothing here runs at
 import time: the package imports, and its CPU paths run, on a machine
@@ -67,7 +69,8 @@ SIGNATURES = {
         "dr_random_uniform": [_U, _U, _P, _L, _L, _P, _P],
     },
     "ambit": {
-        "am_bitwise_rows": [_P, _P, _L, _P, _P, _L, _I, _I, _L, _I, _P],
+        "am_page_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+        "am_cluster_chunks": [],
         "am_zero_scan": [_P, _P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _P,
                          _P],
         "am_alloc_mapped": [_L, _PP],
@@ -95,7 +98,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    every header in ``csrc/`` (``page_rows.cuh`` is shared) and the
+    flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha1(b"".join(parts)
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -2,96 +2,134 @@
 
 The port's counterpart of the JAX package's ``kernels/ambit/ops.py``:
 ``pim_page_bitwise_batched`` (AND, OR and NOT) and
-``pim_page_zero_scan``, and ``pim_page_zero_scan_pair``, the scan of
-a (K, V) pair in one launch whose flags come back to the host.  The ops
-are defined on bit patterns, so any dtype works and a float arena is
-never converted.  The JAX versions donate the arena and return the new
-one; these update it in place and return it.  On a CPU tensor each runs
-its plain version in :mod:`.ref`; on a CUDA tensor it launches the
-kernel or raises.  Launches count under ``page_bitwise_batched`` (AND,
-OR), ``page_not_batched`` (NOT) and ``page_zero_scan`` (one a scan,
-pair or single).  A scan's page list of up to
-:data:`~repro_torch.kernels.rowclone.ops.INLINE_ROWS` pages travels in
-the launch's parameters; a longer one is uploaded.
+``pim_page_bitwise_batched_pair`` (one op list on both arenas of a
+pair, in one launch), ``pim_page_zero_scan``, and
+``pim_page_zero_scan_pair``, the scan of a (K, V) pair in one launch
+whose flags come back to the host.  The ops are defined on bit
+patterns, so any dtype works and a float arena is never converted.  The
+JAX versions donate the arena and return the new one; these update it
+in place.  On a CPU tensor each runs its plain version in :mod:`.ref`;
+on a CUDA tensor it launches the kernel or raises.  Launches count
+under ``page_bitwise_batched`` (AND, OR), ``page_not_batched`` (NOT)
+and ``page_zero_scan`` (one a scan, pair or single).  A bitwise op list
+of up to :data:`~repro_torch.kernels.rowclone.ops.INLINE_PAIRS` ops and
+a scan's page list of up to
+:data:`~repro_torch.kernels.rowclone.ops.INLINE_ROWS` pages travel in
+the launch's parameters; longer ones are uploaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.rowclone.ops import (INLINE_ROWS, Index,
-                                              _check_arena, _check_rows,
-                                              _host_index, _row_bytes,
-                                              _stream, upload, upload_index)
+                                              _check_arena, _check_cuda,
+                                              _check_rows, _host_index,
+                                              _int_list, _row_bytes,
+                                              _stream, launch_rows, upload)
 from . import ref
 
 _OP_CODE = {"and": 0, "or": 1, "not": 2}
-_COPY = 3
-_MAX_GRID = 65535          # the kernels' grid y (ops, pages), z (layers)
+_COPY = 3                  # the staged route's gather
+_MAX_GRID = 65535          # the scan's grid y (pages)
 
 
-def _stage(src: np.ndarray, dst: np.ndarray) -> bool:
-    """Does some op read a page that another op of the batch writes?
-    (An op on its own destination reads and writes each word in one
-    thread; only a source written by another op needs staging.)"""
-    writer = {int(d): i for i, d in enumerate(dst)}
-    return any(writer.get(int(s), i) != i for i, s in enumerate(src))
+def _bitwise_ops(src_pages: Index, dst_pages: Index, limit: int,
+                 op: str) -> Tuple[List[int], List[int]]:
+    """A bitwise batch's page lists as host ints, each checked to lie in
+    ``[0, limit)`` (``IndexError``); lists of two lengths, an unknown op
+    and a repeated destination raise ``ValueError`` (the op queue
+    flushes before a second op on one page)."""
+    if op not in _OP_CODE:
+        raise ValueError(f"unknown ambit bitwise op {op!r}")
+    src, dst = _int_list(src_pages), _int_list(dst_pages)
+    if len(src) != len(dst):
+        raise ValueError("src and dst page lists differ in length")
+    if not src:
+        return src, dst
+    for what, rows in (("src page", src), ("dst page", dst)):
+        if min(rows) < 0 or max(rows) >= limit:
+            raise IndexError(f"{what} out of range [0, {limit})")
+    if len(set(dst)) != len(dst):
+        raise ValueError("an ambit batch writes one page at most once")
+    return src, dst
+
+
+def _plain(arena: torch.Tensor, src: List[int], dst: List[int],
+           op: str) -> torch.Tensor:
+    s, d = torch.tensor(src), torch.tensor(dst)
+    if op == "not":
+        return ref.page_not_batched(arena, s, d)
+    return ref.page_bitwise_batched(arena, s, d, op)
+
+
+def _launch_bitwise(arenas, src: List[int], dst: List[int], op: str) -> str:
+    """One ``am_page_rows`` launch of ``op`` over one arena or a pair
+    (two on the staged route, :func:`~repro_torch.kernels.rowclone.ops.
+    launch_rows`).  Returns the route."""
+    lib = _build.load("ambit")
+    stream = _stream(arenas[0])
+    code = _OP_CODE[op]
+    name = "page_not_batched" if op == "not" else "page_bitwise_batched"
+    return launch_rows(
+        arenas, 2, src, dst, name,
+        lambda *args: lib.am_page_rows(*args[:-1],
+                                       _COPY if args[-1] else code, stream),
+        cluster_chunks)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_chunks() -> int:
+    """The most 16 KiB chunks of one layer's batch that the bitwise ops'
+    cluster route stages in shared memory (``am_cluster_chunks``)."""
+    return _build.load("ambit").am_cluster_chunks()
 
 
 def pim_page_bitwise_batched(arena: torch.Tensor, src_pages: Index,
                              dst_pages: Index, *, op: str) -> torch.Tensor:
     """``arena[:, dst[i]] <- arena[:, src[i]] OP arena[:, dst[i]]`` for op
     in {"and", "or"}, or ``<- ~arena[:, src[i]]`` for "not", across every
-    layer, in place.  Every op reads the pre-batch arena: the page lists
-    are host data, so the wrapper sees when a destination is another
-    op's source and only then stages the sources through scratch (one
-    gather launch, then the op's launch).  Destinations are distinct
-    (the op queue flushes before a second op on one page)."""
-    if op not in _OP_CODE:
-        raise ValueError(f"unknown ambit bitwise op {op!r}")
-    src = _host_index(src_pages)
-    dst = _host_index(dst_pages)
-    if src.size != dst.size:
-        raise ValueError("src and dst page lists differ in length")
-    if src.size == 0:
+    layer of an ``(L, P, ...)`` arena, in place.  Every op reads the
+    pre-batch arena: the page lists are host data, so the wrapper sees
+    when a destination is another op's source and then takes the
+    kernel's cluster route (:func:`~repro_torch.kernels.rowclone.ops.
+    copy_route`).  Destinations are distinct."""
+    src, dst = _bitwise_ops(src_pages, dst_pages, arena.shape[1], op)
+    if not src:
         return arena
-    L, P = arena.shape[:2]
-    src_d = upload_index(src, P, "src page", arena.device)
-    dst_d = upload_index(dst, P, "dst page", arena.device)
     if arena.device.type == "cpu":
-        if op == "not":
-            return ref.page_not_batched(arena, src_d, dst_d)
-        return ref.page_bitwise_batched(arena, src_d, dst_d, op)
-    _check_arena(arena)
-    n = int(src.size)
-    if n > _MAX_GRID or L > _MAX_GRID:
-        raise ValueError(f"{n} ops over {L} layers: at most {_MAX_GRID} each")
-    lib = _build.load("ambit")
-    row = _row_bytes(arena, 2)
-    stream = _stream(arena)
-    name = "page_not_batched" if op == "not" else "page_bitwise_batched"
-    if not _stage(src, dst):
-        _build.check(lib.am_bitwise_rows(
-            arena.data_ptr(), src_d.data_ptr(), P, arena.data_ptr(),
-            dst_d.data_ptr(), P, n, L, row, _OP_CODE[op], stream), name)
-        count_launch(name)
-        return arena
-    scratch = torch.empty((L, n) + tuple(arena.shape[2:]), dtype=arena.dtype,
-                          device=arena.device)
-    _build.check(lib.am_bitwise_rows(
-        arena.data_ptr(), src_d.data_ptr(), P, scratch.data_ptr(), None, n,
-        n, L, row, _COPY, stream), f"{name} (gather)")
-    _build.check(lib.am_bitwise_rows(
-        scratch.data_ptr(), None, n, arena.data_ptr(), dst_d.data_ptr(), P,
-        n, L, row, _OP_CODE[op], stream), name)
-    count_launch(name, 2)
+        return _plain(arena, src, dst, op)
+    _check_cuda(arena, "pim_page_bitwise_batched")
+    _launch_bitwise((arena,), src, dst, op)
     return arena
+
+
+def pim_page_bitwise_batched_pair(a0: torch.Tensor, a1: torch.Tensor,
+                                  src_pages: Index, dst_pages: Index, *,
+                                  op: str) -> None:
+    """:func:`pim_page_bitwise_batched` with one op list on both arenas
+    of a pair (each ``(L, P, ...)``, shapes and dtypes may differ; the
+    pages must lie in both), in one launch counted once."""
+    if a0.device != a1.device:
+        raise ValueError("the pair's arenas lie on different devices")
+    src, dst = _bitwise_ops(src_pages, dst_pages,
+                            min(a0.shape[1], a1.shape[1]), op)
+    if not src:
+        return
+    if a0.device.type == "cpu":
+        _plain(a0, src, dst, op)
+        _plain(a1, src, dst, op)
+        return
+    _check_cuda(a0, "pim_page_bitwise_batched_pair")
+    _check_cuda(a1, "pim_page_bitwise_batched_pair")
+    _launch_bitwise((a0, a1), src, dst, op)
 
 
 def pim_page_zero_scan(arena: torch.Tensor, pages: Index) -> torch.Tensor:

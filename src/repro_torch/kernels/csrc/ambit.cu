@@ -3,8 +3,8 @@
 //
 // Replaces the JAX package's Pallas kernels in
 // src/repro/kernels/ambit/ambit.py:
-//   am_bitwise_rows (AND, OR)  <- page_bitwise_batched  (ambit.py:48)
-//   am_bitwise_rows (NOT)      <- page_not_batched      (ambit.py:91)
+//   am_page_rows (AND, OR)     <- page_bitwise_batched  (ambit.py:48)
+//   am_page_rows (NOT)         <- page_not_batched      (ambit.py:91)
 //   am_zero_scan               <- page_zero_scan        (ambit.py:135)
 //
 // What they compute, on the raw bits of an (L, P, row) arena:
@@ -20,25 +20,32 @@
 // does one logic instruction a word; the scan only reads.  At the
 // serving path's shapes (granite-3-8b: 40 layers, a page row of 16 slots
 // x 8 KV heads x 128 dims in bf16 = 32 KiB a layer) an AND over 16 pages
-// moves 3 x 16 x 40 x 32 KiB = 63 MB, 19 us at 3.35 TB/s.  The scan of a
+// moves 3 x 16 x 40 x 32 KiB = 63 MB, 19 us at 3.35 TB/s (38 us for the
+// (K, V) pair in one launch).  The scan of a
 // pair over 16 pages reads 2 x 16 x 40 x 32 KiB = 42 MB, 12.5 us (a page
 // found nonzero needs no more than the word that shows it, but its blocks
 // run side by side with the others, so the kernel reads it all).
 //
-// Design of the bitwise ops: one thread per 16-byte word of a row (or per byte when a row
-// is not a multiple of 16 bytes, or a base is not 16-byte aligned), a
-// grid over (word block, op, layer), so every thread does one load or
-// two and one store.  The arena is updated in place: untouched rows are
-// never read.  A "copy" op (COPY) serves the wrapper's staging.
+// Design of the bitwise ops (page_rows.cuh, shared with the RowClone page
+// copy): one launch a flush over one arena or the (K, V) pair (each
+// arena its own descriptor), the (src, dst) list of up to kInlinePairs
+// ops in the launch's parameters (a longer one is uploaded), rows cut
+// into 16 KiB chunks, one block a chunk.  The arena is updated in place:
+// untouched rows are never read.
 //
-// Ordering: GPU blocks run in no order.  The reference reads every
-// source before any write (the Pallas grid, in order, does too for the
-// batches the op queue forms), so a batch in which a destination is
-// another op's source is staged by the wrapper: one COPY launch gathers
-// the sources into scratch, one launch of the op reads them from there.
-// An op whose source is its own destination reads and writes each word
-// in one thread, so it needs no staging.  The op queue never forms a
-// batch with two ops on one destination.
+// Ordering: GPU blocks run in no order, and every op reads the arena as
+// it was before the batch (the reference reads every source before any
+// write; the Pallas grid, in order, does too for the batches the op
+// queue forms).  A batch in which a destination is another op's source
+// takes the cluster route: one thread-block cluster per (layer, arena)
+// stages the layer's sources in shared memory, meets at one cluster
+// barrier, then combines each staged source with its destination (which
+// only its own op writes) and stores.  An op whose source is its own
+// destination reads and writes each word in one thread, so it is no
+// hazard.  A layer's batch past the cluster's capacity (am_cluster_chunks)
+// is staged through scratch by the wrapper: a COPY gather, then the op.
+// Destinations are distinct (the wrapper refuses duplicates; the op queue
+// flushes before a second op on one page).
 //
 // The scan is one launch whatever it serves: grid z picks the arena (a
 // (K, V) pair in one launch, as rc_init_rows does), a page list of up to
@@ -63,61 +70,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "page_rows.cuh"
+
 namespace {
-
-enum Op { kAnd = 0, kOr = 1, kNot = 2, kCopy = 3 };
-
-template <int OP>
-__device__ __forceinline__ unsigned char combine(unsigned char s,
-                                                 unsigned char d) {
-  if (OP == kAnd) return s & d;
-  if (OP == kOr) return s | d;
-  if (OP == kNot) return static_cast<unsigned char>(~s);
-  return s;
-}
-
-template <int OP>
-__device__ __forceinline__ unsigned int combine(unsigned int s,
-                                                unsigned int d) {
-  if (OP == kAnd) return s & d;
-  if (OP == kOr) return s | d;
-  if (OP == kNot) return ~s;
-  return s;
-}
-
-template <int OP>
-__device__ __forceinline__ uint4 combine(uint4 s, uint4 d) {
-  return make_uint4(combine<OP>(s.x, d.x), combine<OP>(s.y, d.y),
-                    combine<OP>(s.z, d.z), combine<OP>(s.w, d.w));
-}
 
 __device__ __forceinline__ bool nonzero(unsigned char w) { return w != 0; }
 
 __device__ __forceinline__ bool nonzero(uint4 w) {
   return (w.x | w.y | w.z | w.w) != 0;
-}
-
-// grid (word blocks, n, L): dst[l, dst_idx[i]] <- OP(src[l, src_idx[i]],
-// dst[l, dst_idx[i]]); a null index array means the identity (row i).
-template <typename W, int OP>
-__global__ void bitwise_rows_kernel(const W* src,
-                                    const int* __restrict__ src_idx,
-                                    long long src_rows, W* dst,
-                                    const int* __restrict__ dst_idx,
-                                    long long dst_rows, long long row_words) {
-  const long long w = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (w >= row_words) return;
-  const int i = blockIdx.y;
-  const long long l = blockIdx.z;
-  const long long sr = src_idx ? src_idx[i] : i;
-  const long long dr = dst_idx ? dst_idx[i] : i;
-  const W s = src[(l * src_rows + sr) * row_words + w];
-  W* d = dst + (l * dst_rows + dr) * row_words + w;
-  if (OP == kAnd || OP == kOr)
-    *d = combine<OP>(s, *d);
-  else
-    *d = combine<OP>(s, s);
 }
 
 constexpr int kThreads = 256;
@@ -187,61 +147,45 @@ bool aligned16(const void* a, const void* b, long long row_bytes) {
            static_cast<uintptr_t>(row_bytes)) & 15) == 0;
 }
 
-template <typename W, int OP>
-void launch_op(const void* src, const int* src_idx, long long src_rows,
-               void* dst, const int* dst_idx, long long dst_rows, int n,
-               int L, long long row_words, cudaStream_t st) {
-  dim3 grid(static_cast<unsigned>((row_words + kThreads - 1) / kThreads), n,
-            L);
-  bitwise_rows_kernel<W, OP><<<grid, kThreads, 0, st>>>(
-      static_cast<const W*>(src), src_idx, src_rows, static_cast<W*>(dst),
-      dst_idx, dst_rows, row_words);
-}
+}  // namespace
 
-template <typename W>
-int launch_any(int op, const void* src, const int* src_idx,
-               long long src_rows, void* dst, const int* dst_idx,
-               long long dst_rows, int n, int L, long long row_words,
-               cudaStream_t st) {
+// One page-op launch (page_rows.cuh's launch_page_rows) over `arenas`
+// (1 or 2) arenas: op 0 AND, 1 OR, 2 NOT, 3 COPY (the staged route's
+// gather).  desc: 6 values an arena (source base, destination base,
+// source rows a layer, destination rows a layer, row bytes, layers).
+// The ops' rows: dev_idx on the card, or (dev_idx null) host_idx on the
+// host, at most kInlinePairs ops (the wrapper's INLINE_PAIRS), passed in
+// the launch; each 2n ints, sources then destinations.  identity: bit 0,
+// op i reads row i; bit 1, it writes row i.  route 0: direct; 1: cluster.
+extern "C" int am_page_rows(const long long* desc, int arenas,
+                            const int* dev_idx, const int* host_idx, int n,
+                            int identity, int route, int op, void* stream) {
   switch (op) {
-    case kAnd:
-      launch_op<W, kAnd>(src, src_idx, src_rows, dst, dst_idx, dst_rows, n,
-                         L, row_words, st);
-      break;
-    case kOr:
-      launch_op<W, kOr>(src, src_idx, src_rows, dst, dst_idx, dst_rows, n,
-                        L, row_words, st);
-      break;
-    case kNot:
-      launch_op<W, kNot>(src, src_idx, src_rows, dst, dst_idx, dst_rows, n,
-                         L, row_words, st);
-      break;
-    case kCopy:
-      launch_op<W, kCopy>(src, src_idx, src_rows, dst, dst_idx, dst_rows, n,
-                          L, row_words, st);
-      break;
+    case 0:
+      return launch_page_rows<AndOp>(desc, arenas, dev_idx, host_idx, n,
+                                     identity, route, stream);
+    case 1:
+      return launch_page_rows<OrOp>(desc, arenas, dev_idx, host_idx, n,
+                                    identity, route, stream);
+    case 2:
+      return launch_page_rows<NotOp>(desc, arenas, dev_idx, host_idx, n,
+                                     identity, route, stream);
+    case 3:
+      return launch_page_rows<CopyOp>(desc, arenas, dev_idx, host_idx, n,
+                                      identity, route, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// op: 0 AND, 1 OR, 2 NOT, 3 COPY; rows of row_bytes bytes, layer-major
-// (layer l's rows start at l * rows * row_bytes); n <= 65535, L <= 65535
-extern "C" int am_bitwise_rows(const void* src, const int* src_idx,
-                               long long src_rows, void* dst,
-                               const int* dst_idx, long long dst_rows, int n,
-                               int L, long long row_bytes, int op,
-                               void* stream) {
-  if (n <= 0 || L <= 0 || row_bytes <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (aligned16(src, dst, row_bytes))
-    return launch_any<uint4>(op, src, src_idx, src_rows, dst, dst_idx,
-                             dst_rows, n, L, row_bytes / 16, st);
-  return launch_any<unsigned char>(op, src, src_idx, src_rows, dst, dst_idx,
-                                   dst_rows, n, L, row_bytes, st);
+// the chunks a cluster of the bitwise ops holds at most (the least over
+// AND, OR and NOT): the wrapper stages a layer's batch of more through
+// scratch instead
+extern "C" int am_cluster_chunks() {
+  const int a = page_cluster_chunks<AndOp>();
+  const int o = page_cluster_chunks<OrOp>();
+  const int n = page_cluster_chunks<NotOp>();
+  return a < o ? (a < n ? a : n) : (o < n ? o : n);
 }
 
 // The zero scan of the same pages of `arenas` (1 or 2) arenas of one

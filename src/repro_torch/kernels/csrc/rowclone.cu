@@ -96,12 +96,16 @@
 // one destination only the last reaches the kernel (the wrapper drops
 // the rest).  Duplicate (page, slot) pairs in one scatter are allowed
 // only with identical payloads (batch pad rows); the op queue removes
-// real duplicates on the host before it launches.
+// real duplicates on the host before it launches.  The page copy's
+// kernels (page_rows_kernel / page_rows_cluster_kernel with CopyOp) and
+// the bulk PTX live in page_rows.cuh, which the Ambit page ops share.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "page_rows.cuh"
 
 namespace {
 
@@ -169,98 +173,6 @@ __global__ void init_rows_kernel(char* __restrict__ dst0,
     for (long long k = threadIdx.x; k < row_bytes; k += blockDim.x)
       row[k] = static_cast<char>((pattern >> (8 * (k & 3))) & 0xFF);
   }
-}
-
-// --- the bulk route's PTX (sm_90) ---------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the L2 policy of every bulk operation: evict first
-__device__ __forceinline__ uint64_t bulk_l2_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-               : "=l"(policy));
-  return policy;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(phase)
-        : "memory");
-}
-
-// arrive on `bar` once, expecting `bytes` from the bulk loads that
-// complete on it
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-// global -> shared, completing `bytes` on `bar` (no arrival: one
-// mbar_expect covers a block's loads), L2 policy left to the hardware
-__device__ __forceinline__ void bulk_load_tx(void* smem, const void* gmem,
-                                             uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// shared -> global in the open bulk group, L2 policy left to the hardware
-__device__ __forceinline__ void bulk_store_tx(void* gmem, const void* smem,
-                                              uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-      ::"l"(gmem), "r"(smem_u32(smem)), "r"(bytes)
-      : "memory");
-}
-
-// global -> shared, completing `bytes` on `bar`
-__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
-                                          uint32_t bytes, uint64_t* bar,
-                                          uint64_t policy) {
-  mbar_expect(bar, bytes);
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
-      ::"r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(smem_u32(bar)),
-      "l"(policy)
-      : "memory");
-}
-
-// shared -> global, one bulk group
-__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
-                                           uint32_t bytes, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
-      " [%0], [%1], %2, %3;"
-      ::"l"(gmem), "r"(smem_u32(smem)), "r"(bytes), "l"(policy)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// wait until every bulk group has completed its writes
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // the bulk route: a copy block moves 4 tiles of 16 KiB, a fill block
@@ -406,191 +318,6 @@ constexpr int kBulkThreads = 128;
 // the buffer with a grid stride
 constexpr int kFlatBlocksPerSM = 16;
 
-// --- the page copy (rows 2 and 13) --------------------------------------
-
-// the bytes of a row one block moves on the direct route, and one bulk
-// tile on the cluster route
-constexpr long long kChunk = 16 * 1024;
-constexpr int kWordsPerThread = static_cast<int>(kChunk / 16 / kThreads);
-static_assert(kWordsPerThread * 16 * kThreads == kChunk,
-              "a direct block's threads cover a chunk in whole words");
-// (src, dst) pairs that travel in the launch's parameters: 2 KiB of
-// indices, inside the 4 KiB kernel-parameter limit of every CUDA version
-constexpr int kInlinePairs = 256;
-// the cluster route: at most this many blocks a cluster, each staging at
-// most kClusterBlockBytes of its layer's sources in shared memory
-constexpr int kMaxCluster = 16;
-constexpr long long kClusterBlockBytes = 128 * 1024;
-
-// one arena of a copy: row r of layer l starts at base + (l * rows + r) *
-// row_bytes on either side (the arena on both, or the arena and a
-// scratch buffer on the staged route's two launches)
-struct CopyArena {
-  const char* src;
-  char* dst;
-  long long src_rows;
-  long long dst_rows;
-  long long row_bytes;
-  long long chunks;  // ceil(row_bytes / kChunk)
-  long long layers;
-};
-
-// the whole launch, by value: no upload precedes it for up to
-// kInlinePairs ops
-struct CopyPlan {
-  CopyArena arena[2];
-  const int* dev_idx;  // 2n ints on the card, or null: idx below
-  int n;
-  int identity;        // bit 0: op i reads row i; bit 1: it writes row i
-  int idx[2 * kInlinePairs];  // sources at [0, n), destinations at [n, 2n)
-};
-
-struct Chunk {
-  const char* src;
-  char* dst;
-  int bytes;
-};
-
-// chunk t (op t / chunks, its (t % chunks)-th kChunk bytes) of layer l
-__device__ __forceinline__ Chunk chunk_of(const CopyPlan& p,
-                                          const CopyArena& a, long long l,
-                                          long long t) {
-  const long long i = t / a.chunks;
-  const long long off = (t - i * a.chunks) * kChunk;
-  const long long sr =
-      (p.identity & 1) ? i : (p.dev_idx ? p.dev_idx[i] : p.idx[i]);
-  const long long dr = (p.identity & 2)
-                           ? i
-                           : (p.dev_idx ? p.dev_idx[p.n + i] : p.idx[p.n + i]);
-  const long long left = a.row_bytes - off;
-  return {a.src + (l * a.src_rows + sr) * a.row_bytes + off,
-          a.dst + (l * a.dst_rows + dr) * a.row_bytes + off,
-          static_cast<int>(left < kChunk ? left : kChunk)};
-}
-
-// the direct route (no destination is another op's source), grid
-// (n * chunks of arena 0 [+ n * chunks of arena 1], max layers): block
-// (x, l) moves chunk x of layer l of arena 0, or chunk x - n * chunks_0
-// of arena 1 (so a pair of unequal rows, a conv row of 26 KB beside an
-// SSD row of 2 MiB, launches no idle blocks).  VEC: 16-byte words, a
-// thread's loads all in flight before its stores; else bytes.
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-    copy_pages_kernel(const CopyPlan p) {
-  const long long first = p.n * p.arena[0].chunks;
-  const bool second = blockIdx.x >= first;
-  const CopyArena a = second ? p.arena[1] : p.arena[0];
-  const long long l = blockIdx.y;
-  if (l >= a.layers) return;
-  const Chunk c = chunk_of(p, a, l, blockIdx.x - (second ? first : 0));
-  if (VEC) {
-    const uint4* s = reinterpret_cast<const uint4*>(c.src);
-    uint4* d = reinterpret_cast<uint4*>(c.dst);
-    const int words = c.bytes / 16;
-    uint4 v[kWordsPerThread];
-#pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) {
-      const int w = threadIdx.x + k * kThreads;
-      if (w < words) v[k] = s[w];
-    }
-#pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) {
-      const int w = threadIdx.x + k * kThreads;
-      if (w < words) d[w] = v[k];
-    }
-  } else {
-    for (int k = threadIdx.x; k < c.bytes; k += blockDim.x) c.dst[k] = c.src[k];
-  }
-}
-
-// the cluster route (some destination is another op's source), grid
-// (C, max layers, arenas) in clusters of (C, 1, 1): cluster (l, a) holds
-// layer l's whole batch of arena a.  Its n * chunks chunks are dealt out
-// ceil(n * chunks / C) to a block; the block's thread 0 bulk-loads its
-// chunks into shared memory (one mbarrier), every block of the cluster
-// meets at one barrier, so every source of the layer has been read before
-// any destination is written, and thread 0 then bulk-stores each chunk
-// to its destination.  Rows and bases are 16-byte aligned.
-__global__ void __launch_bounds__(kBulkThreads)
-    copy_pages_cluster_kernel(const CopyPlan p) {
-  extern __shared__ __align__(128) unsigned char stage[];
-  __shared__ __align__(8) uint64_t full;
-  const CopyArena a = blockIdx.z ? p.arena[1] : p.arena[0];
-  const long long l = blockIdx.y;
-  // the whole cluster leaves together: its blocks share (l, a)
-  if (l >= a.layers) return;
-  const long long total = p.n * a.chunks;
-  const long long per = (total + gridDim.x - 1) / gridDim.x;
-  const long long t0 = blockIdx.x * per;
-  const long long t1 = t0 + per < total ? t0 + per : total;
-  if (threadIdx.x == 0 && t0 < t1) {
-    mbar_init(&full);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    uint32_t bytes = 0;
-    for (long long t = t0; t < t1; ++t) bytes += chunk_of(p, a, l, t).bytes;
-    mbar_expect(&full, bytes);
-    for (long long t = t0; t < t1; ++t) {
-      const Chunk c = chunk_of(p, a, l, t);
-      bulk_load_tx(stage + (t - t0) * kChunk, c.src, c.bytes, &full);
-    }
-    mbar_wait(&full, 0);
-  }
-  __syncthreads();
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;" ::: "memory");
-  if (threadIdx.x == 0 && t0 < t1) {
-    for (long long t = t0; t < t1; ++t) {
-      const Chunk c = chunk_of(p, a, l, t);
-      bulk_store_tx(c.dst, stage + (t - t0) * kChunk, c.bytes);
-    }
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    bulk_wait_all();
-  }
-}
-
-void cluster_launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                           dim3 grid, int cluster, size_t smem,
-                           cudaStream_t st) {
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = grid;
-  cfg->blockDim = dim3(kBulkThreads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = st;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
-// the largest cluster the card schedules with every block at
-// kClusterBlockBytes: kMaxCluster (beyond the portable 8) when the card
-// holds one such cluster, else 8
-int max_cluster() {
-  static int size = 0;
-  if (size == 0) {
-    size = 8;
-    cudaFuncSetAttribute(copy_pages_cluster_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(kClusterBlockBytes));
-    cudaFuncSetAttribute(copy_pages_cluster_kernel,
-                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cluster_launch_config(&cfg, &attr, dim3(kMaxCluster), kMaxCluster,
-                          kClusterBlockBytes, nullptr);
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, copy_pages_cluster_kernel,
-                                       &cfg) == cudaSuccess &&
-        clusters > 0)
-      size = kMaxCluster;
-    cudaGetLastError();  // a refused query leaves no error behind
-  }
-  return size;
-}
-
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -657,82 +384,23 @@ extern "C" int rc_kv_scatter(void* dst0, void* dst1, const void* src0,
 // the chunks a cluster holds at most: the wrapper stages a layer's batch
 // of more through scratch (two direct launches) instead
 extern "C" int rc_copy_cluster_chunks() {
-  return max_cluster() * static_cast<int>(kClusterBlockBytes / kChunk);
+  return page_cluster_chunks<CopyOp>();
 }
 
-// one copy over `arenas` (1 or 2) arenas in one launch.  desc: 6 values an
-// arena (source base, destination base, source rows a layer, destination
-// rows a layer, row bytes, layers).  The ops' rows: dev_idx on the card,
-// or (dev_idx null) host_idx on the host, at most kInlinePairs ops (the
-// wrapper's INLINE_PAIRS), passed in the launch; each 2n ints, sources
-// then destinations.  identity: bit 0, op i reads row i; bit 1, it writes
-// row i.  route 0: direct; 1: cluster (the wrapper picks it when a
+// one copy over `arenas` (1 or 2) arenas in one launch (page_rows.cuh's
+// launch_page_rows): desc, 6 values an arena (source base, destination
+// base, source rows a layer, destination rows a layer, row bytes,
+// layers).  The ops' rows: dev_idx on the card, or (dev_idx null)
+// host_idx on the host, at most kInlinePairs ops (the wrapper's
+// INLINE_PAIRS), passed in the launch; each 2n ints, sources then
+// destinations.  identity: bit 0, op i reads row i; bit 1, it writes row
+// i.  route 0: direct; 1: cluster (the wrapper picks it when a
 // destination is another op's source and the batch fits).
 extern "C" int rc_copy_pages(const long long* desc, int arenas,
                              const int* dev_idx, const int* host_idx, int n,
                              int identity, int route, void* stream) {
-  if (n <= 0) return 0;
-  if (arenas < 1 || arenas > 2 || route < 0 || route > 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CopyPlan plan;
-  plan.dev_idx = dev_idx;
-  plan.n = n;
-  plan.identity = identity;
-  if (dev_idx == nullptr) {
-    if (host_idx == nullptr || n > kInlinePairs)
-      return static_cast<int>(cudaErrorInvalidValue);
-    for (int i = 0; i < 2 * n; ++i) plan.idx[i] = host_idx[i];
-  }
-  long long most_chunks = 0, all_chunks = 0, most_layers = 0;
-  uintptr_t align = 0;
-  for (int z = 0; z < 2; ++z) {
-    const long long* d = desc + 6 * (z < arenas ? z : 0);
-    CopyArena& a = plan.arena[z];
-    a.src = reinterpret_cast<const char*>(d[0]);
-    a.dst = reinterpret_cast<char*>(d[1]);
-    a.src_rows = d[2];
-    a.dst_rows = d[3];
-    a.row_bytes = d[4];
-    a.layers = d[5];
-    a.chunks = (a.row_bytes + kChunk - 1) / kChunk;
-    if (a.row_bytes <= 0 || a.layers <= 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    most_chunks = n * a.chunks > most_chunks ? n * a.chunks : most_chunks;
-    if (z < arenas) all_chunks += n * a.chunks;
-    most_layers = a.layers > most_layers ? a.layers : most_layers;
-    align |= static_cast<uintptr_t>(d[0]) | static_cast<uintptr_t>(d[1]) |
-             static_cast<uintptr_t>(a.row_bytes);
-  }
-  if (most_layers > 65535 || all_chunks > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = (align & 15) == 0;
-  if (route == 0) {
-    dim3 grid(static_cast<unsigned>(all_chunks),
-              static_cast<unsigned>(most_layers));
-    if (vec)
-      copy_pages_kernel<true><<<grid, kThreads, 0, st>>>(plan);
-    else
-      copy_pages_kernel<false><<<grid, kThreads, 0, st>>>(plan);
-    return static_cast<int>(cudaGetLastError());
-  }
-  // the cluster route: as many blocks a cluster as the card allows, up to
-  // one a chunk, each staging ceil(chunks / C) of them
-  const int cluster = static_cast<int>(
-      most_chunks < max_cluster() ? most_chunks : max_cluster());
-  const long long per = (most_chunks + cluster - 1) / cluster;
-  if (!vec || per * kChunk > kClusterBlockBytes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_launch_config(&cfg, &attr,
-                        dim3(cluster, static_cast<unsigned>(most_layers),
-                             arenas),
-                        cluster, static_cast<size_t>(per * kChunk), st);
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, copy_pages_cluster_kernel, plan);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_page_rows<CopyOp>(desc, arenas, dev_idx, host_idx, n,
+                                  identity, route, stream);
 }
 
 // the same rows of each of `arenas` (1 or 2) arenas of one shape, in one

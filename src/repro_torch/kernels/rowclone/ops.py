@@ -30,7 +30,7 @@ from __future__ import annotations
 import functools
 import math
 from array import array
-from typing import List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -142,34 +142,43 @@ def cluster_chunks() -> int:
     return _build.load("rowclone").rc_copy_cluster_chunks()
 
 
-def copy_route(row_bytes: Sequence[int], n: int, aligned: bool) -> str:
-    """How a copy of ``n`` ops over arenas of ``row_bytes`` rows runs when
+def copy_route(row_bytes: Sequence[int], n: int, aligned: bool,
+               capacity: Optional[int] = None) -> str:
+    """How a batch of ``n`` ops over arenas of ``row_bytes`` rows runs when
     an op reads another's destination (without one it runs direct, one
     launch): ``"cluster"`` (one launch, each layer's batch staged in a
     cluster's shared memory), or ``"staged"`` (a layer's batch past the
-    cluster's capacity, or rows not 16-byte aligned: two launches
+    cluster's ``capacity`` in ``COPY_CHUNK`` pieces, by default
+    :func:`cluster_chunks`, or rows not 16-byte aligned: two launches
     through a scratch buffer)."""
     chunks = max(n * -(-r // COPY_CHUNK) for r in row_bytes)
-    if aligned and chunks <= cluster_chunks():
+    if capacity is None:
+        capacity = cluster_chunks()
+    if aligned and chunks <= capacity:
         return "cluster"
     return "staged"
 
 
-def _launch_copy(arenas, lead: int, src: List[int], dst: List[int],
-                 name: str) -> None:
-    """``arena[l, dst[i]] <- arena[l, src[i]]`` for every layer ``l`` of
-    each arena (``lead`` 2: ``(L, P, ...)``; 1: one layer ``(P, ...)``),
-    the ops already checked and free of duplicate destinations, in one
-    launch of ``rc_copy_pages`` (two on the staged route).  The op list
-    travels in the launch's parameters when it is short, else it is
-    uploaded by :func:`upload`."""
+def launch_rows(arenas, lead: int, src: List[int], dst: List[int],
+                name: str, launch: Callable[..., int],
+                capacity: Callable[[], int]) -> str:
+    """One page-row op (``csrc/page_rows.cuh``) of ops ``(src[i],
+    dst[i])`` on every layer of each arena (``lead`` 2: ``(L, P, ...)``;
+    1: one layer ``(P, ...)``), the ops already checked and free of
+    duplicate destinations, in one launch (two on the staged route),
+    counted under ``name``.  ``launch(desc, arenas, dev_idx, host_idx, n,
+    identity, route, gather)`` issues one kernel launch and returns its
+    cudaError_t; ``gather`` marks the staged route's first launch, a
+    plain copy of the sources into scratch rows.  The op list travels in
+    the launch's parameters when it is short, else it is uploaded by
+    :func:`upload`.  The route is direct unless an op reads another's
+    destination, then :func:`copy_route` against ``capacity()``.
+    Returns the route."""
     n = len(src)
     geo = []                   # (base, layers, rows a layer, row bytes)
     for a in arenas:
         L, P = (a.shape[0], a.shape[1]) if lead == 2 else (1, a.shape[0])
         geo.append((a.data_ptr(), L, P, _row_bytes(a, lead)))
-    lib = _build.load("rowclone")
-    stream = _stream(arenas[0])
     dev_idx, host_idx = None, None
     if n > INLINE_PAIRS:
         # freed after the launch; the allocator reuses it only for work
@@ -179,33 +188,47 @@ def _launch_copy(arenas, lead: int, src: List[int], dst: List[int],
     else:
         host_idx = array("i", src + dst).tobytes()
 
-    def launch(desc, identity: int, route: int, what: str) -> None:
-        _build.check(lib.rc_copy_pages(
+    def run(desc, identity: int, route: int, what: str,
+            gather: bool = False) -> None:
+        _build.check(launch(
             array("q", [v for d in desc for v in d]).tobytes(), len(desc),
-            dev_idx, host_idx, n, identity, route, stream), what)
+            dev_idx, host_idx, n, identity, route, gather), what)
 
     route = "direct"
     if _reads_a_write(src, dst):
         route = copy_route([g[3] for g in geo], n,
-                           all((b | r) % 16 == 0 for b, _, _, r in geo))
+                           all((b | r) % 16 == 0 for b, _, _, r in geo),
+                           capacity())
     if route != "staged":
-        launch([(b, b, P, P, r, L) for b, L, P, r in geo], 0,
-               0 if route == "direct" else 1, name)
+        run([(b, b, P, P, r, L) for b, L, P, r in geo], 0,
+            0 if route == "direct" else 1, name)
         count_launch(name)
-        return
-    # every source of every layer into scratch, then scratch into the
-    # destinations: two direct launches
+        return route
+    # every source of every layer into scratch, then the op from scratch
+    # into the destinations: two direct launches
     offs, total = [], 0
     for _, L, _, r in geo:
         offs.append(total)
         total += -(-(L * n * r) // 256) * 256
     scratch = torch.empty(total, dtype=torch.uint8, device=arenas[0].device)
     base = scratch.data_ptr()
-    launch([(b, base + o, P, n, r, L) for (b, L, P, r), o in zip(geo, offs)],
-           2, 0, f"{name} (gather)")
-    launch([(base + o, b, n, P, r, L) for (b, L, P, r), o in zip(geo, offs)],
-           1, 0, f"{name} (scatter)")
+    run([(b, base + o, P, n, r, L) for (b, L, P, r), o in zip(geo, offs)],
+        2, 0, f"{name} (gather)", gather=True)
+    run([(base + o, b, n, P, r, L) for (b, L, P, r), o in zip(geo, offs)],
+        1, 0, f"{name} (scatter)")
     count_launch(name, 2)
+    return route
+
+
+def _launch_copy(arenas, lead: int, src: List[int], dst: List[int],
+                 name: str) -> None:
+    """``arena[l, dst[i]] <- arena[l, src[i]]`` for every layer ``l`` of
+    each arena: :func:`launch_rows` on ``rc_copy_pages``."""
+    lib = _build.load("rowclone")
+    stream = _stream(arenas[0])
+    launch_rows(arenas, lead, src, dst, name,
+                lambda *args: lib.rc_copy_pages(*args[:-1], stream),
+                cluster_chunks)
 
 
 def pim_page_copy_batched(arena: torch.Tensor, src_pages: Index,

@@ -1,0 +1,340 @@
+"""Attention: GQA/MQA, MLA (DeepSeek), cross-attention; the tiled
+(flash-style) forward and the dense-cache decode path.
+
+The port's counterpart of the JAX package's ``models/attention.py``, in
+plain PyTorch (none of it reaches a Pallas kernel; the serving engine's
+paged path runs the flash and paged-attention kernels instead):
+
+* ``chunked_attention`` — the forward of the JAX package's tiled
+  online-softmax: the static list of reachable (q tile, k tile) pairs
+  walked by a Python loop with running (m, l, acc) per q position, so
+  no (sq, sk) score tensor is materialised and causal tiles that cannot
+  contribute are never visited.  (The JAX version's custom VJP belongs
+  to training and is not ported.)
+* ``decode_attention`` — one token against a dense (b, S, kvh, hd)
+  cache masked at each row's length.
+* MLA — prefill expands the latent to per-head k/v; decode runs in
+  absorbed form against the compressed (c_kv, k_rope) cache.
+
+Layouts are the JAX package's: q (b, s, h, hd), k/v (b, s, kvh, hd),
+heads grouped kv-major (head ``j * g + i`` reads kv head ``j``).  The
+JAX caches are immutable and its layers return new ones; here
+``_write_kv`` and the MLA cache writes update the caller's cache
+tensors in place (no second copy of a cache) and return them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from .layers import apply_rope, cast, rmsnorm, rope_sincos
+from .params import ParamDef
+
+_NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------- #
+# Parameter definitions
+# --------------------------------------------------------------------- #
+
+
+def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, h, kvh, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    if cfg.mla:
+        m = cfg.mla
+        defs = {
+            "wq": ParamDef((d, h, m.nope_head_dim + m.rope_head_dim),
+                           ("embed", "heads", None)),
+            "wkv_a": ParamDef((d, m.kv_lora_rank + m.rope_head_dim),
+                              ("embed", None)),
+            "ckv_norm": ParamDef((m.kv_lora_rank,), (None,), init="ones"),
+            "wk_b": ParamDef((m.kv_lora_rank, h, m.nope_head_dim),
+                             ("kv_lora", "heads", None)),
+            "wv_b": ParamDef((m.kv_lora_rank, h, m.v_head_dim),
+                             ("kv_lora", "heads", None)),
+            "wo": ParamDef((h, m.v_head_dim, d), ("heads", None, "embed")),
+        }
+        if m.q_lora_rank:
+            defs["wq_a"] = ParamDef((d, m.q_lora_rank), ("embed", None))
+            defs["q_norm"] = ParamDef((m.q_lora_rank,), (None,), init="ones")
+            defs["wq"] = ParamDef(
+                (m.q_lora_rank, h, m.nope_head_dim + m.rope_head_dim),
+                (None, "heads", None))
+        return defs
+    return {
+        "wq": ParamDef((d, h, hd), ("dmodel_rp", "heads", None)),
+        "wk": ParamDef((d, kvh, hd), ("dmodel_rp", "kv_heads", None)),
+        "wv": ParamDef((d, kvh, hd), ("dmodel_rp", "kv_heads", None)),
+        "wo": ParamDef((h, hd, d), ("heads", None, "dmodel_rp")),
+    }
+
+
+# --------------------------------------------------------------------- #
+# Tiled (flash-style) attention: the forward
+# --------------------------------------------------------------------- #
+
+
+def _tile_pairs(nq: int, nk: int, causal: bool, cq: int, ck: int,
+                q_offset: int) -> np.ndarray:
+    pairs = []
+    for i in range(nq):
+        q_end = q_offset + (i + 1) * cq - 1
+        for j in range(nk):
+            if causal and j * ck > q_end:
+                continue
+            pairs.append((i, j))
+    return np.asarray(pairs, np.int32)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk_q: int, chunk_k: int,
+                      q_offset: int = 0,
+                      lengths: Optional[torch.Tensor] = None,
+                      sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention's forward in float32 tiles: q (b, sq, h, dh); k, v
+    (b, sk, kvh, dh) -> (b, sq, h, dh) in q's dtype.  ``q_offset``: the
+    global position of q[0]; ``lengths``: valid kv lengths (b,)."""
+    b, sq, h, dh = q.shape
+    _, sk, kvh, _ = k.shape
+    g = h // kvh
+    scale = sm_scale if sm_scale is not None else dh ** -0.5
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    pq, pk = (-sq) % cq, (-sk) % ck
+    dev = q.device
+    if lengths is None:
+        bias = torch.zeros((b, sk), dtype=torch.float32, device=dev)
+    else:
+        bias = torch.where(
+            torch.arange(sk, device=dev)[None, :] < lengths[:, None].long(),
+            0.0, _NEG_INF)
+    bias = F.pad(bias, (0, pk), value=_NEG_INF)
+    SQ, SK = sq + pq, sk + pk
+    qf = F.pad(q, (0, 0, 0, 0, 0, pq)).float().transpose(1, 2).reshape(
+        b, kvh, g, SQ, dh)
+    kf = F.pad(k, (0, 0, 0, 0, 0, pk)).float().transpose(1, 2)
+    vf = F.pad(v, (0, 0, 0, 0, 0, pk)).float().transpose(1, 2)
+    m = torch.full((b, kvh, g, SQ, 1), _NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, kvh, g, SQ, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, g, SQ, dh), dtype=torch.float32, device=dev)
+    for i, j in _tile_pairs(SQ // cq, SK // ck, causal, cq, ck, q_offset):
+        qs, ks = slice(i * cq, (i + 1) * cq), slice(j * ck, (j + 1) * ck)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qf[:, :, :, qs], kf[:, :, ks])
+        mask = bias[:, None, None, None, ks]
+        if causal:
+            qpos = q_offset + i * cq + torch.arange(cq, device=dev)
+            kpos = j * ck + torch.arange(ck, device=dev)
+            mask = mask + torch.where(kpos[None, :] <= qpos[:, None], 0.0,
+                                      _NEG_INF)
+        s = s * scale + mask
+        m_prev, l_prev = m[:, :, :, qs], l[:, :, :, qs]
+        m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m_prev - m_new)
+        l[:, :, :, qs] = alpha * l_prev + p.sum(dim=-1, keepdim=True)
+        acc[:, :, :, qs] = alpha * acc[:, :, :, qs] + torch.einsum(
+            "bkgqc,bkcd->bkgqd", p, vf[:, :, ks])
+        m[:, :, :, qs] = m_new
+    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+    o = out.reshape(b, h, SQ, dh).transpose(1, 2)[:, :sq]
+    return o.to(q.dtype)
+
+
+def naive_attention(q, k, v, *, causal, lengths=None, q_offset=0,
+                    sm_scale=None) -> torch.Tensor:
+    """The reference path (small shapes): the whole score tensor."""
+    b, sq, h, dh = q.shape
+    _, sk, kvh, _ = k.shape
+    g = h // kvh
+    scale = sm_scale if sm_scale is not None else dh ** -0.5
+    dev = q.device
+    qf = q.float().reshape(b, sq, kvh, g, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
+    kpos = torch.arange(sk, device=dev)
+    valid = torch.ones((b, 1, 1, 1, sk), dtype=torch.bool, device=dev)
+    if lengths is not None:
+        valid = kpos[None, None, None, None, :] < \
+            lengths.long()[:, None, None, None, None]
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=dev)
+        valid = valid & (kpos[None, None, None, None, :]
+                         <= qpos[None, None, None, :, None])
+    s = torch.where(valid, s, torch.tensor(_NEG_INF, device=dev))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """One-token attention over a dense cache.  q: (b, 1, h, dh); caches:
+    (b, S, kvh, dh); lengths: (b,)."""
+    b, _, h, dh = q.shape
+    _, S, kvh, _ = k_cache.shape
+    g = h // kvh
+    scale = sm_scale if sm_scale is not None else dh ** -0.5
+    qf = (q.float() * scale).reshape(b, kvh, g, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    valid = torch.arange(S, device=q.device)[None, None, None, :] < \
+        lengths.long()[:, None, None, None]
+    s = torch.where(valid, s, torch.tensor(_NEG_INF, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = torch.einsum("bkgs,bskd->bkgd", p / p.sum(dim=-1, keepdim=True),
+                       v_cache.float())
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+# GQA layer (train / prefill / decode / cross)
+# --------------------------------------------------------------------- #
+
+
+def _attend(q, k, v, pcfg: ParallelConfig, *, causal, lengths=None,
+            q_offset=0):
+    if pcfg.attention_impl == "naive":
+        return naive_attention(q, k, v, causal=causal, lengths=lengths,
+                               q_offset=q_offset)
+    return chunked_attention(q, k, v, causal=causal,
+                             chunk_q=pcfg.attention_chunk,
+                             chunk_k=pcfg.attention_chunk, lengths=lengths,
+                             q_offset=q_offset)
+
+
+def _write_kv(cache, k, v, pos):
+    """Write (k, v) (b, s, ...) into the (max_len) cache buffers at
+    sequence position ``pos``, in place; returns the cache."""
+    k_cache, v_cache = cache
+    s = k.shape[1]
+    k_cache[:, pos:pos + s] = k.to(k_cache.dtype)
+    v_cache[:, pos:pos + s] = v.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def gqa_attention(cfg: ModelConfig, pcfg: ParallelConfig,
+                  p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  positions: torch.Tensor, *, mode: str, causal: bool = True,
+                  cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  write_pos: Optional[int] = None,
+                  lengths: Optional[torch.Tensor] = None,
+                  memory: Optional[torch.Tensor] = None,
+                  is_cross: bool = False, use_rope: bool = True):
+    """Returns (out, new_cache).  mode: "train" | "prefill" | "decode".
+    ``is_cross``: k/v from ``memory`` at train/prefill (a prefill returns
+    them as the new cache), from the cache at decode.  Self-attention
+    prefill/decode writes k/v into ``cache`` in place."""
+    hd = cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, cast(p["wq"]))
+    if is_cross and mode == "decode":
+        if cache is None:
+            raise ValueError("cross-attention decode needs the memory cache")
+        k, v = cache
+        new_cache = cache
+    else:
+        kv_src = memory if is_cross else x
+        k = torch.einsum("bsd,dhk->bshk", kv_src, cast(p["wk"]))
+        v = torch.einsum("bsd,dhk->bshk", kv_src, cast(p["wv"]))
+        new_cache = None
+    if use_rope and not is_cross:
+        sin, cos = rope_sincos(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)     # decode: positions = write position
+    if is_cross:
+        if mode == "decode":
+            mem_lengths = torch.full((x.shape[0],), k.shape[1],
+                                     dtype=torch.int32, device=x.device)
+            out = decode_attention(q, k, v, mem_lengths)
+        else:
+            out = _attend(q, k, v, pcfg, causal=False)
+            if mode == "prefill":
+                cdt = cache[0].dtype if cache is not None else k.dtype
+                new_cache = (k.to(cdt), v.to(cdt))
+    elif mode == "decode":
+        if cache is None or write_pos is None:
+            raise ValueError("decode needs the cache and write_pos")
+        k_cache, v_cache = _write_kv(cache, k, v, write_pos)
+        out = decode_attention(q, k_cache, v_cache, lengths)
+        new_cache = (k_cache, v_cache)
+    else:
+        out = _attend(q, k, v, pcfg, causal=causal, lengths=lengths)
+        if mode == "prefill" and cache is not None:
+            new_cache = _write_kv(cache, k, v, 0)
+    out = torch.einsum("bshk,hkd->bsd", out, cast(p["wo"]))
+    return out, new_cache
+
+
+# --------------------------------------------------------------------- #
+# MLA layer (DeepSeek-V2)
+# --------------------------------------------------------------------- #
+
+
+def _mla_q(cfg: ModelConfig, p, x):
+    m = cfg.mla
+    if m.q_lora_rank:
+        cq = x @ cast(p["wq_a"])
+        cq = rmsnorm(cq, p["q_norm"], cfg.norm_eps)
+        return torch.einsum("bsr,rhk->bshk", cq, cast(p["wq"]))
+    return torch.einsum("bsd,dhk->bshk", x, cast(p["wq"]))
+
+
+def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
+                  p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  positions: torch.Tensor, *, mode: str,
+                  cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  write_pos: Optional[int] = None,
+                  lengths: Optional[torch.Tensor] = None):
+    """MLA: cache = (c_kv (b, S, r), k_rope (b, S, rope_dim)), written in
+    place.  Decode runs absorbed (queries pulled into the latent space);
+    train and prefill expand the latent to per-head k/v."""
+    m = cfg.mla
+    q = _mla_q(cfg, p, x)                           # (b, s, h, nope+rope)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    ckv_full = x @ cast(p["wkv_a"])
+    c_kv, k_rope = (ckv_full[..., :m.kv_lora_rank],
+                    ckv_full[..., m.kv_lora_rank:])
+    c_kv = rmsnorm(c_kv, p["ckv_norm"], cfg.norm_eps)
+    sin, cos = rope_sincos(positions, m.rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+
+    if mode == "decode":
+        if cache is None or write_pos is None:
+            raise ValueError("decode needs the cache and write_pos")
+        ckv_cache, krope_cache = _write_kv(cache, c_kv, k_rope, write_pos)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, cast(p["wk_b"]))
+        s = (torch.einsum("bshr,bSr->bhS", q_lat.float(), ckv_cache.float())
+             + torch.einsum("bshk,bSk->bhS", q_rope.float(),
+                            krope_cache.float())) * scale
+        S = ckv_cache.shape[1]
+        valid = torch.arange(S, device=x.device)[None, None, :] < \
+            lengths.long()[:, None, None]
+        s = torch.where(valid, s, torch.tensor(_NEG_INF, device=x.device))
+        pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        ctx = torch.einsum("bhS,bSr->bhr", pr / pr.sum(dim=-1, keepdim=True),
+                           ckv_cache.float())
+        out = torch.einsum("bhr,rhv->bhv", ctx, cast(p["wv_b"]).float())
+        out = out[:, None].to(x.dtype)               # (b, 1, h, v)
+        new_cache = (ckv_cache, krope_cache)
+    else:
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, cast(p["wk_b"]))
+        vv = torch.einsum("bsr,rhv->bshv", c_kv, cast(p["wv_b"]))
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            *k_nope.shape[:3], m.rope_head_dim)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        # v padded to the qk head dim for the shared helper, then cut
+        out = _attend(qq, k, F.pad(vv, (0, k.shape[-1] - vv.shape[-1])),
+                      pcfg, causal=True, lengths=lengths)
+        out = out[..., :m.v_head_dim]
+        new_cache = None
+        if mode == "prefill" and cache is not None:
+            new_cache = _write_kv(cache, c_kv, k_rope, 0)
+    y = torch.einsum("bshv,hvd->bsd", out, cast(p["wo"]))
+    return y, new_cache

@@ -11,8 +11,8 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from .params import ParamDef
@@ -72,6 +72,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default), one
+    operation at a time in ``x``'s dtype as XLA evaluates it, for the
+    reason :func:`silu` gives; its constants are rounded to that dtype
+    first, as JAX rounds a Python scalar to the array's dtype."""
+    c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
 
 def mlp_defs(d: int, ff: int, activation: str) -> Dict[str, ParamDef]:
     defs = {
@@ -89,12 +98,10 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     up = x @ cast(p["up"])
     if activation in ("swiglu", "geglu"):
         gate = x @ cast(p["gate"])
-        # jax.nn.gelu defaults to the tanh approximation
-        act = (silu(gate) if activation == "swiglu"
-               else F.gelu(gate, approximate="tanh"))
+        act = silu(gate) if activation == "swiglu" else gelu(gate)
         h = act * up
     else:
-        h = F.gelu(up, approximate="tanh")
+        h = gelu(up)
     return h @ cast(p["down"])
 
 

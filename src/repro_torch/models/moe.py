@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from .layers import cast, silu
+from .layers import cast, gelu, silu
 from .params import ParamDef
 
 
@@ -43,9 +43,7 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _act(g: torch.Tensor, activation: str) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    return silu(g) if activation == "swiglu" else F.gelu(g,
-                                                         approximate="tanh")
+    return silu(g) if activation == "swiglu" else gelu(g)
 
 
 def _expert_ffn(w_gate, w_up, w_down, x, activation: str) -> torch.Tensor:

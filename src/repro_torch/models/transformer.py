@@ -1,57 +1,65 @@
-"""Model layout: layer groups and the stacked parameter tree.
+"""Model assembly for every family: layer groups, the stacked parameter
+tree, the dense decode cache and the unified forward.
 
-The port's counterpart of ``layer_groups`` and ``model_defs`` in the
-JAX package's ``models/transformer.py``.  Parameters of a group are
-stacked along a leading ``layers`` dim (``group0`` for the decoder-only
-families); the serving engine walks that dim with a Python loop where
-the JAX package used ``lax.scan``.
+The port's counterpart of the JAX package's ``models/transformer.py``.
+Parameters of a group are stacked along a leading ``layers`` dim; the
+forward walks that dim with a Python loop where the JAX package used
+``lax.scan``.  The serving engine's paged path runs its own forwards
+over the paged arenas and kernels; :func:`forward` is the dense
+reference (train, prefill, decode, features) and the eager prefill
+oracle's forward.
 
 Families -> groups (the JAX package's layouts):
-  dense          [(L, attn+mlp)]
+  dense / vlm    [(L, attn+mlp)]
   moe            [(k, attn+mlp), (L-k, attn+moe)]   (k = first dense)
+  moe + MLA      same, attention = MLA
   ssm            [(L, mamba)]
   hybrid (jamba) [(L/P, superblock of P pairs: attn mixer at index
                   P/2-1, mamba elsewhere; MoE on odd pairs, MLP on even)]
-MLA attention and the other families (vlm, encdec) raise
-``NotImplementedError``.
+  encdec         encoder [(Le, attn+mlp non-causal)],
+                 decoder [(Ld, self-attn + cross-attn + mlp)]
+
+Caches are nested dicts stacked along the same ``layers`` dim.  Where
+the JAX forward returns a new cache, this one writes the caller's cache
+tensors in place and returns them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import embed_defs, mlp_defs, rmsnorm_def
-from .params import ParamDef, stacked
+from .attention import attn_defs
+from .layers import (cast, embed, embed_defs, logits_out, mlp, mlp_defs,
+                     rmsnorm, rmsnorm_def)
+from .params import ParamDef, stacked, tree_map
+
+CACHE_DTYPE = torch.bfloat16
 
 
-def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
-    d, h, kvh, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
-    return {
-        "wq": ParamDef((d, h, hd), ("dmodel_rp", "heads", None)),
-        "wk": ParamDef((d, kvh, hd), ("dmodel_rp", "kv_heads", None)),
-        "wv": ParamDef((d, kvh, hd), ("dmodel_rp", "kv_heads", None)),
-        "wo": ParamDef((h, hd, d), ("heads", None, "dmodel_rp")),
-    }
+# --------------------------------------------------------------------- #
+# Layer kinds
+# --------------------------------------------------------------------- #
 
 
 def _sublayer_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     d = cfg.d_model
-    if kind == "attn":
+    if kind in ("attn", "mla", "cross"):
         return {"norm": rmsnorm_def(d), "attn": attn_defs(cfg)}
+    if kind == "mamba":
+        return {"norm": rmsnorm_def(d), "ssm": ssm_mod.ssm_defs(cfg)}
     if kind == "mlp":
         return {"norm": rmsnorm_def(d),
                 "mlp": mlp_defs(d, cfg.d_ff, cfg.activation)}
-    if kind == "mamba":
-        return {"norm": rmsnorm_def(d), "ssm": ssm_mod.ssm_defs(cfg)}
     if kind == "moe":
         return {"norm": rmsnorm_def(d), "moe": moe_mod.moe_defs(cfg)}
-    raise NotImplementedError(f"sublayer kind {kind!r} is not ported yet")
+    raise ValueError(kind)
 
 
 def _layer_defs(cfg: ModelConfig,
@@ -65,14 +73,13 @@ def layer_groups(cfg: ModelConfig
     """((count, (sublayer kinds...)), ...) per family, as the JAX
     package lays them out."""
     L = cfg.num_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return ((L, ("attn", "mlp")),)
     if cfg.family == "moe":
-        if cfg.mla is not None:
-            raise NotImplementedError("MLA attention is not ported yet")
+        attn = "mla" if cfg.mla else "attn"
         k = cfg.moe.first_dense_layers
-        groups = [(k, ("attn", "mlp"))] if k else []
-        groups.append((L - k, ("attn", "moe")))
+        groups = [(k, (attn, "mlp"))] if k else []
+        groups.append((L - k, (attn, "moe")))
         return tuple(groups)
     if cfg.family == "ssm":
         return ((L, ("mamba",)),)
@@ -84,16 +91,246 @@ def layer_groups(cfg: ModelConfig
             ffn = "moe" if (i % 2 == 1 and cfg.moe) else "mlp"
             kinds.extend([mixer, ffn])
         return ((L // period, tuple(kinds)),)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
-        "hybrid are)")
+    if cfg.family == "encdec":
+        return ((cfg.enc_layers, ("attn", "mlp")),
+                (cfg.dec_layers, ("attn", "cross", "mlp")))
+    raise ValueError(cfg.family)
 
 
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     """The stacked parameter tree (``embed``, ``final_norm``,
-    ``group0``, ...), laid out as the JAX package lays it."""
+    ``group0``, ..., and the stub frontends' projections), laid out as
+    the JAX package lays it."""
     defs: Dict[str, Any] = {"embed": embed_defs(cfg),
                             "final_norm": rmsnorm_def(cfg.d_model)}
     for gi, (count, kinds) in enumerate(layer_groups(cfg)):
         defs[f"group{gi}"] = stacked(_layer_defs(cfg, kinds), count)
+    fd = cfg.frontend_dim or cfg.d_model
+    if (cfg.family == "vlm" or cfg.num_patch_tokens) \
+            and cfg.family != "encdec":
+        defs["patch_proj"] = ParamDef((fd, cfg.d_model), (None, "embed"))
+    if cfg.family == "encdec":
+        defs["frame_proj"] = ParamDef((fd, cfg.d_model), (None, "embed"))
+        defs["enc_final_norm"] = rmsnorm_def(cfg.d_model)
     return defs
+
+
+# --------------------------------------------------------------------- #
+# Caches
+# --------------------------------------------------------------------- #
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
+               enc_len: int = 0, kv_dtype: Optional[torch.dtype] = None
+               ) -> Dict[str, Any]:
+    """The decode cache's tensors on the ``meta`` device (shape and dtype
+    only: the JAX package's ShapeDtypeStructs), stacked per group.
+    ``kv_dtype`` overrides the attention caches' dtype; SSM states keep
+    theirs."""
+    hd = cfg.resolved_head_dim
+    kvd = kv_dtype or CACHE_DTYPE
+
+    def t(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def attn_cache(count):
+        if cfg.mla:
+            m = cfg.mla
+            return (t((count, batch, max_len, m.kv_lora_rank), kvd),
+                    t((count, batch, max_len, m.rope_head_dim), kvd))
+        shape = (count, batch, max_len, cfg.num_kv_heads, hd)
+        return t(shape, kvd), t(shape, kvd)
+
+    def ssm_cache(count):
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        ch = d_in + 2 * s.state_dim
+        return (t((count, batch, s.conv_width - 1, ch), CACHE_DTYPE),
+                t((count, batch, d_in // s.head_dim, s.head_dim,
+                   s.state_dim), torch.float32))
+
+    def cross_cache(count):
+        shape = (count, batch, enc_len, cfg.num_kv_heads, hd)
+        return t(shape, CACHE_DTYPE), t(shape, CACHE_DTYPE)
+
+    spec: Dict[str, Any] = {}
+    for gi, (count, kinds) in enumerate(layer_groups(cfg)):
+        if cfg.family == "encdec" and gi == 0:
+            continue                        # the encoder holds no cache
+        g: Dict[str, Any] = {}
+        for i, k in enumerate(kinds):
+            if k in ("attn", "mla"):
+                g[f"{i}_{k}"] = attn_cache(count)
+            elif k == "mamba":
+                g[f"{i}_{k}"] = ssm_cache(count)
+            elif k == "cross":
+                g[f"{i}_{k}"] = cross_cache(count)
+        if g:
+            spec[f"group{gi}"] = g
+    return spec
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               *, device: DeviceLike = None,
+               kv_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A zeroed decode cache on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+
+    def zeros(s):
+        if isinstance(s, tuple):
+            return tuple(zeros(x) for x in s)
+        return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+
+    return tree_map(zeros, cache_spec(cfg, batch, max_len, enc_len,
+                                      kv_dtype))
+
+
+# --------------------------------------------------------------------- #
+# Sub-layer dispatch
+# --------------------------------------------------------------------- #
+
+
+def _run_sublayer(cfg, pcfg, kind, p, x, positions, *, mode, cache,
+                  write_pos, lengths, memory, causal):
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "mla":
+        out, new_cache = attn_mod.mla_attention(
+            cfg, pcfg, p["attn"], h, positions, mode=mode, cache=cache,
+            write_pos=write_pos, lengths=lengths)
+    elif kind == "attn":
+        out, new_cache = attn_mod.gqa_attention(
+            cfg, pcfg, p["attn"], h, positions, mode=mode, causal=causal,
+            cache=cache, write_pos=write_pos, lengths=lengths)
+    elif kind == "cross":
+        out, new_cache = attn_mod.gqa_attention(
+            cfg, pcfg, p["attn"], h, positions, mode=mode, causal=False,
+            cache=cache, write_pos=write_pos, lengths=None, memory=memory,
+            is_cross=True)
+    elif kind == "mamba":
+        out, new_cache = ssm_mod.ssm_layer(cfg, pcfg, p["ssm"], h, mode=mode,
+                                           cache=cache)
+    elif kind == "mlp":
+        out, new_cache = mlp(p["mlp"], h, cfg.activation), None
+    elif kind == "moe":
+        out, aux = moe_mod.moe_layer(cfg, pcfg, p["moe"], h)
+        new_cache = None
+    else:
+        raise ValueError(kind)
+    return x + out, new_cache, aux
+
+
+def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
+               write_pos, lengths, memory, causal):
+    """One stacked layer group, a Python loop over its layers.  Each
+    layer's cache is a view of the stacked ``gcache``; a sublayer that
+    returns new cache tensors (an SSM's final state, a cross-attention
+    prefill's memory k/v) has them copied into that view.  Returns (x,
+    gcache or None, the summed aux loss)."""
+    leaf = gparams
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li in range(leaf.shape[0]):
+        p_layer = tree_map(lambda a: a[li], gparams)
+        for i, k in enumerate(kinds):
+            key = f"{i}_{k}"
+            view = None
+            if gcache and key in gcache:
+                view = tuple(c[li] for c in gcache[key])
+            x, nc, aux = _run_sublayer(
+                cfg, pcfg, k, p_layer[key], x, positions, mode=mode,
+                cache=view, write_pos=write_pos, lengths=lengths,
+                memory=memory, causal=causal)
+            if view is not None and nc is not None:
+                for dst, src in zip(view, nc):
+                    if src.data_ptr() != dst.data_ptr():
+                        dst.copy_(src)
+            aux_sum = aux_sum + aux
+    return x, (gcache if gcache else None), aux_sum
+
+
+# --------------------------------------------------------------------- #
+# Forward entry points
+# --------------------------------------------------------------------- #
+
+
+def _input_embed(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Token (and stub-frontend patch) embedding; returns (x,
+    positions)."""
+    x = embed(params["embed"], batch["tokens"], cfg)
+    if cfg.num_patch_tokens and "patch_embeds" in batch \
+            and cfg.family != "encdec":
+        # the JAX einsum promotes the bf16 weights to the embeds' float32
+        pe = cast(torch.einsum("bpe,ed->bpd", batch["patch_embeds"].float(),
+                               cast(params["patch_proj"]).float()))
+        x = torch.cat([pe, x], dim=1)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device).expand(x.shape[:2])
+    return x, positions
+
+
+def _encoder(cfg, pcfg, params, batch):
+    frames = cast(torch.einsum("bse,ed->bsd", batch["frames"].float(),
+                               cast(params["frame_proj"]).float()))
+    pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                       device=frames.device).expand(frames.shape[:2])
+    _, kinds = layer_groups(cfg)[0]
+    h, _, _ = _run_group(cfg, pcfg, kinds, params["group0"], frames, pos,
+                         mode="train", gcache=None, write_pos=None,
+                         lengths=None, memory=None, causal=False)
+    return rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
+def forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
+            batch: Dict[str, torch.Tensor], *, mode: str,
+            cache: Optional[Dict[str, Any]] = None,
+            write_pos: Optional[int] = None,
+            lengths: Optional[torch.Tensor] = None):
+    """The unified forward.
+
+    train:    returns (logits, aux)
+    prefill:  returns (logits of the last position (b, 1, V), cache, aux)
+    decode:   returns (logits, cache)      [batch tokens are (b, 1)]
+    features: returns (final-normed hidden states, aux)
+
+    ``cache`` (from :func:`init_cache`) is written in place and returned;
+    ``write_pos`` is the decode token's cache position, ``lengths`` the
+    valid lengths (decode: including the token decoded)."""
+    memory = None
+    if cfg.family == "encdec" and mode != "decode":
+        memory = _encoder(cfg, pcfg, params, batch)
+    x, positions = _input_embed(cfg, params, batch)
+    if mode == "decode" and lengths is not None:
+        # lengths count the context including the token decoded, whose
+        # position is therefore lengths - 1
+        positions = (lengths[:, None] - 1).to(torch.int32)
+
+    groups = layer_groups(cfg)
+    new_cache: Dict[str, Any] = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gi in range(1 if cfg.family == "encdec" else 0, len(groups)):
+        _, kinds = groups[gi]
+        gname = f"group{gi}"
+        x, ngc, aux = _run_group(
+            cfg, pcfg, kinds, params[gname], x, positions, mode=mode,
+            gcache=(cache or {}).get(gname), write_pos=write_pos,
+            lengths=lengths, memory=memory, causal=True)
+        if ngc is not None:
+            new_cache[gname] = ngc
+        aux_total = aux_total + aux
+
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if mode == "features":
+        return x, aux_total
+    if mode == "train":
+        return logits_out(params["embed"], x, cfg,
+                          fp32=pcfg.logits_fp32), aux_total
+    if mode == "prefill":
+        logits = logits_out(params["embed"], x[:, -1:], cfg,
+                            fp32=pcfg.logits_fp32)
+        return logits, new_cache, aux_total
+    return logits_out(params["embed"], x, cfg,
+                      fp32=pcfg.logits_fp32), new_cache

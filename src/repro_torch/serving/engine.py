@@ -119,9 +119,17 @@ the cache's arenas and shares its op queue and launch accounting; with
 :class:`~repro_torch.serving.trace.PimTrace`, which the fused steps feed
 with their direct KV and state writes.
 
-Not in this slice (the constructor raises): device meshes, the eager
-prefill oracle, MLA attention and multi-group layouts (the last two
-with ``ValueError``, as the JAX package raises).
+``fused_prefill=False`` keeps the eager prefill oracle (without
+chunking): each request runs the dense reference forward
+(:func:`repro_torch.models.transformer.forward`) into a fresh dense
+cache, and its KV and Mamba state reach the arenas through the op queue
+(the ``kv_scatter`` and ``state_scatter`` kernels).  The vlm family is
+served as the JAX engine serves it: text-only, through the dense
+layout.
+
+Not in this slice (the constructor raises): device meshes, MLA
+attention and multi-group layouts (the last two with ``ValueError``, as
+the JAX package raises).
 """
 
 from __future__ import annotations
@@ -191,8 +199,8 @@ class _ChunkPrefill:
 
 
 class PagedEngine:
-    """Single-device engine for GQA, SSM, hybrid and MoE decoders (the
-    paged path)."""
+    """Single-device engine for GQA (dense and vlm, text-only), SSM,
+    hybrid and MoE decoders (the paged path)."""
 
     def __init__(self, cfg: ModelConfig, params, *, page_size: int = 16,
                  num_pages: int = 256, pcfg: Optional[ParallelConfig] = None,
@@ -203,10 +211,10 @@ class PagedEngine:
                  lib=None, record_trace: bool = False, mesh=None,
                  compressed_collectives: bool = False,
                  prefix_cache: bool = False, cuda_graphs: bool = True):
-        if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
+        if cfg.family not in ("dense", "vlm", "ssm", "hybrid", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported (dense, ssm, hybrid "
-                "and moe are)")
+                f"family {cfg.family!r} is not served (dense, vlm, ssm, "
+                "hybrid and moe are, as the JAX engine serves them)")
         if cfg.mla is not None:
             raise ValueError(
                 "paged engine: MLA latent-KV attention is not paged — "
@@ -228,8 +236,7 @@ class PagedEngine:
             raise ValueError(
                 "paged engine: mesh= serving is dense-only (SSM state "
                 "arenas and MoE routing are host-local)")
-        for name, on in (("fused_prefill=False", not fused_prefill),
-                         ("mesh", mesh is not None),
+        for name, on in (("mesh", mesh is not None),
                          ("compressed_collectives", compressed_collectives)):
             if on:
                 raise NotImplementedError(
@@ -261,6 +268,7 @@ class PagedEngine:
                                   lib=lib, record_trace=record_trace,
                                   prefix_cache=prefix_cache)
         self.fused = fused
+        self.fused_prefill = fused_prefill
         self.max_prefill_chunk = max_prefill_chunk
         self.decode_block_rounds = decode_block_rounds
         # which multi-round paths this engine runs (the JAX engine builds
@@ -437,8 +445,14 @@ class PagedEngine:
 
     def _prefill_round(self) -> int:
         """Drain the request queue: one fused step per length-bucket
-        batch, in bucket order.  Returns the prompt tokens processed."""
+        batch, in bucket order, or the eager per-request oracle
+        (:meth:`_prefill`) with ``fused_prefill=False``.  Returns the
+        prompt tokens processed."""
         reqs, self.queue = self.queue, []
+        if not self.fused_prefill:
+            for r in reqs:
+                self._prefill(r)
+            return sum(len(r.prompt) for r in reqs)
         # create every sequence in submission order first, so shared
         # prefixes resolve across bucket groups; the radix cache matches
         # against prompts already committed (a batch cannot hit itself)
@@ -452,6 +466,45 @@ class PagedEngine:
         for sp in sorted(groups):
             self._prefill_batch_fused(groups[sp], sp)
         return sum(len(r.prompt) for r in reqs)
+
+    def _prefill(self, req: Request) -> None:
+        """The eager per-request prefill, the fused path's oracle (the JAX
+        engine's ``_prefill``): the dense :func:`~repro_torch.models.
+        transformer.forward` over the prompt into a fresh dense cache,
+        then the prompt's KV past any shared prefix through the op queue
+        (one ``kv_write`` flush: a ``kv_scatter`` launch), on Mamba
+        layers the final state through the ``ssm_state_write`` kind
+        (one flush: ``state_scatter`` per arena, accounted as one
+        ``eager_ssm_layer`` launch per Mamba layer), and the first token
+        through :meth:`_choose`, one draw per request."""
+        seq = self.cache.create(req.req_id, len(req.prompt),
+                                share_with=req.share_with,
+                                shared_len=req.shared_len, tokens=req.prompt)
+        start = seq.shared_prefix_pages * self.cache.page_size
+        n = len(req.prompt)
+        cache = T.init_cache(self.cfg, 1, n, device=self.device)
+        logits, dense, _ = T.forward(
+            self.cfg, self.pcfg, self.params,
+            {"tokens": self._tensor(np.asarray(req.prompt)[None])},
+            mode="prefill", cache=cache, lengths=self._tensor([n]))
+        g = dense["group0"]
+        for key in (k for k in g if k.endswith("_attn")):
+            k, v = g[key]                       # (L, 1, n, kvh, hd)
+            self.cache.write_prompt_kv(seq, k[:, 0, start:n],
+                                       v[:, 0, start:n], start=start)
+        mamba = sorted((k for k in g if k.endswith("_mamba")),
+                       key=lambda key: int(key.split("_")[0]))
+        if mamba:
+            st = self.cache.state
+            self.cache.queue.count_external(
+                "eager_ssm_layer", st.conv.shape[0] * st.conv.shape[1])
+            st.write([req.req_id], torch.stack([g[k][0] for k in mamba], 1),
+                     torch.stack([g[k][1] for k in mamba], 1))
+        tok = self._sample(logits[:, -1], [req.temperature])
+        req.out_tokens.append(int(tok.cpu()[0]))
+        self.active[req.req_id] = req
+        self.stats["prefills"] += 1
+        self.cache.commit_prefix(req.req_id, req.prompt)
 
     def _prefill_batch_fused(self, reqs: List[Request], sp: int) -> None:
         """One fused step for a same-length-bucket prefill batch."""

@@ -268,12 +268,12 @@ class PagedKVCache:
         if mesh is not None:
             raise NotImplementedError("PagedKVCache(mesh=...) is not ported "
                                       "yet")
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid") \
                 or cfg.mla is not None:
             raise NotImplementedError(
                 f"family {cfg.family!r} (mla={cfg.mla is not None}): the "
-                "port's KV cache serves dense, moe, ssm and hybrid layouts "
-                "without MLA")
+                "port's KV cache serves dense, vlm, moe, ssm and hybrid "
+                "layouts without MLA")
         if num_pages % num_slabs:
             raise ValueError("num_pages must be a multiple of num_slabs")
         self.cfg = cfg

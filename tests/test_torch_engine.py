@@ -194,14 +194,14 @@ def test_eos_stops_a_request(model):
 
 
 def test_engine_refuses_what_is_not_ported(model):
-    """What still raises: the eager prefill oracle, meshes and
-    compressed collectives are not ported (``NotImplementedError``); MLA
-    and multi-group layouts are refused with ``ValueError``, as the JAX
-    engine refuses them.  Caller libs and trace recording are served
-    (``tests/test_torch_trace.py``)."""
+    """What still raises: meshes and compressed collectives are not
+    ported (``NotImplementedError``); MLA and multi-group layouts are
+    refused with ``ValueError``, as the JAX engine refuses them.  Caller
+    libs and trace recording are served (``tests/test_torch_trace.py``),
+    and so is the eager prefill oracle
+    (``tests/test_torch_eager_prefill.py``)."""
     _, cfg, _, params = model
-    for kw in (dict(mesh=object()), dict(fused_prefill=False),
-               dict(compressed_collectives=True)):
+    for kw in (dict(mesh=object()), dict(compressed_collectives=True)):
         with pytest.raises(NotImplementedError):
             PagedEngine(cfg, params, device="cpu", **kw)
     mla = reduced(ARCHS["deepseek-v2-236b"])

@@ -243,14 +243,16 @@ def test_block_reservation_and_fused_commits_match_jax():
 
 
 def test_cache_refuses_what_is_not_ported():
-    """Meshes, MLA and the VLM family still raise; ``state_slots`` and
-    trace recording are served (a dense cache has no state arena)."""
+    """Meshes and MLA still raise; ``state_slots`` and trace recording
+    are served (a dense cache has no state arena), and so is the VLM
+    family, laid out as dense."""
     cfg = reduced(ARCHS["granite-3-8b"], num_layers=2)
     with pytest.raises(NotImplementedError):
         PagedKVCache(cfg, device="cpu", mesh=object())
     assert PagedKVCache(cfg, device="cpu", record_trace=True).trace.events \
         == []
-    for arch in ("deepseek-v2-236b", "llava-next-34b"):
-        with pytest.raises(NotImplementedError):
-            PagedKVCache(reduced(ARCHS[arch]), device="cpu")
+    with pytest.raises(NotImplementedError):
+        PagedKVCache(reduced(ARCHS["deepseek-v2-236b"]), device="cpu")
+    vlm = reduced(ARCHS["llava-next-34b"])
+    assert PagedKVCache(vlm, device="cpu").n_layers == vlm.num_layers
     assert PagedKVCache(cfg, device="cpu", state_slots=4).state is None
