@@ -143,7 +143,27 @@ exits nonzero:
     text-only from a 256-page arena: 4 greedy requests monolithic, then
     chunked (256) with mixed rounds, 8-round blocks and a sampled
     request; each run's decode round in ms against its bound (the
-    weights and the KV read once) and its tokens/s.
+    weights and the KV read once) and its tokens/s;
+19. training (last, on a free card): (a) one ``make_train_step`` step
+    of gemma-2b reduced to 2 layers (width 256, vocab 4096) on the card
+    and on the CPU from the same float32 weights, both computing in
+    float32 (TF32 off), with remat "full" and "none": loss, grad norm
+    and every updated parameter within ``TRAIN_*``; (b) gemma-2b at full
+    width and depth (2.51 B parameters, float32 master weights, AdamW
+    with float32 state, remat "full", attention tiles of 512) for 8
+    steps over ``SyntheticLM`` at batch 4 x 2048: losses finite and
+    falling, each step's ms (CUDA events) with the median of steps 3-8,
+    tokens/s, peak memory, one step split into the layers' forward,
+    ``fused_xent``'s forward and backward, the layers' backward and the
+    optimizer, a profiled step's busy time by kernel group, one layer's
+    attention beside SDPA's, and the model FLOPs' share of the bf16
+    peak (both (a) and (b) draw the attention projections at their
+    contraction's fan-in; (b) prints one step at the init rule's scales
+    first); (c) at (a)'s size, a checkpoint written on the card reloads
+    bit for bit, a ``Supervisor`` run with a failure at step 3 and
+    checkpoints every 2 resumes from step 2 with the uninterrupted run's
+    losses, and ``launch.train.main`` on the card does the same.  The
+    ``total`` line gives the whole run's seconds and phase 19's.
 
 Every serving phase runs with the engine's default ``cuda_graphs=True``:
 its prefill batches, chunk steps, mixed rounds (two graphs each), decode
@@ -246,7 +266,7 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bit equality of two tensors of one dtype (raw bytes)."""
     return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
 # ---------------------------------------------------------------------- #
@@ -3342,6 +3362,414 @@ def ssm_cross_check(dev) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# Phase 19: training
+# ---------------------------------------------------------------------- #
+
+# phase 19(a): one train step of reduced gemma-2b, card against CPU, both
+# in float32 (TF32 off), AdamW's eps at 1e-3 (at 1e-8 the first update
+# is sign(g), which a gradient at float32 noise flips: 2 * lr).  The loss
+# sums float32 logits in other orders; the gradients' global norm follows
+# the embedding's, which passes the first RMSNorm's backward (two nearly
+# cancelling terms); a step-1 update moves a parameter by at most about
+# lr(1) = 5e-4, and the two devices' updates are held within 1% of it
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 2e-4
+TRAIN_UPDATE_ATOL = 5e-6
+# phase 19(c): a resumed run's losses against an uninterrupted run's, if
+# the card's atomics part them at all
+RESTART_RTOL = 1e-6
+
+
+def _small_gemma():
+    """Phase 19(a)/(c)'s model: gemma-2b reduced to 2 layers, width 256,
+    4 heads of 64 over 1 KV head, d_ff 1024, a 4096-token vocab (tied)."""
+    from repro_torch.configs import ARCHS, reduced
+    return reduced(ARCHS["gemma-2b"], num_layers=2, d_model=256, d_ff=1024,
+                   vocab_size=4096, head_dim=64)
+
+
+def _on(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _attention_fan_in(params, cfg) -> None:
+    """Rescale every attention projection in place from the init rule's
+    fan-in (the second-to-last dim: heads for ``wq``, the one KV head for
+    ``wk``/``wv``, head_dim for ``wo``) to its contraction's (d_model;
+    heads x head_dim for ``wo``), so each draws at 1/sqrt(fan-in) of the
+    product it enters.  Under the rule gemma's ``wk``/``wv`` draw at std
+    1: its scores reach hundreds and the gradient norm grows ~500x every
+    two layers, ~1e13 at 18 (phase 19(b) prints it), where a clip to 1
+    leaves AdamW's updates below its eps and the loss cannot fall."""
+    for name, group in params.items():
+        if not name.startswith("group"):
+            continue
+        for key, sub in group.items():
+            if not key.endswith("_attn"):
+                continue
+            for w, t in sub["attn"].items():
+                fan = (cfg.num_heads * cfg.resolved_head_dim if w == "wo"
+                       else cfg.d_model)
+                t.mul_((t.shape[-2] / fan) ** 0.5)
+
+
+def train_cross_check(dev) -> dict:
+    """Phase 19(a): one ``make_train_step`` step (AdamW, float32 master
+    weights from a seeded generator on the card, copied to the host) of
+    ``_small_gemma`` over a ``SyntheticLM`` batch of 4 x 128 with
+    ``attention_chunk`` 64, on the card and on the CPU, both with
+    ``layers.COMPUTE_DTYPE`` float32: the loss, grad_norm and every
+    updated parameter held to ``TRAIN_*`` (the tolerances' reasons stand
+    beside them), with remat "full" and "none".  The attention
+    projections are drawn at their contraction's fan-in
+    (``_attention_fan_in``)."""
+    from repro_torch.configs import (OptimizerConfig, ParallelConfig,
+                                     ShapeConfig)
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+    from repro_torch.models import layers, transformer as T
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = _small_gemma()
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=8, eps=1e-3)
+    batch = SyntheticLM(cfg, ShapeConfig("t", 128, 4, "train"),
+                        PipelineConfig(seed=19)).batch(0)
+    p_gpu = init_params(T.model_defs(cfg),
+                        torch.Generator(device=dev).manual_seed(19), dev)
+    _attention_fan_in(p_gpu, cfg)
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    out = {"phase": "train_cross_check", "attention_fan_in": True, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": [4, 128],
+           "attention_chunk": 64, "compute_dtype": "float32",
+           "eps": ocfg.eps, "loss_rtol": TRAIN_LOSS_RTOL,
+           "grad_norm_rtol": TRAIN_GNORM_RTOL,
+           "update_atol": TRAIN_UPDATE_ATOL, "remat": {}}
+    failed = []
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        for remat in ("full", "none"):
+            pcfg = ParallelConfig(remat=remat, attention_impl="chunked",
+                                  attention_chunk=64, moe_impl="dense")
+            res = {}
+            for name, params, d in (("gpu", p_gpu, dev), ("cpu", p_cpu,
+                                                          "cpu")):
+                init, step = make_train_step(cfg, pcfg, ocfg)
+                t0 = time.perf_counter()
+                st, m = step(init(tree_map(torch.clone, params)),
+                             _on(batch, d))
+                res[name] = ({k: float(v) for k, v in m.items()},
+                             tree_map(lambda t: t.cpu(), st["params"]))
+                res[f"{name}_s"] = time.perf_counter() - t0
+            (mg, pg), (mc, pc) = res["gpu"], res["cpu"]
+            err = max(float((a - b).abs().max()) for (_, a), (_, b) in
+                      zip(tree_leaves(pg), tree_leaves(pc)))
+            loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+            gn_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+            if not (np.isfinite(mg["loss"]) and loss_rel <= TRAIN_LOSS_RTOL
+                    and gn_rel <= TRAIN_GNORM_RTOL
+                    and err <= TRAIN_UPDATE_ATOL):
+                failed.append(remat)
+            out["remat"][remat] = {
+                "loss": [mg["loss"], mc["loss"]], "loss_rel_err": loss_rel,
+                "grad_norm": [mg["grad_norm"], mc["grad_norm"]],
+                "grad_norm_rel_err": gn_rel, "params_max_abs_err": err,
+                "card_s": res["gpu_s"], "cpu_s": res["cpu_s"]}
+            res.clear()
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    del p_gpu
+    _free_card()
+    if failed:
+        raise AssertionError(f"train step: card and CPU differ (remat "
+                             f"{failed}): {json.dumps(out)}")
+    return out
+
+
+def _model_flops(cfg, n_params, b, s) -> tuple:
+    """(model FLOPs of one training step, how they are counted): 6 N per
+    token (forward 2 N, backward 4 N; N counts the tied table once, as
+    the LM head's product) plus causal attention, QK^T and PV at 2 s^2 dh
+    FLOPs a head each, halved by the mask, times 3 for the backward;
+    remat's recomputation not counted."""
+    tokens = b * s
+    attn = 3 * 2 * b * cfg.num_heads * s * s * cfg.resolved_head_dim \
+        * cfg.num_layers
+    return 6 * n_params * tokens + attn, {
+        "dense_6NT": 6 * n_params * tokens, "causal_attention": attn}
+
+
+def _split_step(cfg, pcfg, ocfg, state, batch) -> dict:
+    """One more step of the same state, cut by CUDA events into the
+    layers' forward, ``fused_xent`` forward and backward, the layers'
+    backward (recomputing each layer under remat) and the clip with the
+    optimizer; the same gradients ``make_train_step`` takes, in ms."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lm_head import fused_xent
+    from repro_torch.models.params import tree_leaves, tree_map, \
+        tree_unflatten
+    from repro_torch.training.optimizer import (clip_by_global_norm,
+                                                make_optimizer)
+    from repro_torch.training.train_step import AUX_WEIGHT
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    params = state["params"]
+    paths = [p for p, _ in tree_leaves(params)]
+    alias = tree_map(lambda t: t.detach().requires_grad_(), params)
+    leaves = [t for _, t in tree_leaves(alias)]
+    table = alias["embed"]["tok"]                       # tied
+    ev[0].record()
+    feats, aux = T.forward(cfg, pcfg, alias, batch, mode="features")
+    ev[1].record()
+    f = feats.detach().requires_grad_()
+    nll, count = fused_xent(f, table, batch["labels"])
+    total = nll / torch.clamp(count, min=1) + AUX_WEIGHT * aux
+    ev[2].record()
+    dfeats, dtable = torch.autograd.grad(total, (f, table))
+    ev[3].record()
+    flat = list(torch.autograd.grad(feats, leaves, grad_outputs=dfeats))
+    flat[paths.index("embed/tok")] += dtable
+    ev[4].record()
+    grads = tree_unflatten(params, dict(zip(paths, flat)))
+    grads, _ = clip_by_global_norm(grads, ocfg.grad_clip)
+    make_optimizer(ocfg)[1](params, grads, state["opt"])
+    ev[5].record()
+    ev[5].synchronize()
+    names = ("layers_forward_ms", "fused_xent_forward_ms",
+             "fused_xent_backward_ms", "layers_backward_ms",
+             "optimizer_ms")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def _attention_ms(dev, cfg, b, s, chunk) -> dict:
+    """One layer's ``chunked_attention`` at the training shapes (bf16 q
+    (b, s, h, dh), k and v over the KV heads, causal, tiles of
+    ``chunk``): forward ms and forward + backward ms (CUDA events), and
+    ``scaled_dot_product_attention``'s forward + backward on the same
+    inputs (a yardstick the port does not call)."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import chunked_attention
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+                   for shape in ((b, s, h, dh), (b, s, kvh, dh),
+                                 (b, s, kvh, dh), (b, s, h, dh)))
+    for t in (q, k, v):
+        t.requires_grad_()
+
+    def ours():
+        return chunked_attention(q, k, v, causal=True, chunk_q=chunk,
+                                 chunk_k=chunk)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    with torch.no_grad():
+        fwd = time_ms(ours, iters=3, warmup=1)
+    both = time_ms(lambda: torch.autograd.grad(ours(), (q, k, v), do),
+                   iters=3, warmup=1)
+    lib = time_ms(lambda: torch.autograd.grad(sdpa(), (q, k, v), do),
+                  iters=3, warmup=1)
+    return {"shape": [b, s, h, kvh, dh], "chunk": chunk,
+            "chunked_forward_ms": fwd, "chunked_forward_backward_ms": both,
+            "sdpa_forward_backward_ms": lib,
+            # remat "full": each layer runs the forward twice
+            "per_step_ms": cfg.num_layers * (fwd + both)}
+
+
+def _profiled_step(step, state, batch) -> tuple:
+    """One step under ``torch.profiler``: the card's busy ms by kernel
+    group and the 12 kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    busy = _device_busy(prof)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy["top_kernels"] = [[e.key[:100], e.self_device_time_total / 1e3,
+                            e.count] for e in kernels[:12]]
+    return state, busy
+
+
+def train_full(dev) -> dict:
+    """Phase 19(b): gemma-2b at full width and depth (18 layers, d_model
+    2048, 8 query heads over 1 KV head of 256, d_ff 16384 geglu, a
+    256 000-token tied vocab; 2.51 B parameters as float32 master
+    weights from a seeded generator on the card), AdamW with float32
+    state, remat "full", chunked attention in tiles of 512, the
+    launcher's defaults, over ``SyntheticLM`` at batch 4 x 2048: 8 steps
+    (warmup 2), the attention projections at their contraction's fan-in
+    (``_attention_fan_in``; one step at the init rule's scales first
+    prints its loss and gradient norm).  Every loss and grad norm
+    finite, the mean of the last two losses below the first.  Printed: each step's ms (CUDA events),
+    the median of steps 3-8 with tokens/s, peak memory, one more step
+    split by parts (``_split_step``), a profiled step's busy time by
+    kernel group and its top kernels, one layer's attention forward and
+    backward beside SDPA's (``_attention_ms``), and the model FLOPs'
+    share of the bf16 peak."""
+    from repro_torch.configs import (ARCHS, OptimizerConfig, ParallelConfig,
+                                     ShapeConfig)
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = ARCHS["gemma-2b"]
+    b, s, n_steps = 4, 2048, 8
+    pcfg = ParallelConfig(remat="full", attention_impl="chunked",
+                          attention_chunk=512, moe_impl="dense")
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=n_steps)
+    data = SyntheticLM(cfg, ShapeConfig("t", s, b, "train"),
+                       PipelineConfig(seed=1))
+    defs = T.model_defs(cfg)
+    n_params = param_count(defs)
+    init, step = make_train_step(cfg, pcfg, ocfg)
+    # one step at the init rule's scales, for its gradient norm
+    state = init(init_params(defs, torch.Generator(device=dev).manual_seed(
+        19), dev, torch.float32))
+    state, m = step(state, _on(data.batch(0), dev))
+    rule = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del state, m
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(defs, torch.Generator(device=dev).manual_seed(19),
+                         dev, torch.float32)
+    _attention_fan_in(params, cfg)
+    state = init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, gnorms, step_ms = [], [], []
+    for i in range(n_steps):
+        batch = _on(data.batch(i), dev)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_ms.append(e0.elapsed_time(e1))
+    peak = torch.cuda.max_memory_allocated(dev)
+    split = _split_step(cfg, pcfg, ocfg, state, _on(data.batch(n_steps),
+                                                     dev))
+    state, profiled = _profiled_step(step, state,
+                                     _on(data.batch(n_steps + 1), dev))
+    med = float(np.median(step_ms[2:]))
+    flops, counted = _model_flops(cfg, n_params, b, s)
+    out = {"phase": "train_full", "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "batch": [b, s], "optimizer": "adamw", "state_dtype": "float32",
+           "remat": "full", "attention_chunk": 512, "init_seconds": init_s,
+           "init_rule_first_step": rule, "attention_fan_in": True,
+           "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+           "step_ms_median_3_8": med,
+           "tokens_per_s": b * s / (med / 1e3),
+           "peak_memory_gb": peak / 1e9,
+           "split_ms": split, "split_sum_ms": sum(split.values()),
+           "profiled_step": profiled,
+           "model_flops": flops, "model_flops_counted": counted,
+           "achieved_tflops": flops / (med / 1e3) / 1e12,
+           "bf16_peak_share": flops / (med / 1e3) / BF16_FLOPS}
+    del state, params, m, batch
+    _free_card()
+    out["attention"] = _attention_ms(dev, cfg, b, s, 512)
+    _free_card()
+    if not (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+            and np.mean(losses[-2:]) < losses[0]):
+        raise AssertionError(f"train_full: losses not finite and falling: "
+                             f"{json.dumps(out)}")
+    return out
+
+
+def train_restart(dev) -> dict:
+    """Phase 19(c), at (a)'s size in bf16 compute: a checkpoint of the
+    train state written on the card reloads bit for bit (onto the
+    card); a ``Supervisor`` run with a failure injected at step 3 and
+    checkpoints every 2 resumes from step 2, and its losses equal an
+    uninterrupted run's (bit for bit, or within ``RESTART_RTOL`` if the
+    card's atomics part them); then the launcher itself,
+    ``launch.train.main`` on the card with ``--fail-at 3 --ckpt-every
+    2``, resumes from step 2."""
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import (OptimizerConfig, ParallelConfig,
+                                     ShapeConfig)
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.runtime.fault_tolerance import (FailureInjector,
+                                                     Supervisor)
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = _small_gemma()
+    init, step = make_train_step(
+        cfg, ParallelConfig(remat="full", attention_impl="chunked",
+                            attention_chunk=64, moe_impl="dense"),
+        OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=6))
+    data = SyntheticLM(cfg, ShapeConfig("t", 128, 4, "train"),
+                       PipelineConfig(seed=19))
+    state0 = init(init_params(T.model_defs(cfg), torch.Generator(
+        device=dev).manual_seed(19), dev))
+
+    def step_fn(st, batch):
+        return step(st, _on(batch, dev))
+
+    with tempfile.TemporaryDirectory() as d:
+        state, _ = Supervisor(Checkpointer(f"{d}/warm"), ckpt_every=2).run(
+            tree_map(torch.clone, state0), step_fn, data.batch, 2)
+        ck = Checkpointer(f"{d}/roundtrip")
+        ck.save(2, state)
+        back, _ = ck.load(state)
+        pairs = list(zip(tree_leaves(back), tree_leaves(state)))
+        roundtrip = all(x.device == y.device and same_bits(x, y)
+                        for (_, x), (_, y) in pairs)
+        _, clean = Supervisor(Checkpointer(f"{d}/clean"), ckpt_every=2).run(
+            tree_map(torch.clone, state0), step_fn, data.batch, 6)
+        _, ft = Supervisor(Checkpointer(f"{d}/ft"), ckpt_every=2,
+                           injector=FailureInjector(fail_at=[3])).run(
+            tree_map(torch.clone, state0), step_fn, data.batch, 6)
+        rel = max(abs(ft.losses[k] - clean.losses[k]) / abs(clean.losses[k])
+                  for k in clean.losses)
+        launched = launch_train.main(
+            ["--device", str(dev), "--reduced", "--width", "256", "--layers",
+             "2", "--steps", "6", "--batch", "4", "--seq", "128",
+             "--ckpt-every", "2", "--fail-at", "3", "--log-every", "2",
+             "--ckpt-dir", f"{d}/launch"])
+    out = {"phase": "train_restart", "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "leaves": len(pairs), "checkpoint_bit_exact": roundtrip,
+           "restarts": ft.restarts, "resumed_from": ft.resumed_from,
+           "losses_bit_equal": ft.losses == clean.losses,
+           "losses_max_rel_diff": rel, "losses": clean.losses,
+           "launcher": {k: launched[k] for k in (
+               "steps_run", "restarts", "resumed_from", "first_loss",
+               "last_loss")}}
+    del state0, state, back
+    _free_card()
+    if not (roundtrip and ft.restarts == 1 and ft.resumed_from == [2]
+            and len(ft.losses) == 6 and rel <= RESTART_RTOL
+            and launched["restarts"] == 1
+            and launched["resumed_from"] == [2]
+            and all(np.isfinite(list(launched["losses"].values())))):
+        raise AssertionError(f"train_restart: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------- #
 
 
 KERNELS = {
@@ -3466,6 +3894,11 @@ def main() -> int:
     emit(forward_cross_check(dev))
     llava, counts_llava = serving_llava(dev)
     emit(llava)
+    t19 = time.perf_counter()
+    emit(train_cross_check(dev))
+    emit(train_full(dev))
+    emit(train_restart(dev))
+    train_s = time.perf_counter() - t19
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3483,7 +3916,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-    emit({"phase": "total", "seconds": time.perf_counter() - t0})
+    emit({"phase": "total", "seconds": time.perf_counter() - t0,
+          "training_seconds": train_s})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

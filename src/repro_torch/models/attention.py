@@ -5,12 +5,15 @@ The port's counterpart of the JAX package's ``models/attention.py``, in
 plain PyTorch (none of it reaches a Pallas kernel; the serving engine's
 paged path runs the flash and paged-attention kernels instead):
 
-* ``chunked_attention`` — the forward of the JAX package's tiled
-  online-softmax: the static list of reachable (q tile, k tile) pairs
-  walked by a Python loop with running (m, l, acc) per q position, so
-  no (sq, sk) score tensor is materialised and causal tiles that cannot
-  contribute are never visited.  (The JAX version's custom VJP belongs
-  to training and is not ported.)
+* ``chunked_attention`` — the JAX package's tiled online-softmax with
+  its custom VJP, as a ``torch.autograd.Function`` (``_Flash``): the
+  static list of reachable (q tile, k tile) pairs walked by a Python
+  loop with running (m, l, acc) per q position, so no (sq, sk) score
+  tensor is materialised and causal tiles that cannot contribute are
+  never visited.  The forward keeps only ``out`` and the log-sum-exp
+  ``lse``; the backward walks the same pairs, recomputing each tile's
+  probabilities from ``lse`` with ``delta = sum(out * dout)``, so
+  training holds O(s * d) per layer as the reference does.
 * ``decode_attention`` — one token against a dense (b, S, kvh, hd)
   cache masked at each row's length.
 * MLA — prefill expands the latent to per-head k/v; decode runs in
@@ -76,7 +79,7 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 # --------------------------------------------------------------------- #
-# Tiled (flash-style) attention: the forward
+# Tiled (flash-style) attention: forward and custom backward
 # --------------------------------------------------------------------- #
 
 
@@ -92,47 +95,46 @@ def _tile_pairs(nq: int, nk: int, causal: bool, cq: int, ck: int,
     return np.asarray(pairs, np.int32)
 
 
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool, chunk_q: int, chunk_k: int,
-                      q_offset: int = 0,
-                      lengths: Optional[torch.Tensor] = None,
-                      sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention's forward in float32 tiles: q (b, sq, h, dh); k, v
-    (b, sk, kvh, dh) -> (b, sq, h, dh) in q's dtype.  ``q_offset``: the
-    global position of q[0]; ``lengths``: valid kv lengths (b,)."""
+def _tile_mask(bias, i, j, cq, ck, q_offset, causal):
+    """Additive mask of tile (i, j): the length bias of its keys, and
+    -1e30 above the diagonal when causal."""
+    dev = bias.device
+    mask = bias[:, None, None, None, j * ck:(j + 1) * ck]
+    if causal:
+        qpos = q_offset + i * cq + torch.arange(cq, device=dev)
+        kpos = j * ck + torch.arange(ck, device=dev)
+        mask = mask + torch.where(kpos[None, :] <= qpos[:, None], 0.0,
+                                  _NEG_INF)
+    return mask
+
+
+def _pack(q, k, v, cq, ck):
+    """Pad the sequence dims to tile multiples, in float32:
+    q (b, kvh, g, SQ, dh), k and v (b, kvh, SK, dh)."""
     b, sq, h, dh = q.shape
-    _, sk, kvh, _ = k.shape
-    g = h // kvh
-    scale = sm_scale if sm_scale is not None else dh ** -0.5
-    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
-    pq, pk = (-sq) % cq, (-sk) % ck
-    dev = q.device
-    if lengths is None:
-        bias = torch.zeros((b, sk), dtype=torch.float32, device=dev)
-    else:
-        bias = torch.where(
-            torch.arange(sk, device=dev)[None, :] < lengths[:, None].long(),
-            0.0, _NEG_INF)
-    bias = F.pad(bias, (0, pk), value=_NEG_INF)
-    SQ, SK = sq + pq, sk + pk
+    kvh = k.shape[2]
+    pq, pk = (-sq) % cq, (-k.shape[1]) % ck
     qf = F.pad(q, (0, 0, 0, 0, 0, pq)).float().transpose(1, 2).reshape(
-        b, kvh, g, SQ, dh)
+        b, kvh, h // kvh, sq + pq, dh)
     kf = F.pad(k, (0, 0, 0, 0, 0, pk)).float().transpose(1, 2)
     vf = F.pad(v, (0, 0, 0, 0, 0, pk)).float().transpose(1, 2)
+    return qf, kf, vf
+
+
+def _flash_fwd_tiles(qf, kf, vf, bias, pairs, cq, ck, q_offset, causal,
+                     scale):
+    """The online-softmax walk; returns out (b, kvh, g, SQ, dh) and lse
+    (b, kvh, g, SQ, 1), both float32 (``_flash_fwd_scan``)."""
+    b, kvh, g, SQ, dh = qf.shape
+    dev = qf.device
     m = torch.full((b, kvh, g, SQ, 1), _NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((b, kvh, g, SQ, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kvh, g, SQ, dh), dtype=torch.float32, device=dev)
-    for i, j in _tile_pairs(SQ // cq, SK // ck, causal, cq, ck, q_offset):
+    for i, j in pairs:
         qs, ks = slice(i * cq, (i + 1) * cq), slice(j * ck, (j + 1) * ck)
         s = torch.einsum("bkgqd,bkcd->bkgqc", qf[:, :, :, qs], kf[:, :, ks])
-        mask = bias[:, None, None, None, ks]
-        if causal:
-            qpos = q_offset + i * cq + torch.arange(cq, device=dev)
-            kpos = j * ck + torch.arange(ck, device=dev)
-            mask = mask + torch.where(kpos[None, :] <= qpos[:, None], 0.0,
-                                      _NEG_INF)
-        s = s * scale + mask
+        s = s * scale + _tile_mask(bias, i, j, cq, ck, q_offset, causal)
         m_prev, l_prev = m[:, :, :, qs], l[:, :, :, qs]
         m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
@@ -141,9 +143,89 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc[:, :, :, qs] = alpha * acc[:, :, :, qs] + torch.einsum(
             "bkgqc,bkcd->bkgqd", p, vf[:, :, ks])
         m[:, :, :, qs] = m_new
-    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
-    o = out.reshape(b, h, SQ, dh).transpose(1, 2)[:, :sq]
-    return o.to(q.dtype)
+    lsafe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return acc / lsafe, m + torch.log(lsafe)
+
+
+def _flash_bwd_tiles(qf, kf, vf, bias, out, lse, dout, pairs, cq, ck,
+                     q_offset, causal, scale):
+    """``_flash_bwd_scan``: each tile's probabilities recomputed from
+    ``lse``; returns dq, dk, dv in the packed float32 layouts."""
+    delta = (out * dout).sum(dim=-1, keepdim=True)        # (b,kvh,g,SQ,1)
+    dq, dk, dv = (torch.zeros_like(qf), torch.zeros_like(kf),
+                  torch.zeros_like(vf))
+    for i, j in pairs:
+        qs, ks = slice(i * cq, (i + 1) * cq), slice(j * ck, (j + 1) * ck)
+        qd, kd, vd, dod = qf[:, :, :, qs], kf[:, :, ks], vf[:, :, ks], \
+            dout[:, :, :, qs]
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qd, kd)
+        s = s * scale + _tile_mask(bias, i, j, cq, ck, q_offset, causal)
+        p = torch.exp(s - lse[:, :, :, qs])
+        dv[:, :, ks] += torch.einsum("bkgqc,bkgqd->bkcd", p, dod)
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", dod, vd)
+        ds = p * (dp - delta[:, :, :, qs])
+        dq[:, :, :, qs] += torch.einsum("bkgqc,bkcd->bkgqd", ds, kd) * scale
+        dk[:, :, ks] += torch.einsum("bkgqc,bkgqd->bkcd", ds, qd) * scale
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """The JAX package's ``_flash`` custom VJP.  The forward's in-place
+    tile updates run here, outside autograd's view; the bias (the
+    length mask) takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, cq, ck, q_offset, causal, scale):
+        b, sq, h, dh = q.shape
+        qf, kf, vf = _pack(q, k, v, cq, ck)
+        pairs = _tile_pairs(qf.shape[3] // cq, kf.shape[2] // ck, causal,
+                            cq, ck, q_offset)
+        out, lse = _flash_fwd_tiles(qf, kf, vf, bias, pairs, cq, ck,
+                                    q_offset, causal, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.meta = (pairs, cq, ck, q_offset, causal, scale)
+        o = out.reshape(b, h, qf.shape[3], dh).transpose(1, 2)[:, :sq]
+        return o.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        pairs, cq, ck, q_offset, causal, scale = ctx.meta
+        b, sq, h, dh = q.shape
+        sk = k.shape[1]
+        qf, kf, vf = _pack(q, k, v, cq, ck)
+        SQ = qf.shape[3]
+        dof = F.pad(do.float().transpose(1, 2), (0, 0, 0, SQ - sq)).reshape(
+            qf.shape)
+        dq, dk, dv = _flash_bwd_tiles(qf, kf, vf, bias, out, lse, dof, pairs,
+                                      cq, ck, q_offset, causal, scale)
+        dq = dq.reshape(b, h, SQ, dh).transpose(1, 2)[:, :sq].to(q.dtype)
+        dk = dk.transpose(1, 2)[:, :sk].to(k.dtype)
+        dv = dv.transpose(1, 2)[:, :sk].to(v.dtype)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk_q: int, chunk_k: int,
+                      q_offset: int = 0,
+                      lengths: Optional[torch.Tensor] = None,
+                      sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention in float32 tiles, O(s * d) memory forward and
+    backward: q (b, sq, h, dh); k, v (b, sk, kvh, dh) -> (b, sq, h, dh)
+    in q's dtype.  ``q_offset``: the global position of q[0];
+    ``lengths``: valid kv lengths (b,)."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    scale = sm_scale if sm_scale is not None else dh ** -0.5
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    if lengths is None:
+        bias = torch.zeros((b, sk), dtype=torch.float32, device=q.device)
+    else:
+        bias = torch.where(
+            torch.arange(sk, device=q.device)[None, :]
+            < lengths[:, None].long(), 0.0, _NEG_INF)
+    bias = F.pad(bias, (0, (-sk) % ck), value=_NEG_INF)
+    return _Flash.apply(q, k, v, bias, cq, ck, q_offset, causal, scale)
 
 
 def naive_attention(q, k, v, *, causal, lengths=None, q_offset=0,

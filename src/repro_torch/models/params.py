@@ -97,12 +97,14 @@ def init_params(defs: Any, generator: torch.Generator,
 
     # draw in the JAX package's leaf order so a seed fixes every leaf
     flat = {path: make(d) for path, d in tree_leaves(defs)}
-    return _unflatten(defs, flat)
+    return tree_unflatten(defs, flat)
 
 
-def _unflatten(tree: Any, flat: Dict[str, Any], prefix: str = "") -> Any:
+def tree_unflatten(tree: Any, flat: Dict[str, Any], prefix: str = "") -> Any:
+    """``tree``'s structure with each leaf replaced by ``flat[path]``
+    (paths as :func:`tree_leaves` writes them)."""
     if isinstance(tree, dict):
-        return {k: _unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
+        return {k: tree_unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
                 for k, v in tree.items()}
     return flat[prefix]
 

@@ -6,8 +6,11 @@ Parameters of a group are stacked along a leading ``layers`` dim; the
 forward walks that dim with a Python loop where the JAX package used
 ``lax.scan``.  The serving engine's paged path runs its own forwards
 over the paged arenas and kernels; :func:`forward` is the dense
-reference (train, prefill, decode, features) and the eager prefill
-oracle's forward.
+reference (train, prefill, decode, features), the eager prefill
+oracle's forward and the training path's, differentiable for every
+family, with the reference's per-layer rematerialisation
+(``pcfg.remat``; ``jax.checkpoint`` there, ``torch.utils.checkpoint``
+here).
 
 Families -> groups (the JAX package's layouts):
   dense / vlm    [(L, attn+mlp)]
@@ -26,9 +29,13 @@ tensors in place and returns them.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -38,7 +45,7 @@ from . import ssm as ssm_mod
 from .attention import attn_defs
 from .layers import (cast, embed, embed_defs, logits_out, mlp, mlp_defs,
                      rmsnorm, rmsnorm_def)
-from .params import ParamDef, stacked, tree_map
+from .params import ParamDef, stacked, tree_leaves, tree_map
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -220,33 +227,68 @@ def _run_sublayer(cfg, pcfg, kind, p, x, positions, *, mode, cache,
     return x + out, new_cache, aux
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the products without batch dims (a
+    projection's ``mm``, or an einsum's ``bmm`` over a batch of one),
+    recompute the rest — ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
                write_pos, lengths, memory, causal):
     """One stacked layer group, a Python loop over its layers.  Each
     layer's cache is a view of the stacked ``gcache``; a sublayer that
     returns new cache tensors (an SSM's final state, a cross-attention
-    prefill's memory k/v) has them copied into that view.  Returns (x,
-    gcache or None, the summed aux loss)."""
+    prefill's memory k/v) has them copied into that view.  While autograd
+    records (train, features), each layer's body is rematerialised as
+    ``pcfg.remat`` says: "full" saves only its inputs, "dots" also its
+    products without batch dims, "none" everything.  Returns (x, gcache
+    or None, the summed aux loss)."""
     leaf = gparams
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
+    # one view per layer from one unbind: its backward stacks the layers'
+    # gradients once, where a select per layer would add a zero-filled
+    # stacked tensor per layer
+    layers = tree_map(lambda a: a.unbind(0), gparams)
+    records = torch.is_grad_enabled() and not gcache and (
+        x.requires_grad
+        or any(t.requires_grad for _, t in tree_leaves(gparams)))
+    remat = pcfg.remat if records else "none"
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(leaf.shape[0]):
-        p_layer = tree_map(lambda a: a[li], gparams)
-        for i, k in enumerate(kinds):
-            key = f"{i}_{k}"
-            view = None
-            if gcache and key in gcache:
-                view = tuple(c[li] for c in gcache[key])
-            x, nc, aux = _run_sublayer(
-                cfg, pcfg, k, p_layer[key], x, positions, mode=mode,
-                cache=view, write_pos=write_pos, lengths=lengths,
-                memory=memory, causal=causal)
-            if view is not None and nc is not None:
-                for dst, src in zip(view, nc):
-                    if src.data_ptr() != dst.data_ptr():
-                        dst.copy_(src)
-            aux_sum = aux_sum + aux
+        p_layer = tree_map(lambda t: t[li], layers)
+
+        def body(x, aux_sum, p_layer=p_layer, li=li):
+            for i, k in enumerate(kinds):
+                key = f"{i}_{k}"
+                view = None
+                if gcache and key in gcache:
+                    view = tuple(c[li] for c in gcache[key])
+                x, nc, aux = _run_sublayer(
+                    cfg, pcfg, k, p_layer[key], x, positions, mode=mode,
+                    cache=view, write_pos=write_pos, lengths=lengths,
+                    memory=memory, causal=causal)
+                if view is not None and nc is not None:
+                    for dst, src in zip(view, nc):
+                        if src.data_ptr() != dst.data_ptr():
+                            dst.copy_(src)
+                aux_sum = aux_sum + aux
+            return x, aux_sum
+
+        if remat == "none":
+            x, aux_sum = body(x, aux_sum)
+        elif remat in ("full", "dots"):
+            ctx = (functools.partial(create_selective_checkpoint_contexts,
+                                     _save_dots) if remat == "dots"
+                   else noop_context_fn)
+            x, aux_sum = checkpoint(body, x, aux_sum, use_reentrant=False,
+                                    context_fn=ctx)
+        else:
+            raise ValueError(f"remat {remat!r}")
     return x, (gcache if gcache else None), aux_sum
 
 
