@@ -27,8 +27,9 @@ exits nonzero:
    ``index_select`` + ``index_copy_`` (two calls); the attention kernels at jamba's 64/8 and llama4-scout's 40/8
    heads, with ptxas's registers and spills for each attention kernel
    and the count of tensor-core instructions in the built libraries'
-   SASS (flash attention's must hold HMMA); the RowClone API's ``copy_2d`` and ``init_2d`` on
-   granite-3-8b's full K arena (1.34 GB of bf16; ``init_2d`` also at an
+   SASS (flash attention's must hold HMMA); rows 1, 4, 5 and 5p at one
+   rank's shapes of phase 20(b) (16/4 heads, K/V rows of 512); the
+   RowClone API's ``copy_2d`` and ``init_2d`` on granite-3-8b's full K arena (1.34 GB of bf16; ``init_2d`` also at an
    odd bf16 length and in int8) and ``page_copy`` / ``page_init`` on one
    layer of it, bit for bit, a chained batch and a duplicate
    destination included; the (K, V) pair forms of ``kv_scatter`` and
@@ -162,8 +163,33 @@ exits nonzero:
     first); (c) at (a)'s size, a checkpoint written on the card reloads
     bit for bit, a ``Supervisor`` run with a failure at step 3 and
     checkpoints every 2 resumes from step 2 with the uninterrupted run's
-    losses, and ``launch.train.main`` on the card does the same.  The
-    ``total`` line gives the whole run's seconds and phase 19's.
+    losses, and ``launch.train.main`` on the card does the same;
+20. tensor-parallel serving over ``torch.distributed`` (each rank a fresh
+    process, so the main process first frees what it holds): (a)
+    granite-3-8b at full width and depth, phase 3's workload under
+    ``mesh=make_local_mesh(model=1)`` over a one-rank NCCL group with
+    the step graphs on (the collectives captured in them): streams equal
+    phase 3's and the K/V arenas a host-local engine's bit for bit, one
+    ``fused_decode`` a round, owner ``kv``, the decode round beside phase
+    3's; then ``compressed_collectives=True`` under the margin rule; (b)
+    minitron-8b at full width and depth (9.9 B parameters, 19.8 GB of
+    bf16: 9.9 GB a rank) over two gloo ranks sharing the card (graphs
+    off), 4 greedy requests monolithic and then chunked (256) with mixed
+    rounds and 8-round blocks, teacher-forced by the same model served
+    in this process first: logits within ``TP_LOGIT_ATOL`` and the margin
+    rule, the ranks equal, each rank's K/V slice the one-process arenas'
+    head slice (layer 0 bit for bit), one dispatch a round, owners
+    ``kv/shard0``/``kv/shard1``; its ms are two ranks time-sharing one
+    card through host collectives, not a speed of tensor parallelism;
+21. data-parallel training: (a) ``launch.train.main --data-axis 2
+    --backend gloo`` at 19(a)'s size against one process on the same
+    global batch; (b) gemma-2b at full width over two gloo ranks, the
+    depth cut (printed with the bytes) so two replicated copies of the
+    training state fit the card, 3 steps at 4 x 2048; (c)
+    ``compressed_grad_sync`` on CUDA tensors at world 1 over NCCL and
+    world 2 over gloo, bit for bit with the quantization formula on the
+    CPU.  The ``total`` line gives the whole run's seconds, phase 19's
+    and phases 20-21's.
 
 Every serving phase runs with the engine's default ``cuda_graphs=True``:
 its prefill batches, chunk steps, mixed rounds (two graphs each), decode
@@ -188,6 +214,7 @@ import sys
 import time
 from array import array
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -261,6 +288,13 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def synchronize(dev) -> None:
+    """Wait for the card's work on ``dev`` (nothing to wait for on the
+    CPU, where the distributed phases also run at reduced sizes)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -736,6 +770,7 @@ def parity(dev) -> dict:
     rows.update(ambit_parity(dev, randn, L, P, S, E))
     rows.update(ssm_parity(dev))
     rows["attention_hybrid_heads"] = attention_heads_parity(dev, randn)
+    rows["per_rank_minitron_world2"] = rank_shapes_parity(dev, randn)
     rows["attention_build"] = attention_build_info()
     return rows
 
@@ -1265,6 +1300,125 @@ def attention_heads_parity(dev, randn) -> dict:
     return {"max_abs_err": out, "atol": ATTN_TOL}
 
 
+def rank_shapes_parity(dev, randn) -> dict:
+    """Rows 1, 4, 5 and 5p at the shapes one rank of minitron-8b's
+    two-rank tensor-parallel serving gives them (phase 20(b)): 16 query
+    heads over 4 KV heads of 128, so K/V rows of 512 elements; the
+    ``kv_scatter`` pair on a (32, 512, 16, 4, 128) arena pair bit for
+    bit, the attention kernels at ATTN_TOL; each timed beside its plain
+    version and bound."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.kernels.rowclone import ops as rc_ops
+    from repro_torch.kernels.rowclone import ref as rc_ref
+
+    L, P, S, KVH, H, D, B = 32, 512, 16, 4, 16, 128, 4
+    E = KVH * D
+    out = {"heads": H, "kv_heads": KVH, "row_elems": E}
+    k_ar, v_ar = randn(L, P, S, KVH, D), randn(L, P, S, KVH, D)
+    k_new, v_new = randn(L, B, KVH, D), randn(L, B, KVH, D)
+    pages = torch.tensor([3, 100, 257, 511], dtype=torch.int32, device=dev)
+    slots = torch.tensor([0, 7, 15, 9], dtype=torch.int32, device=dev)
+    want_k = k_ar.clone().view(L, P, S, E)
+    want_v = v_ar.clone().view(L, P, S, E)
+    rc_ref.kv_scatter_pair(want_k, want_v, pages, slots,
+                           k_new.view(L, B, E), v_new.view(L, B, E))
+    got_k, got_v = k_ar.clone(), v_ar.clone()
+    rc_ops.kv_scatter_pair_inline(got_k, got_v, pages, slots, k_new, v_new)
+    torch.cuda.synchronize()
+    if not (same_bits(got_k.view(L, P, S, E), want_k)
+            and same_bits(got_v.view(L, P, S, E), want_v)):
+        raise AssertionError("kv_scatter at the per-rank shape disagrees "
+                             "with its plain version")
+    del want_k, want_v
+    nb, by = bound(2 * L * B * E * 2 * 2 + 2 * B * 4, 0)
+    out["kv_scatter"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: rc_ops.kv_scatter_pair_inline(
+            got_k, got_v, pages, slots, k_new, v_new)),
+        plain_ms=time_ms(lambda: rc_ref.kv_scatter_pair(
+            got_k.view(L, P, S, E), got_v.view(L, P, S, E), pages, slots,
+            k_new.view(L, B, E), v_new.view(L, B, E))),
+        bound_ms=nb, bound_by=by)
+    del got_k, got_v
+    # paged decode attention over one layer, the token merged in-kernel
+    lens_l = [1, 517, 1000, 233]
+    need = [-(-n // S) for n in lens_l]
+    width = 1 << (max(need) - 1).bit_length()
+    bt = torch.zeros((B, width), dtype=torch.int32)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(3))
+    at = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = perm[at:at + n]
+        at += n
+    bt = bt.to(dev)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    k_l, v_l = k_ar[0], v_ar[0]
+    q = randn(B, H, D)
+    kw = dict(k_self=randn(B, KVH, D), v_self=randn(B, KVH, D))
+    got = pa_ops.paged_attention(q, k_l, v_l, bt, lens, **kw)
+    want = pa_ref.paged_attention(q, k_l, v_l, bt, lens, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_TOL,
+                               rtol=ATTN_TOL)
+    kv_bytes = sum(lens_l) * 2 * E * 2
+    nb, by = bound(kv_bytes + 2 * B * H * D * 2,
+                   4 * sum(lens_l) * H * D)
+    out["paged_attention"] = dict(
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=time_ms(lambda: pa_ops.paged_attention(q, k_l, v_l, bt, lens,
+                                                  **kw)),
+        plain_ms=time_ms(lambda: pa_ref.paged_attention(q, k_l, v_l, bt,
+                                                        lens, **kw)),
+        bound_ms=nb, bound_by=by)
+    # flash attention with lengths, and its prefix-KV mode
+    Sf = 512
+    qf = randn(2, H, Sf, D)
+    kf, vf = randn(2, KVH, Sf, D), randn(2, KVH, Sf, D)
+    flens = torch.tensor([512, 300], dtype=torch.int32, device=dev)
+    got = fa_ops.attention(qf, kf, vf, causal=True, lengths=flens)
+    want = fa_ref.attention(qf, kf, vf, causal=True, lengths=flens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_TOL,
+                               rtol=ATTN_TOL)
+    causal_pairs = (512 * 513 + 300 * 301) // 2
+    nb, by = bound(2 * (2 * H + 2 * KVH) * Sf * D * 2,
+                   4 * causal_pairs * H * D)
+    out["flash_attention"] = dict(
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=time_ms(lambda: fa_ops.attention(qf, kf, vf, causal=True,
+                                            lengths=flens)),
+        plain_ms=time_ms(lambda: fa_ref.attention(qf, kf, vf, causal=True,
+                                                  lengths=flens)),
+        bound_ms=nb, bound_by=by)
+    kp = k_l[bt[:2, :32].long()].view(2, 32 * S, KVH, D).transpose(1, 2)
+    vp = v_l[bt[:2, :32].long()].view(2, 32 * S, KVH, D).transpose(1, 2)
+    plens = [1, 500]
+    pkw = dict(causal=True, lengths=torch.tensor(
+        [256, 100], dtype=torch.int32, device=dev), k_prefix=kp,
+        v_prefix=vp, prefix_lengths=torch.tensor(
+            plens, dtype=torch.int32, device=dev))
+    qc, kc, vc = qf[:, :, :256], kf[:, :, :256], vf[:, :, :256]
+    got = fa_ops.attention(qc, kc, vc, **pkw)
+    want = fa_ref.attention(qc, kc, vc, **pkw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_TOL,
+                               rtol=ATTN_TOL)
+    pairs = (256 * 257 + 100 * 101) // 2 + 256 * plens[0] + 100 * plens[1]
+    # q and out, the chunk's K and V, and only the valid prefix's K and V
+    nb, by = bound((2 * 2 * 256 * H + 2 * 2 * 256 * KVH + 2 * sum(plens) * KVH)
+                   * D * 2 + 2 * 2 * 4, 4 * pairs * H * D)
+    out["flash_attention_prefix"] = dict(
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=time_ms(lambda: fa_ops.attention(qc, kc, vc, **pkw)),
+        plain_ms=time_ms(lambda: fa_ref.attention(qc, kc, vc, **pkw)),
+        bound_ms=nb, bound_by=by)
+    out["atol"] = ATTN_TOL
+    return out
+
+
 def rowclone_api_parity(dev, shape=(40, 1024, 16, 8, 128)) -> dict:
     """Phase 2, the RowClone API's kernels bit for bit against their
     plain versions: ``copy_2d`` and ``init_2d`` on granite-3-8b's full K
@@ -1749,7 +1903,7 @@ def serving(dev, cfg, params, init_s) -> dict:
           "pages_in_use": engine.cache.pages_in_use,
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           "streams_head": {k: v[:8] for k, v in sorted(results.items())}})
-    return counts, results
+    return counts, results, float(np.median(rs[1:])) * 1e3
 
 
 def _round_kind(delta) -> str:
@@ -3770,6 +3924,751 @@ def train_restart(dev) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# Phases 20-21: tensor-parallel serving and data-parallel training over
+# torch.distributed (one process per rank)
+# ---------------------------------------------------------------------- #
+
+# phase 20(b): minitron-8b's logits at two ranks against one process,
+# both with wq x 0.01 (phase 6's cure for near-one-hot attention): the
+# row-parallel sums add bf16 partials in another order in each of 32
+# layers, and the logits are bf16 products (spacing 2**-5 at |logit| in
+# [4, 8)); 0.094 (three such steps) measured on an H100
+TP_LOGIT_ATOL = 0.1
+# its K/V past layer 0, relative to the largest |value| of the layer
+TP_ARENA_RTOL = 2 ** -5
+# phase 21(a): the launcher's losses at two ranks against one: the first
+# step's within float32 sums in another order; the later ones move with
+# AdamW's eps=1e-8, whose first updates are about lr * sign(g), so a
+# near-zero gradient component summed in another order moves by lr in
+# one run only (tests/test_torch_data_parallel.py; 1.3e-4 relative at
+# step 3 on the CPU at this size)
+DP_FIRST_RTOL = 1e-5
+DP_LOSS_RTOL = 1e-3
+# phase 21(a): the CPU test's train step (tests/test_torch_data_parallel.py,
+# AdamW's eps=1e-3, so an update does not turn on a gradient's sign) at
+# two ranks against one: the grad norm at that test's GNORM_RTOL, the
+# loss at DP_FIRST_RTOL (its LOSS_RTOL).  Only one step: its grad norm
+# is 16 under the init rule, clipped to 1, and from there float32 sums
+# in another order part the runs (on the CPU, the same batch again:
+# 0.24% at step 2, 32% at step 3)
+DP_GNORM_RTOL = 1e-4
+# ... and every updated parameter within lr / 10: the CPU test holds
+# 5e-6, but the card's float32 products sum in other orders than the
+# CPU's (5.78e-6 measured on an H100); a rank whose gradient was not
+# summed moves a sign-driven update by up to 2 lr (2e-3)
+DP_UPDATE_ATOL = 1e-4
+DP_SEQ = 2048          # phase 21(b): gemma-2b's global batch is 4 x DP_SEQ
+# phase 21(b): what a rank process holds on the card beyond its
+# allocator's reserved bytes (its CUDA context, the kernels' modules)
+# and slack for the allocator's rounding past the probed depths
+DP_RANK_OVERHEAD = 2e9
+
+
+def _recorder_class():
+    """The engine with each choice's logits kept (on the device) and,
+    given a reference's tokens, every choice taken from them (teacher
+    forcing, so two runs see the same inputs)."""
+    from repro_torch.serving.engine import PagedEngine
+
+    class Recorder(PagedEngine):
+        def __init__(self, *a, ref_tokens=None, **kw):
+            super().__init__(*a, **kw)
+            self.ref_tokens = ref_tokens
+            self.logits, self.tokens = [], []
+
+        def _choose(self, logits, temps, seed, rowmap=None):
+            self.logits.append(logits.detach().float().clone())
+            if self.ref_tokens is None:
+                tok = super()._choose(logits, temps, seed, rowmap=rowmap)
+            else:
+                tok = self.ref_tokens[len(self.logits) - 1].to(
+                    logits.device)
+            self.tokens.append(tok.detach().clone())
+            return tok
+
+    return Recorder
+
+
+def _drive(engine, reqs, snap_at=None, layers=None) -> dict:
+    """``launch.serve.serve``'s loop on a given engine: one step a round,
+    or a K-block when nothing waits; each step's host seconds (ending
+    in a synchronise) and launch delta; after step ``snap_at`` a copy
+    of the K/V arenas (``layers`` of them, on the device)."""
+    for r in reqs:
+        engine.submit(r)
+    q = engine.cache.queue
+    results, seconds, deltas, snap = {}, [], [], None
+    t0 = time.perf_counter()
+    while engine.has_work:
+        rounds = (engine.decode_block_rounds
+                  if engine.prefill_backlog_tokens() == 0 else 1)
+        before = q.snapshot()
+        t = time.perf_counter()
+        results.update(engine.run(max_rounds=rounds))
+        synchronize(engine.device)
+        seconds.append(time.perf_counter() - t)
+        deltas.append(q.delta(before))
+        if snap_at is not None and len(seconds) == snap_at:
+            sel = list(range(engine.cache.n_layers)) if layers is None \
+                else list(layers)
+            snap = [a[sel].clone() for a in (engine.cache.k_arena,
+                                              engine.cache.v_arena)]
+    total = time.perf_counter() - t0
+    decode = [s for s, d in zip(seconds, deltas) if d == {"fused_decode": 1}]
+    return {"results": results, "seconds": total, "step_seconds": seconds,
+            "deltas": deltas, "arenas": snap,
+            "tokens": sum(len(v) for v in results.values()),
+            "decode_round_ms_median": (float(np.median(decode)) * 1e3
+                                       if decode else None)}
+
+
+def _margin_check(ours, ref, atol) -> dict:
+    """Each choice's logits within ``atol`` of the reference's, and the
+    margin rule: where the reference's top-1/top-2 gap exceeds twice
+    ``atol`` our own argmax must be its token.  Returns the largest
+    difference and the choices the margin decided (of all rows)."""
+    if len(ours) != len(ref):
+        raise AssertionError(f"{len(ours)} choices, the reference made "
+                             f"{len(ref)}")
+    worst, decided, rows = 0.0, 0, 0
+    for a, b in zip(ours, ref):
+        b = b.to(a.device)
+        worst = max(worst, float((a - b).abs().max()))
+        top2 = b.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * atol
+        if not torch.equal(a.argmax(-1)[sure], b.argmax(-1)[sure]):
+            raise AssertionError("a choice the margin decides differs")
+        decided += int(sure.sum())
+        rows += int(sure.numel())
+    if worst > atol:
+        raise AssertionError(f"logits differ by {worst} > {atol}")
+    return {"max_abs_diff": worst, "margin_decided": decided,
+            "choices": rows, "atol": atol,
+            "max_abs_logit": max(float(b.abs().max()) for b in ref)}
+
+
+def _peak_gb(dev) -> Optional[float]:
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+
+
+def tp_world1(dev, greedy, phase3_round_ms, card) -> tuple:
+    """Phase 20(a): granite-3-8b at full width and depth, phase 3's
+    greedy workload, served under ``mesh=make_local_mesh(model=1)`` over
+    a one-rank NCCL group with the step graphs on (the vocab-parallel
+    embedding and logits sums and both row-parallel sums captured in
+    each graph): streams equal phase 3's bit for bit, the K/V arenas
+    after step 2 equal a host-local engine's bit for bit, one
+    ``fused_decode`` a round, owners ``{"kv"}``; then
+    ``compressed_collectives=True``, teacher-forced by the host-local
+    run, holds its logits within the int8 sum's bound (per choice, the
+    row's largest |logit| / 127: a half-step in and a half-step out)
+    and the margin rule."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import make_local_mesh, process_group
+    from repro_torch.serving.engine import Request
+
+    Recorder = _recorder_class()
+    cfg, params, _ = granite_params(dev)
+    kw = dict(page_size=16, num_pages=1024, device=dev)
+    host_eng = Recorder(cfg, params, **kw)
+    host = _drive(host_eng, granite_requests(cfg, Request), snap_at=2)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with process_group(backend):
+        mesh = make_local_mesh(model=1)
+        reset_launches()
+        eng = Recorder(cfg, params, mesh=mesh, **kw)
+        sharded = _drive(eng, granite_requests(cfg, Request), snap_at=2)
+        counts = launch_counts()
+        owners = eng.cache.queue.snapshot(by_owner=True)
+        graphs = _graph_stats(eng)
+        captured, due = eng._steps.captured, eng._steps.due
+        del eng
+        comp_eng = Recorder(cfg, params, mesh=mesh,
+                            compressed_collectives=True,
+                            ref_tokens=host_eng.tokens, **kw)
+        comp = _drive(comp_eng, granite_requests(cfg, Request))
+        bound_atol = max(float(b.abs().max()) for b in host_eng.logits) / 127
+        compressed = _margin_check(comp_eng.logits, host_eng.logits,
+                                   bound_atol)
+        del comp_eng
+    del host_eng
+    same_arenas = all(torch.equal(a, b) for a, b in zip(sharded["arenas"],
+                                                         host["arenas"]))
+    one_a_round = all(d.get("fused_decode", 0) <= 1 for d in
+                      sharded["deltas"])
+    out = {"phase": "tp_world1", "nvidia_smi": card, "arch": cfg.name,
+           "backend": backend, "mesh": {"data": 1, "model": 1},
+           "streams_equal_phase3": sharded["results"] == greedy,
+           "streams_equal_host_local": sharded["results"] == host["results"],
+           "arenas_bit_equal_after_step_2": same_arenas,
+           "decode_round_ms_median": sharded["decode_round_ms_median"],
+           "phase3_decode_round_ms_median": phase3_round_ms,
+           "host_local_decode_round_ms_median": host["decode_round_ms_median"],
+           "tokens_per_s": sharded["tokens"] / sharded["seconds"],
+           "fused_decode_once_a_round": one_a_round,
+           "owners": sorted(owners), "graphs": graphs,
+           "captured": captured, "due": due,
+           "compressed": compressed,
+           "compressed_streams_equal": comp["results"] == host["results"],
+           "kernel_launches": counts}
+    del params, host, sharded, comp
+    _free_card()
+    if not (out["streams_equal_phase3"] and out["streams_equal_host_local"]
+            and same_arenas and one_a_round and out["owners"] == ["kv"]
+            and (dev.type != "cuda" or (captured == due and captured > 0))):
+        raise AssertionError(f"tp_world1: {json.dumps(out)}")
+    if dev.type == "cuda":
+        _check_launched(counts, PHASE3_KERNELS[:1] + PHASE3_KERNELS[2:],
+                        "tp_world1")
+    return out, counts
+
+
+TP_SEED = 24
+TP_REQS = dict(n=4, lo=64, hi=1025, new_tokens=16)
+TP_CHUNKED = dict(max_prefill_chunk=256, mixed_rounds=True,
+                  decode_block_rounds=8)
+
+
+def _minitron(dev, cfg, mesh=None):
+    """``cfg`` (minitron-8b at full width and depth), random bf16 weights
+    from ``TP_SEED`` on the card (with a mesh: each leaf drawn in full
+    and cut to this rank's block at once), ``wq`` x 0.01."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    params = init_params(T.model_defs(cfg), gen, dev, torch.bfloat16,
+                         mesh=mesh)
+    _scale_queries(params, 0.01)
+    synchronize(dev)
+    return params
+
+
+def _tp_rank(rank: int, world: int, cfg, ref_path: str, device: str
+             ) -> dict:
+    """One rank of phase 20(b): minitron-8b's slice, both workloads
+    teacher-forced by the one-process run saved at ``ref_path``, over
+    the gloo group on the one card, graphs off."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
+    from repro_torch.serving.engine import Request
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(model=world)
+    t0 = time.perf_counter()
+    params = _minitron(dev, cfg, mesh)
+    init_s = time.perf_counter() - t0
+    local_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(params))
+    ref = torch.load(ref_path, weights_only=False)
+    Recorder = _recorder_class()
+    kvh = cfg.num_kv_heads // world
+    out = {"rank": rank, "init_seconds": init_s, "weight_bytes": local_bytes,
+           "full_weight_bytes": param_count(T.model_defs(cfg)) * 2}
+    reset_launches()
+    for mode, kw in (("monolithic", {}), ("chunked", ref["chunked_kw"])):
+        r = ref[mode]
+        eng = Recorder(cfg, params, page_size=16, num_pages=512, device=dev,
+                       mesh=mesh, cuda_graphs=False,
+                       ref_tokens=[t.to(dev) for t in r["tokens"]], **kw)
+        run = _drive(eng, seeded_requests(cfg, Request, **ref["reqs"]),
+                     snap_at=2, layers=r["layers"])
+        check = _margin_check(eng.logits, r["logits"], TP_LOGIT_ATOL)
+        arenas = {}
+        for name, ours, full in zip("kv", run["arenas"], r["arenas"]):
+            want = full[..., rank * kvh:(rank + 1) * kvh, :].to(dev)
+            arenas[name] = {
+                "layer0_bit_equal": bool(torch.equal(ours[0], want[0])),
+                "max_abs_diff": float((ours.float() - want.float()).abs()
+                                      .max()),
+                "max_rel_to_layer_absmax": max(
+                    float((ours[i].float() - want[i].float()).abs().max()
+                          / want[i].float().abs().max())
+                    for i in range(1, ours.shape[0]))}
+        argmax = [lg.argmax(-1).cpu() for lg in eng.logits]
+        out[mode] = {
+            "results": run["results"], "choices": check,
+            "argmax": argmax,
+            "logits_sum": [float(lg.double().sum()) for lg in eng.logits],
+            "arenas": arenas, "deltas": run["deltas"],
+            "owners": eng.cache.queue.snapshot(by_owner=True),
+            "decode_round_ms_median": run["decode_round_ms_median"],
+            "step_ms": [x * 1e3 for x in run["step_seconds"]],
+            "tokens": run["tokens"], "seconds": run["seconds"],
+            "stats": {k: eng.stats[k] for k in (
+                "mixed_dispatches", "multi_round_blocks",
+                "fused_dispatches")}}
+        del eng
+    out["kernel_launches"] = launch_counts()
+    out["peak_gb"] = _peak_gb(dev)
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.models.params import tree_leaves
+    return [t for _, t in tree_leaves(tree)]
+
+
+def tp_world2(dev, card) -> tuple:
+    """Phase 20(b): minitron-8b at full width and depth (32 layers,
+    d_model 4096, 32/8 heads, d_ff 16384, vocab 256 000) served by two
+    gloo ranks sharing the one card (graphs off: gloo's collectives run
+    on the host), 4 greedy requests monolithic, then chunked (256) with
+    mixed rounds and 8-round blocks, each teacher-forced by the same
+    model served in this process first: logits within TP_LOGIT_ATOL and
+    the margin rule, the ranks' logits and streams equal, each rank's
+    K/V slice after step 2 equal to the one-process arenas' head slice
+    (layer 0 bit for bit; layers 1 and 31 within TP_ARENA_RTOL of the
+    layer's largest |value|), one dispatch a step and owners
+    ``kv/shard0`` / ``kv/shard1``.  Two ranks time-share the card and
+    sum through host collectives: its ms are not a speed of tensor
+    parallelism."""
+    import tempfile
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.serving.engine import Request
+
+    Recorder = _recorder_class()
+    t0 = time.perf_counter()
+    cfg = ARCHS["minitron-8b"]
+    params = _minitron(dev, cfg)
+    init_s = time.perf_counter() - t0
+    layers = (0, 1, cfg.num_layers - 1)
+    # the ranks run this workload, teacher-forced by this run
+    ref = {"reqs": TP_REQS, "chunked_kw": TP_CHUNKED}
+    host = {}
+    for mode, kw in (("monolithic", {}), ("chunked", TP_CHUNKED)):
+        eng = Recorder(cfg, params, page_size=16, num_pages=512, device=dev,
+                       **kw)
+        run = _drive(eng, seeded_requests(cfg, Request, **TP_REQS),
+                     snap_at=2, layers=layers)
+        ref[mode] = {"tokens": [t.cpu() for t in eng.tokens],
+                     "logits": [lg.cpu() for lg in eng.logits],
+                     "arenas": [a.cpu() for a in run["arenas"]],
+                     "layers": layers}
+        host[mode] = {"results": run["results"], "deltas": run["deltas"],
+                      "decode_round_ms_median": run["decode_round_ms_median"],
+                      "tokens_per_s": run["tokens"] / run["seconds"]}
+        del eng, run
+    del params
+    _free_card()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/reference.pt"
+        torch.save(ref, path)
+        t1 = time.perf_counter()
+        ranks = run_ranks(_tp_rank, 2, backend="gloo",
+                          args=(cfg, path, str(dev)), timeout=600.0)
+        ranks_s = time.perf_counter() - t1
+    out = {"phase": "tp_world2", "nvidia_smi": card, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "backend": "gloo", "ranks_on_one_card": 2,
+           "cuda_graphs": False, "host_init_seconds": init_s,
+           "ranks_seconds": ranks_s,
+           "note": ("two ranks time-share one card and sum through host "
+                    "collectives (gloo): not a speed of tensor "
+                    "parallelism")}
+    ok = True
+    for mode in ("monolithic", "chunked"):
+        r0, r1 = ranks
+        m0, m1 = r0[mode], r1[mode]
+        same_ranks = (m0["results"] == m1["results"]
+                      and m0["logits_sum"] == m1["logits_sum"]
+                      and all(torch.equal(a, b) for a, b in
+                              zip(m0["argmax"], m1["argmax"])))
+        # each round one dispatch (a prefill step: one a length bucket)
+        one = all(d.get(k, 0) <= 1 for d in m0["deltas"] for k in (
+            "fused_decode", "fused_mixed", "fused_decode_block"))
+        owners = sorted(m0["owners"])
+        arenas_ok = all(
+            a["layer0_bit_equal"]
+            and a["max_rel_to_layer_absmax"] <= TP_ARENA_RTOL
+            for r in ranks for a in r[mode]["arenas"].values())
+        row = {"streams_equal_one_process": m0["results"] == host[mode][
+                   "results"],
+               "ranks_equal": same_ranks,
+               "deltas_equal_one_process": m0["deltas"] == host[mode][
+                   "deltas"],
+               "one_fused_dispatch_a_step": one, "owners": owners,
+               "choices": m0["choices"],
+               "arenas": {f"rank{r['rank']}": r[mode]["arenas"]
+                          for r in ranks},
+               "decode_round_ms_median": m0["decode_round_ms_median"],
+               "one_process_decode_round_ms_median": host[mode][
+                   "decode_round_ms_median"],
+               "tokens_per_s": m0["tokens"] / m0["seconds"],
+               "one_process_tokens_per_s": host[mode]["tokens_per_s"],
+               "step_ms": m0["step_ms"], "stats": m0["stats"]}
+        out[mode] = row
+        ok = ok and (row["streams_equal_one_process"] and same_ranks
+                     and row["deltas_equal_one_process"] and one
+                     and owners == ["kv/shard0", "kv/shard1"] and arenas_ok)
+    out["chunked_ran_mixed_and_blocks"] = (
+        out["chunked"]["stats"]["mixed_dispatches"] > 0
+        and out["chunked"]["stats"]["multi_round_blocks"] > 0)
+    out["rank_weight_gb"] = [r["weight_bytes"] / 1e9 for r in ranks]
+    out["full_weight_gb"] = ranks[0]["full_weight_bytes"] / 1e9
+    out["rank_init_seconds"] = [r["init_seconds"] for r in ranks]
+    out["rank_peak_gb"] = [r["peak_gb"] for r in ranks]
+    counts = ranks[0]["kernel_launches"]
+    out["kernel_launches"] = counts
+    _free_card()
+    if not (ok and out["chunked_ran_mixed_and_blocks"]):
+        raise AssertionError(f"tp_world2: {json.dumps(out, default=str)}")
+    if dev.type == "cuda":
+        _check_launched(counts, ("kv_scatter", "paged_attention",
+                                 "flash_attention", "flash_attention_prefix",
+                                 "page_init_batched"), "tp_world2")
+    return out, counts
+
+
+def _dp_steps(cfg, pcfg, ocfg, params, batches, dev, *, mesh=None,
+              rank: int = 0, world: int = 1,
+              keep_params: bool = False) -> dict:
+    """Phase 21's train steps from ``params``, one a global batch of
+    ``batches``, each on this rank's contiguous block of it: each step's
+    loss, grad norm, a checksum of the parameters after it (the float64
+    sum of every leaf) and its ms; the parameters after the last step
+    (on the CPU) with ``keep_params``."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.train_step import make_train_step
+
+    init, step = make_train_step(cfg, pcfg, ocfg, mesh=mesh)
+    state = init(params)
+    del params
+    out = {"losses": [], "grad_norms": [], "checksums": [], "step_ms": []}
+    for b in batches:
+        per = b["tokens"].shape[0] // world
+        b = {k: v[rank * per:(rank + 1) * per] for k, v in b.items()}
+        synchronize(dev)
+        t = time.perf_counter()
+        state, m = step(state, _on(b, dev))
+        synchronize(dev)
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["checksums"].append(sum(
+            float(t_.sum(dtype=torch.float64))
+            for _, t_ in tree_leaves(state["params"])))
+    if keep_params:
+        out["params"] = {k: t_.cpu()
+                         for k, t_ in tree_leaves(state["params"])}
+    return out
+
+
+def _dp_small(dev) -> tuple:
+    """Phase 21(a)'s direct step, tests/test_torch_data_parallel.py's
+    on the card: ``reduced(gemma-2b)`` at width 64, two layers, a
+    512-token vocab, float32 weights drawn on the CPU from seed 0, one
+    global batch of 4 x 32 from numpy's seed 0, AdamW lr 1e-3 eps 1e-3."""
+    from repro_torch.configs import (ARCHS, OptimizerConfig, ParallelConfig,
+                                     reduced)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = reduced(ARCHS["gemma-2b"], d_model=64, num_layers=2, d_ff=256,
+                  vocab_size=512)
+    params = tree_map(lambda t_: t_.to(dev), init_params(
+        T.model_defs(cfg), torch.Generator().manual_seed(0), "cpu"))
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 33)).astype(np.int32)
+    pcfg = ParallelConfig(remat="none", attention_impl="naive",
+                          moe_impl="dense")
+    ocfg = OptimizerConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                           total_steps=10)
+    return (cfg, pcfg, ocfg, params,
+            [{"tokens": toks[:, :-1], "labels": toks[:, 1:]}])
+
+
+def _dp_gemma(cfg, dev, steps: int) -> tuple:
+    """Phase 21(b)'s run: gemma-2b (``cfg`` cut in depth), float32
+    master weights (attention at its fan-in, as phase 19), remat full,
+    chunked attention, AdamW, ``steps`` global batches of 4 x DP_SEQ
+    from ``SyntheticLM``."""
+    from repro_torch.configs import (OptimizerConfig, ParallelConfig,
+                                     ShapeConfig)
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    params = init_params(T.model_defs(cfg), torch.Generator(
+        device=dev).manual_seed(19), dev, torch.float32)
+    _attention_fan_in(params, cfg)
+    pcfg = ParallelConfig(remat="full", attention_impl="chunked",
+                          attention_chunk=512, moe_impl="dense")
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+    data = SyntheticLM(cfg, ShapeConfig("t", DP_SEQ, 4, "train"),
+                       PipelineConfig(seed=1))
+    return pcfg, ocfg, params, [data.batch(i) for i in range(steps)]
+
+
+def _dp_rank(rank: int, world: int, gemma_cfg, steps: int,
+             device: str) -> dict:
+    """One rank of phase 21(a) and (b): the direct step of
+    :func:`_dp_small`, then gemma-2b at full width cut to ``gemma_cfg``'s
+    depth, each rank on its block of the global batch, gradients summed
+    over the gloo group each step."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(data=world)
+    cfg, pcfg, ocfg, params, batches = _dp_small(dev)
+    small = _dp_steps(cfg, pcfg, ocfg, params, batches, dev, mesh=mesh,
+                      rank=rank, world=world, keep_params=True)
+    del params
+    _free_card()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    pcfg, ocfg, params, batches = _dp_gemma(gemma_cfg, dev, steps)
+    big = _dp_steps(gemma_cfg, pcfg, ocfg, params, batches, dev, mesh=mesh,
+                    rank=rank, world=world)
+    big["params"] = param_count(T.model_defs(gemma_cfg))
+    big["peak_gb"] = _peak_gb(dev)
+    big["peak_reserved_gb"] = (torch.cuda.max_memory_reserved(dev) / 1e9
+                               if dev.type == "cuda" else None)
+    return {"small": small, "gemma": big}
+
+
+def _dp_probe_rank(rank: int, world: int, cfg, device: str) -> list:
+    """The rank of :func:`_dp_probe`: rank 0's first train step of a
+    two-rank run (its block, 2 x DP_SEQ, of the global batch; through a
+    one-rank gloo group, so the sync's flat buffer is held too) at one
+    and at two layers, the allocator's peak reserved bytes of each (0
+    on the CPU)."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(data=world)
+    if cuda:
+        # the allocator's statistics exist once it has served a tensor
+        torch.ones(1, device=dev)
+    peaks = []
+    for n in (1, 2):
+        c = dataclasses.replace(cfg, num_layers=n)
+        _free_card()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_reserved(dev) if cuda else 0
+        pcfg, ocfg, params, batches = _dp_gemma(c, dev, 1)
+        _dp_steps(c, pcfg, ocfg, params, batches, dev, mesh=mesh, world=2)
+        del params
+        peaks.append(torch.cuda.max_memory_reserved(dev) - before
+                     if cuda else 0)
+    return peaks
+
+
+def _dp_probe(cfg, dev) -> dict:
+    """Phase 21(b)'s depth from a measurement: :func:`_dp_probe_rank` in
+    a fresh process, as each rank starts; a rank then needs about
+    ``base + layers x per_layer`` bytes."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
+
+    peaks = run_ranks(_dp_probe_rank, 1, backend="gloo",
+                      args=(cfg, str(dev)), timeout=300.0)[0]
+    # a layer holds at least its training state: 20 bytes a parameter
+    # (float32 weights, gradients, AdamW m and v, the sync's buffer)
+    state = 20 * (param_count(T.model_defs(dataclasses.replace(
+        cfg, num_layers=2))) - param_count(T.model_defs(
+            dataclasses.replace(cfg, num_layers=1))))
+    per_layer = max(peaks[1] - peaks[0], state)
+    return {"peak_reserved_bytes": {"1": peaks[0], "2": peaks[1]},
+            "layer_state_bytes": state, "per_layer_bytes": per_layer,
+            "base_bytes": peaks[0] - per_layer}
+
+
+def _compress_rank(rank: int, world: int, grads, device: str) -> dict:
+    """One rank of phase 21(c): its gradient tree (CUDA tensors) through
+    ``compressed_grad_sync`` over the gloo group."""
+    from repro_torch.distributed.compression import compressed_grad_sync
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(data=world)
+    tree = {k: v.to(device) for k, v in grads[rank].items()}
+    out = compressed_grad_sync(tree, mesh, "data")
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _cpu_psum_compressed(stacked: torch.Tensor) -> torch.Tensor:
+    """The quantization formula on the CPU: every rank's segments
+    quantized, every rank's copy of segment r dequantized and summed in
+    float32, re-quantized, dequantized (``stacked``: (world, ...))."""
+    from repro_torch.distributed.compression import _dequantize, _quantize
+
+    world = stacked.shape[0]
+    flat = stacked.reshape(world, -1).float()
+    n = flat.shape[1]
+    seg = -(-n // world)
+    flat = torch.nn.functional.pad(flat, (0, seg * world - n))
+    codes, scale = _quantize(flat.reshape(world, world, seg))
+    deq = _dequantize(codes, scale, seg)          # (rank, segment, seg)
+    mine = deq.transpose(0, 1).sum(dim=1)         # (segment, seg)
+    codes_r, scale_r = _quantize(mine)
+    return _dequantize(codes_r, scale_r, seg).reshape(-1)[:n].reshape(
+        stacked.shape[1:])
+
+
+def dp_training(dev, card) -> dict:
+    """Phase 21: (a) ``launch.train.main --data-axis 2 --backend gloo``
+    at phase 19(a)'s size on the card against one process on the same
+    global batch (first step within DP_FIRST_RTOL, later steps within
+    DP_LOSS_RTOL), and the CPU test's train step on the card, two gloo
+    ranks against one process: the loss (DP_FIRST_RTOL), the grad norm
+    (DP_GNORM_RTOL), every updated parameter (DP_UPDATE_ATOL), the
+    ranks' grad norms and parameters bit for bit; (b) gemma-2b at
+    full width over two gloo ranks on the card, the depth cut so two
+    replicated copies of its training state fit (sized from a one-rank
+    step probed at one and two layers in a fresh process; printed with
+    the bytes), the
+    ranks' losses, grad norms and parameter checksums equal; (c)
+    ``compressed_grad_sync`` on CUDA tensors at world 1 over NCCL and
+    world 2 over gloo, against the quantization formula on the CPU, bit
+    for bit."""
+    import tempfile
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.compression import compressed_grad_sync
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import (make_local_mesh, process_group,
+                                         run_ranks)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
+
+    out = {"phase": "dp_training", "nvidia_smi": card}
+    small = ["--device", str(dev), "--reduced", "--width", "256", "--layers",
+             "2", "--steps", "3", "--batch", "4", "--seq", "128",
+             "--log-every", "100"]
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        one = launch_train.main(small + ["--ckpt-dir", f"{d}/one"])
+        one_s = time.perf_counter() - t
+        t = time.perf_counter()
+        two = launch_train.main(small + ["--data-axis", "2", "--backend",
+                                         "gloo", "--rank-timeout", "300",
+                                         "--ckpt-dir", f"{d}/two"])
+        two_s = time.perf_counter() - t
+    rel = [abs(two["losses"][s] - one["losses"][s]) / abs(one["losses"][s])
+           for s in sorted(one["losses"])]
+    out["launcher"] = {"one_rank_losses": one["losses"],
+                       "two_rank_losses": two["losses"], "rel_diff": rel,
+                       "one_rank_seconds": one_s, "two_rank_seconds": two_s}
+    launcher_ok = (sorted(two["losses"]) == sorted(one["losses"])
+                   and rel[0] <= DP_FIRST_RTOL
+                   and max(rel) <= DP_LOSS_RTOL)
+    # (a) the direct step's one-process run, on the global batch
+    cfg_s, pcfg_s, ocfg_s, params_s, batches_s = _dp_small(dev)
+    ref = _dp_steps(cfg_s, pcfg_s, ocfg_s, params_s, batches_s, dev,
+                    keep_params=True)
+    del params_s
+
+    # (b) the depth that fits: two ranks, each about base + layers x
+    # per_layer bytes (probed), within the free bytes less each rank's
+    # overhead
+    cfg = ARCHS["gemma-2b"]
+    probe = _dp_probe(cfg, dev)
+    free = torch.cuda.mem_get_info(dev)[0]
+    budget = free / 2 - DP_RANK_OVERHEAD
+    layers = int(min(cfg.num_layers, (budget - probe["base_bytes"])
+                     // probe["per_layer_bytes"]))
+    if layers < 1:
+        raise AssertionError(f"dp_training: {free} free bytes hold no "
+                             "layer's two replicated training states")
+    p1 = param_count(T.model_defs(dataclasses.replace(cfg, num_layers=1)))
+    p2 = param_count(T.model_defs(dataclasses.replace(cfg, num_layers=2)))
+    per_layer, embed = p2 - p1, p1 - (p2 - p1)
+    t = time.perf_counter()
+    ranks = run_ranks(_dp_rank, 2, backend="gloo",
+                      args=(dataclasses.replace(cfg, num_layers=layers), 3,
+                            str(dev)), timeout=600.0)
+    seconds = time.perf_counter() - t
+
+    smalls = [r["small"] for r in ranks]
+    gn_rel = [abs(g - w) / w for g, w in zip(smalls[0]["grad_norms"],
+                                              ref["grad_norms"])]
+    loss_rel = [abs(g - w) / abs(w) for g, w in zip(smalls[0]["losses"],
+                                                     ref["losses"])]
+    upd = max(float((smalls[0]["params"][k] - w).abs().max())
+              for k, w in ref["params"].items())
+    steps_ok = {
+        "loss_rel_diff": loss_rel, "grad_norm_rel_diff": gn_rel,
+        "param_max_abs_diff": upd,
+        "ranks_equal": (smalls[0]["grad_norms"] == smalls[1]["grad_norms"]
+                        and smalls[0]["checksums"] == smalls[1]["checksums"]
+                        and all(torch.equal(smalls[0]["params"][k],
+                                            smalls[1]["params"][k])
+                                for k in ref["params"])),
+        "grad_norm_rtol": DP_GNORM_RTOL, "update_atol": DP_UPDATE_ATOL,
+        "loss_rtol": DP_FIRST_RTOL}
+    out["train_steps"] = steps_ok
+    steps_pass = (steps_ok["ranks_equal"] and max(loss_rel) <= DP_FIRST_RTOL
+                  and max(gn_rel) <= DP_GNORM_RTOL and upd <= DP_UPDATE_ATOL)
+
+    g = [r["gemma"] for r in ranks]
+    full = {"layers": layers, "of_layers": cfg.num_layers,
+            "params": g[0]["params"], "probe": probe,
+            "free_bytes_before": free,
+            "budget_bytes_per_rank": budget,
+            "rank_overhead_bytes": DP_RANK_OVERHEAD,
+            "state_bytes_per_rank": 20 * (embed + layers * per_layer),
+            "full_depth_state_bytes_two_ranks": 2 * 20 * (
+                embed + cfg.num_layers * per_layer),
+            "batch": [4, DP_SEQ], "losses": g[0]["losses"],
+            "grad_norms": g[0]["grad_norms"],
+            "ranks_equal": all(g[0][k] == g[1][k] for k in (
+                "losses", "grad_norms", "checksums")),
+            "step_ms": g[0]["step_ms"],
+            "peak_gb": [r["peak_gb"] for r in g],
+            "peak_reserved_gb": [r["peak_reserved_gb"] for r in g],
+            "seconds": seconds}
+    out["gemma_2b_full_width"] = full
+    full_ok = (full["ranks_equal"] and layers >= 1
+               and all(np.isfinite(full["losses"]))
+               and all(np.isfinite(full["grad_norms"])))
+
+    # (c) compressed_grad_sync on the card against the CPU formula
+    gen = torch.Generator().manual_seed(21)
+    shapes = {"w": (64, 300), "b": (1000,), "z": (256,)}
+
+    def tree():
+        t_ = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+        t_["z"].zero_()
+        return t_
+
+    comp = {}
+    g1 = tree()
+    with process_group("nccl" if dev.type == "cuda" else "gloo"):
+        mesh = make_local_mesh(data=1)
+        got = compressed_grad_sync({k: v.to(dev) for k, v in g1.items()},
+                                   mesh, "data")
+        comp["world1_nccl_bit_equal"] = all(
+            torch.equal(got[k].cpu(), _cpu_psum_compressed(g1[k][None]))
+            for k in shapes)
+    g2 = [tree(), tree()]
+    res = run_ranks(_compress_rank, 2, backend="gloo", args=(g2, str(dev)),
+                    timeout=180.0)
+    comp["world2_gloo_bit_equal"] = all(
+        torch.equal(r[k], _cpu_psum_compressed(
+            torch.stack([g[k] for g in g2]))) for r in res for k in shapes)
+    comp["zero_leaf_exact"] = all(not r["z"].any() for r in res)
+    out["compressed_grad_sync"] = comp
+    _free_card()
+    if not (launcher_ok and steps_pass and full_ok and all(
+            comp[k] for k in ("world1_nccl_bit_equal",
+                              "world2_gloo_bit_equal", "zero_leaf_exact"))):
+        raise AssertionError(f"dp_training: {json.dumps(out, default=str)}")
+    return out
+
+
+# ---------------------------------------------------------------------- #
 
 
 KERNELS = {
@@ -3858,7 +4757,7 @@ def main() -> int:
     sweep_line, counts_sweep = rowclone_sweep(dev)
     emit(sweep_line)
     cfg, params, init_s = granite_params(dev)
-    counts, greedy = serving(dev, cfg, params, init_s)
+    counts, greedy, round_ms = serving(dev, cfg, params, init_s)
     counts_chunked = serving_chunked(dev, cfg, params, greedy)
     # phase 8 before phase 6, which scales the weights in place, and
     # every timed serving phase before phase 5's profiler, which leaves
@@ -3899,6 +4798,16 @@ def main() -> int:
     emit(train_full(dev))
     emit(train_restart(dev))
     train_s = time.perf_counter() - t19
+    # phases 20-21: each rank is a fresh process on the card, so this
+    # process first frees what it holds
+    _free_card()
+    t20 = time.perf_counter()
+    tp1, counts_tp1 = tp_world1(dev, greedy, round_ms, card)
+    emit(tp1)
+    tp2, counts_tp2 = tp_world2(dev, card)
+    emit(tp2)
+    emit(dp_training(dev, card))
+    dist_s = time.perf_counter() - t20
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3909,7 +4818,8 @@ def main() -> int:
                     + ssm["kernel_launches"][name]
                     + hybrid["kernel_launches"][name]
                     + oracle["kernel_launches"].get(name, 0)
-                    + counts_llava[name])
+                    + counts_llava[name] + counts_tp1.get(name, 0)
+                    + counts_tp2.get(name, 0))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3917,7 +4827,8 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
-          "training_seconds": train_s})
+          "training_seconds": train_s, "distributed_seconds": dist_s,
+          "nvidia_smi": card})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,11 +34,19 @@ sources when a destination is also a source), so several copies from
 one source still coalesce.
 
 Launch accounting is the same as the JAX package's, key for key:
-``stats``, ``launches_by_kind``, ``saved_by_kind`` and the
-``snapshot``/``delta`` pair that per-round dispatch checks use.  Work
-launched outside the queue but belonging to the same accounting (the
-engine's fused decode round and fused prefill batch) is recorded with
-:meth:`count_external`.
+``stats``, ``launches_by_kind``, ``saved_by_kind``,
+``launches_by_owner`` and the ``snapshot``/``delta`` pair that
+per-round dispatch checks use.  Work launched outside the queue but
+belonging to the same accounting (the engine's fused decode round and
+fused prefill batch) is recorded with :meth:`count_external`.
+
+Per-owner attribution: each launch also counts once for every owner tag
+it served, the tags the kind's ops were enqueued with, else the owning
+lib's :meth:`~repro_torch.core.pimolib.TorchLib.owner_tags`.  A sharded
+lib's tags name every shard (``kv/shard0`` ...): one SPMD dispatch
+spans them all, so each rank's queue attributes it to all N tags, and
+every rank's ``snapshot(by_owner=True)`` is the JAX package's
+single-controller breakdown.
 """
 
 from __future__ import annotations
@@ -77,6 +85,10 @@ class PimOpQueue:
         # logical ops that never had to run because pages were shared
         # instead of rewritten: kind -> count
         self.saved_by_kind: Dict[str, int] = {}
+        # owner tag -> {kind: launches}; a launch spanning several owners
+        # counts once in launches_by_kind and once per owner here
+        self.launches_by_owner: Dict[str, Dict[str, int]] = {}
+        self._pending_owner: Dict[str, Set[str]] = {}
         # optional PimTrace sink (duck-typed: record_from_queue(kind, ops))
         self.trace = None
         # at most one lib drives a queue (TorchLib claims it: a weak
@@ -91,6 +103,7 @@ class PimOpQueue:
     def register_kind(self, kind: str, fn: FlushFn) -> None:
         self._kinds[kind] = fn
         self._pending.setdefault(kind, [])
+        self._pending_owner.setdefault(kind, set())
         self.launches_by_kind.setdefault(kind, 0)
 
     def has_kind(self, kind: str) -> bool:
@@ -98,10 +111,16 @@ class PimOpQueue:
 
     # -- enqueue -------------------------------------------------------- #
 
-    def enqueue(self, kind: str, op, n_ops: int = 1) -> None:
+    def enqueue(self, kind: str, op, n_ops: int = 1,
+                owner: Optional[str] = None) -> None:
+        """Collect one op record; ``owner`` optionally tags it with the
+        lib or arena it belongs to (its kind's launch is then attributed
+        to every distinct tag seen)."""
         if kind not in self._kinds:
             raise KeyError(f"unknown PiM op kind {kind!r}")
         self._pending[kind].append(op)
+        if owner is not None:
+            self._pending_owner[kind].add(owner)
         self.stats["ops_enqueued"] += n_ops
 
     def enqueue_copy(self, src_page: int, dst_page: int) -> None:
@@ -154,9 +173,23 @@ class PimOpQueue:
     def pending_ops(self) -> int:
         return sum(len(v) for v in self._pending.values())
 
-    def _count_launch(self, kind: str, n: int = 1) -> None:
+    def _default_owners(self) -> Tuple[str, ...]:
+        """The tags a launch whose ops carried none is attributed to: the
+        owning lib's per-shard tags, else nothing (an ownerless queue
+        keeps only the global counters)."""
+        lib = self.owner() if self.owner is not None else None
+        tags = getattr(lib, "owner_tags", None)
+        return tuple(tags()) if callable(tags) else ()
+
+    def _count_launch(self, kind: str, n: int = 1,
+                      owners: Optional[Iterable[str]] = None) -> None:
         self.stats["launches"] += n
         self.launches_by_kind[kind] += n
+        if owners is None:
+            owners = self._pending_owner.get(kind) or self._default_owners()
+        for o in sorted(owners):
+            per = self.launches_by_owner.setdefault(o, {})
+            per[kind] = per.get(kind, 0) + n
 
     def record_saved(self, kind: str, n: int = 1) -> None:
         """Account ``n`` logical ops of ``kind`` that sharing made
@@ -164,19 +197,42 @@ class PimOpQueue:
         self.saved_by_kind[kind] = self.saved_by_kind.get(kind, 0) + n
         self.stats["ops_saved"] += n
 
-    def count_external(self, kind: str, n: int = 1) -> None:
+    def count_external(self, kind: str, n: int = 1, owner=None) -> None:
         """Account launches issued outside the queue (the engine's fused
         decode round and fused prefill batch) so the launch counters
-        stay the one source of truth for per-round dispatch checks."""
+        stay the one source of truth for per-round dispatch checks.
+        ``owner`` (a tag or an iterable of tags) attributes them; by
+        default they land on the owning lib's tags, for a sharded lib
+        every shard the dispatch spanned."""
         self.launches_by_kind.setdefault(kind, 0)
-        self._count_launch(kind, n)
+        if owner is None:
+            owners = None
+        elif isinstance(owner, str):
+            owners = (owner,)
+        else:
+            owners = tuple(owner)
+        self._count_launch(kind, n, owners=owners)
 
-    def snapshot(self) -> Dict[str, int]:
-        """A copy of ``launches_by_kind``; diff it with :meth:`delta`."""
+    def snapshot(self, by_owner: bool = False) -> Dict:
+        """A copy of ``launches_by_kind`` (with ``by_owner``, of the
+        per-owner breakdown ``{owner: {kind: n}}``); diff it with
+        :meth:`delta`."""
+        if by_owner:
+            return {o: dict(k) for o, k in self.launches_by_owner.items()}
         return dict(self.launches_by_kind)
 
-    def delta(self, before: Dict[str, int]) -> Dict[str, int]:
-        """Per-kind launches since ``before``, zero counts omitted."""
+    def delta(self, before: Dict, by_owner: bool = False) -> Dict:
+        """Per-kind launches since ``before`` (a :meth:`snapshot` taken
+        with the same ``by_owner``), zero counts omitted."""
+        if by_owner:
+            out: Dict[str, Dict[str, int]] = {}
+            for o, kinds in self.launches_by_owner.items():
+                prev = before.get(o, {})
+                d = {k: v - prev.get(k, 0) for k, v in kinds.items()
+                     if v - prev.get(k, 0)}
+                if d:
+                    out[o] = d
+            return out
         return {k: v - before.get(k, 0)
                 for k, v in self.launches_by_kind.items()
                 if v - before.get(k, 0)}
@@ -212,6 +268,7 @@ class PimOpQueue:
             if self.trace is not None:
                 self.trace.record_from_queue(kind, ops)
             arenas = self._kinds[kind](self, arenas, ops)
+            self._pending_owner[kind] = set()
             self.stats["ops_coalesced"] += sum(getattr(o, "n", 1)
                                                for o in ops)
             any_launch = True

@@ -378,6 +378,14 @@ class TorchLib(PimLib):
     1).  Flushes update the buffers in place, so every holder of a
     buffer sees them.  ``rand``/``rand_u32`` draw on the bound buffers'
     device, or on ``device`` (None: the card) while none is bound.
+
+    Sharded serving (one process per shard): with ``shard_axis`` and
+    ``mesh``, each rank's bound buffers are its slice of mesh-wide
+    arenas split on that axis over ``mesh``'s ``axis_name`` dimension;
+    page ids, the queue and its flushes are the same on every rank.
+    ``tag`` names the lib in the queue's per-owner breakdown, and
+    :meth:`owner_tags` names one owner a shard (``tag/shard0`` ...),
+    every one of which each dispatch serves.
     """
 
     face = FACE_TORCH
@@ -388,11 +396,17 @@ class TorchLib(PimLib):
                  allocator: Optional[SubarrayAllocator] = None,
                  deferred: bool = False,
                  queue: Optional[PimOpQueue] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, tag: str = "lib",
+                 shard_axis: Optional[int] = None, mesh=None,
+                 axis_name: str = "model") -> None:
         if arena is not None and buffers is not None:
             raise ValueError("pass either arena= or buffers=, not both")
         self.arena = arena
         self.deferred = deferred
+        self.tag = tag
+        self.shard_axis = shard_axis
+        self.mesh = mesh
+        self.axis_name = axis_name
         self.queue = queue if queue is not None else PimOpQueue()
         if self.queue.owner is not None and self.queue.owner() is not None:
             raise ValueError(
@@ -416,18 +430,53 @@ class TorchLib(PimLib):
 
     def adopt_buffers(self, buffers: Sequence[torch.Tensor], *,
                       layered: bool = True,
-                      allocator: Optional[SubarrayAllocator] = None) -> None:
+                      allocator: Optional[SubarrayAllocator] = None,
+                      shard_axis: Optional[int] = None, mesh=None,
+                      axis_name: str = "model") -> None:
         """Bind the buffers this lib flushes against (how the paged KV
         cache plugs its (k, v) pair into a caller's lib); a lib already
-        bound refuses to rebind."""
+        bound refuses to rebind.  ``shard_axis``/``mesh`` record that
+        the buffers are this rank's slices (see the class docstring)."""
         if self.queue.pending_ops:
             raise RuntimeError("cannot adopt buffers with pending ops")
         if self.buffers or self.arena is not None:
             raise RuntimeError("lib is already bound to arenas")
         self.buffers = list(buffers)
         self.layered = layered
+        if shard_axis is not None:
+            self.shard_axis = shard_axis
+            self.mesh = mesh
+            self.axis_name = axis_name
         if allocator is not None:
             self.allocator = allocator
+
+    @property
+    def n_shards(self) -> int:
+        """Mesh extent of the shard axis (1 for a host-local lib)."""
+        if self.shard_axis is None or self.mesh is None:
+            return 1
+        return self.mesh.shape[self.axis_name]
+
+    def owner_tags(self) -> Tuple[str, ...]:
+        """The queue's owner tags for this lib's launches: one a shard
+        for a sharded lib, else the lib's own tag."""
+        n = self.n_shards
+        if n == 1:
+            return (self.tag,)
+        return tuple(f"{self.tag}/shard{i}" for i in range(n))
+
+    def shard_views(self, buffer: int = 0) -> List[torch.Tensor]:
+        """Each shard's slice of ``buffers[buffer]`` as CPU tensors, in
+        order along the shard axis (shard 0 = heads [0, H/N), ...), after
+        the pending work lands; a host-local lib gives its whole buffer
+        as one view.  Sharded, this is a collective (it gathers every
+        rank's slice): every rank of the mesh axis must call it."""
+        self.flush()
+        buf = self.buffers[buffer]
+        if self.n_shards == 1:
+            return [buf.detach().cpu()]
+        views = self.mesh.all_gather(buf.detach(), self.axis_name)
+        return [v.cpu() for v in views.unbind(0)]
 
     def _receipt(self, op: str, n_ops: int, blocking: Blocking) -> OpReceipt:
         if self.deferred and blocking is not Blocking.FIN:

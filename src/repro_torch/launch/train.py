@@ -14,10 +14,25 @@ stream (``data/pipeline.SyntheticLM``), checkpoints every
 ``--ckpt-every`` steps and a ``Supervisor`` that restarts from the
 latest one after an injected failure (``--fail-at``).
 
-One device and no mesh: ``--data-axis`` above 1 is refused (data
-parallelism and ``compressed_grad_sync`` come with tensor-parallel
-serving, ROADMAP Queue 1 item 13).  ``main(argv)`` returns the printed
-summary with the loss of every step run (``losses``, by step).
+Data parallelism (``--data-axis N`` with ``--backend gloo|nccl``):
+``launch.mesh.run_ranks`` starts N ranks on this host under a time
+limit (``--rank-timeout``), one process each, over the named backend
+(NCCL takes one card a rank and refuses more ranks than cards; gloo
+runs on the CPU, or shares the card).  Every rank draws the same
+weights, keeps the parameters and optimizer state replicated, takes
+its contiguous block of ``SyntheticLM``'s global batch, and the train
+step sums the ranks' gradients in float32 with one ``all_reduce``
+before the clip (``training/train_step``), so the losses are those of
+the global batch.  Rank 0 writes the checkpoints (the one-device
+layout) and prints; the ``Supervisor`` runs on every rank, so an
+injected failure restarts every rank from the checkpoint rank 0 wrote.
+The JAX launcher's ZeRO-3 layout (``sharding_env(mesh, fsdp=True)``:
+parameters and optimizer state split over the data axis) is not ported:
+it changes where the state lives, not the numbers.
+``compressed_grad_sync`` (``distributed/compression``) is a library
+function, as in the JAX package, which the launcher does not call.
+``main(argv)`` returns the printed summary with the loss of every step
+run (``losses``, by step; rank 0's under ``--data-axis``).
 """
 
 from __future__ import annotations
@@ -36,13 +51,39 @@ from repro_torch.configs import (ARCHS, OptimizerConfig, ParallelConfig,
                                  ShapeConfig, reduced)
 from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_local_mesh, run_ranks
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params, param_count
 from repro_torch.runtime.fault_tolerance import FailureInjector, Supervisor
 from repro_torch.training.train_step import make_train_step
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
+class _RankCheckpointer:
+    """A rank's view of the one checkpoint directory: rank 0 writes,
+    every rank reads, and :meth:`wait` (the ``Supervisor`` calls it
+    before a restart reads the latest step, and at the end) lets no
+    rank past until rank 0's writes have landed."""
+
+    def __init__(self, ckpt: Checkpointer, mesh) -> None:
+        self.ckpt = ckpt
+        self.mesh = mesh
+
+    def save(self, step: int, state) -> None:
+        if self.mesh.rank == 0:
+            self.ckpt.save(step, state)
+
+    def wait(self) -> None:
+        self.ckpt.wait()
+        self.mesh.barrier()
+
+    def latest_step(self):
+        return self.ckpt.latest_step()
+
+    def load(self, state):
+        return self.ckpt.load(state)
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--reduced", action="store_true")
@@ -59,17 +100,53 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--fail-at", type=int, nargs="*", default=[],
                     help="inject node failures at these steps (FT demo)")
     ap.add_argument("--data-axis", type=int, default=0,
-                    help="data-parallel size (0 or 1: the one device)")
+                    help="data-parallel ranks (0 or 1: one process)")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="process-group backend of --data-axis > 1")
+    ap.add_argument("--rank-timeout", type=float, default=3600.0,
+                    help="seconds the ranks of --data-axis > 1 may run")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    args = ap.parse_args(argv)
-    if args.data_axis > 1:
-        ap.error(f"--data-axis {args.data_axis}: data parallelism is not "
-                 "ported yet (ROADMAP Queue 1, item 13); the port trains "
-                 "on one device")
+    return ap
 
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    world = max(args.data_axis, 1)
+    if world > 1:
+        if args.backend is None:
+            ap.error("--data-axis above 1 needs --backend gloo or nccl")
+        if args.batch % world:
+            ap.error(f"--batch {args.batch} does not split over "
+                     f"--data-axis {world}")
+    ckpt_dir = args.ckpt_dir
+    if not args.resume and os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
+        # fresh run: never resume from a stale (possibly different-
+        # config) checkpoint tree
+        n = 1
+        while os.path.isdir(f"{ckpt_dir}.run{n}"):
+            n += 1
+        ckpt_dir = f"{ckpt_dir}.run{n}"
+        print(f"checkpoint dir in use; starting fresh at {ckpt_dir}")
+    if world == 1:
+        return _train(args, ckpt_dir)
+    return run_ranks(_train_rank, world, backend=args.backend,
+                     args=(args, ckpt_dir), timeout=args.rank_timeout)[0]
+
+
+def _train_rank(rank: int, world: int, args, ckpt_dir: str) -> Dict:
+    return _train(args, ckpt_dir, mesh=make_local_mesh(data=world))
+
+
+def _train(args, ckpt_dir: str, mesh=None) -> Dict:
+    """The training run of one process (one rank of ``mesh``)."""
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rank, world = (mesh.rank, mesh.shape["data"]) if mesh else (0, 1)
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduced(cfg, d_model=args.width, num_layers=args.layers,
@@ -82,27 +159,28 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                            total_steps=args.steps)
 
     defs = T.model_defs(cfg)
-    print(f"arch={cfg.name} params={param_count(defs):,} device={dev}")
+    say(f"arch={cfg.name} params={param_count(defs):,} device={dev} "
+        f"ranks={world}")
     params = init_params(defs, torch.Generator(device=dev).manual_seed(0),
                          dev, torch.float32)
-    init_state, step_fn = make_train_step(cfg, pcfg, ocfg)
+    init_state, step_fn = make_train_step(cfg, pcfg, ocfg, mesh=mesh)
     state = init_state(params)
 
     data = SyntheticLM(cfg, shape, PipelineConfig(seed=1))
-    ckpt_dir = args.ckpt_dir
-    if not args.resume and os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        # fresh run: never resume from a stale (possibly different-
-        # config) checkpoint tree
-        n = 1
-        while os.path.isdir(f"{ckpt_dir}.run{n}"):
-            n += 1
-        ckpt_dir = f"{ckpt_dir}.run{n}"
-        print(f"checkpoint dir in use; starting fresh at {ckpt_dir}")
+    per = args.batch // world
+
+    def batch_fn(step):
+        # this rank's contiguous block of the global batch
+        return {k: v[rank * per:(rank + 1) * per]
+                for k, v in data.batch(step).items()}
+
     ckpt = Checkpointer(ckpt_dir)
     start = 0
     if args.resume and ckpt.latest_step() is not None:
         state, start = ckpt.load(state)
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
+    if mesh is not None:
+        ckpt = _RankCheckpointer(ckpt, mesh)
 
     sup = Supervisor(ckpt, ckpt_every=args.ckpt_every,
                      injector=FailureInjector(fail_at=args.fail_at))
@@ -117,11 +195,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         n = len(losses)
         if n % args.log_every == 0:
             tps = n * shape.tokens / (time.time() - t0)
-            print(f"step {n:5d} loss {metrics['loss']:.4f} "
-                  f"gnorm {metrics['grad_norm']:.2f} tok/s {tps:,.0f}")
+            say(f"step {n:5d} loss {metrics['loss']:.4f} "
+                f"gnorm {metrics['grad_norm']:.2f} tok/s {tps:,.0f}")
         return st, metrics
 
-    state, report = sup.run(state, wrapped_step, data.batch, args.steps,
+    state, report = sup.run(state, wrapped_step, batch_fn, args.steps,
                             start_step=start)
     summary = {
         "steps_run": report.steps_run, "restarts": report.restarts,
@@ -129,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "first_loss": losses[0] if losses else None,
         "last_loss": losses[-1] if losses else None,
     }
-    print(json.dumps(summary, indent=1))
+    say(json.dumps(summary, indent=1))
     return dict(summary, losses=report.losses)
 
 

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (local_shape, local_slice,
+                                              resolve_spec, sharding_env)
 
 
 @dataclass(frozen=True)
@@ -74,7 +76,7 @@ def _std(d: ParamDef) -> float:
 
 def init_params(defs: Any, generator: torch.Generator,
                 device: DeviceLike = None,
-                dtype: torch.dtype = torch.float32) -> Any:
+                dtype: torch.dtype = torch.float32, mesh=None) -> Any:
     """Materialise a ParamDef tree on ``device`` with the same schemes as
     the JAX package (normal / small / fan_in / zeros / ones), drawn from
     ``generator``, which must live on that device.  The values are drawn
@@ -95,8 +97,16 @@ def init_params(defs: Any, generator: torch.Generator,
                           device=dev)
         return out.mul_(_std(d))
 
+    specs = dict(tree_leaves(param_specs_for_mesh(defs, mesh))) \
+        if mesh is not None else {}
+
+    def keep(path: str, t: torch.Tensor) -> torch.Tensor:
+        if mesh is None:
+            return t
+        return local_slice(t, specs[path], mesh).clone()
+
     # draw in the JAX package's leaf order so a seed fixes every leaf
-    flat = {path: make(d) for path, d in tree_leaves(defs)}
+    flat = {path: keep(path, make(d)) for path, d in tree_leaves(defs)}
     return tree_unflatten(defs, flat)
 
 
@@ -137,6 +147,45 @@ def from_jax_params(np_tree: Any, device: DeviceLike = None) -> Any:
     arrays (``jax.tree.map(np.asarray, params)``), as the port's nested
     dict of tensors on ``device`` — bit for bit."""
     return tree_map(lambda a: numpy_to_torch(np.asarray(a), device), np_tree)
+
+
+def param_specs(defs: Any) -> Any:
+    """Per-dim mesh axes of every parameter (needs an active
+    ``sharding_env``), with the FSDP hint, as the JAX package's
+    ``param_specs`` resolves them."""
+    return tree_map(lambda d: resolve_spec(d.shape, d.laxes, fsdp_hint=True),
+                    defs)
+
+
+def param_specs_for_mesh(defs: Any, mesh) -> Any:
+    """:func:`param_specs` under ``sharding_env(mesh, fsdp=False)``: the
+    tensor-parallel serving layout (JAX ``serving/engine.py`` cuts its
+    parameters so)."""
+    with sharding_env(mesh, fsdp=False):
+        return param_specs(defs)
+
+
+def shard_params(params: Any, defs: Any, mesh) -> Any:
+    """This rank's blocks of ``params`` under
+    :func:`param_specs_for_mesh`, each a tensor of its own, as
+    ``jax.device_put`` cuts the tree for the device at this rank's mesh
+    coordinates.  ``params`` may come from :func:`from_jax_params`; a
+    leaf already at its block's shape (from ``init_params(mesh=)``) is
+    kept as it is."""
+    specs = dict(tree_leaves(param_specs_for_mesh(defs, mesh)))
+    shapes = {path: tuple(d.shape) for path, d in tree_leaves(defs)}
+
+    def cut(path: str, t: torch.Tensor) -> torch.Tensor:
+        full, spec = shapes[path], specs[path]
+        if tuple(t.shape) == local_shape(full, spec, mesh):
+            return t
+        if tuple(t.shape) != full:
+            raise ValueError(f"parameter {path}: shape {tuple(t.shape)} is "
+                             f"neither {full} nor this rank's block of it")
+        return local_slice(t, spec, mesh).clone()
+
+    flat = {path: cut(path, t) for path, t in tree_leaves(params)}
+    return tree_unflatten(params, flat)
 
 
 def param_count(defs: Any) -> int:

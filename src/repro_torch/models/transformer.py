@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import resolve_spec
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -190,6 +191,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
 
     return tree_map(zeros, cache_spec(cfg, batch, max_len, enc_len,
                                       kv_dtype))
+
+
+def cache_pspecs(cfg: ModelConfig, batch: int, max_len: int,
+                 enc_len: int = 0) -> Dict[str, Any]:
+    """Per-dim mesh axes of the decode cache (needs an active
+    ``sharding_env``): batch over the data axes, seq over ``model``
+    (sequence parallelism for long KV), as the JAX package resolves
+    them."""
+    def one(s):
+        # (layers, batch, seq?, ...): rank-dependent logical axes
+        if len(s.shape) == 4 and s.shape[2] in (max_len, enc_len):
+            la = ("layers", "batch", "seq", None)
+        elif len(s.shape) == 5:
+            la = ("layers", "batch", "seq", None, None)
+        elif len(s.shape) == 3:
+            la = ("layers", "batch", None)
+        else:
+            la = ("layers", "batch") + (None,) * (len(s.shape) - 2)
+        return resolve_spec(s.shape, la)
+
+    return tree_map(lambda pair: tuple(one(s) for s in pair),
+                    cache_spec(cfg, batch, max_len, enc_len))
 
 
 # --------------------------------------------------------------------- #

@@ -127,9 +127,33 @@ cache, and its KV and Mamba state reach the arenas through the op queue
 served as the JAX engine serves it: text-only, through the dense
 layout.
 
-Not in this slice (the constructor raises): device meshes, MLA
-attention and multi-group layouts (the last two with ``ValueError``, as
-the JAX package raises).
+Tensor-parallel serving (``mesh=``, a
+:class:`~repro_torch.launch.mesh.Mesh` with a ``model`` axis): one
+process per shard, every rank running the same host schedule
+(allocator, block tables, op queue, chunk scheduler, token choice) and
+holding only its slice of the parameters and arenas.  Parameters are
+cut Megatron-style by ``models.params.param_specs`` under
+``sharding_env(mesh, fsdp=False)`` (``heads`` / ``kv_heads`` / ``ff`` /
+``vocab`` over ``model``), the KV arenas hold each rank's KV-head slice
+of every page, and the forward runs on the local heads with the JAX
+engine's collectives as ``all_reduce`` over the ``model`` subgroup:
+vocab-parallel embedding and logits (each rank's rows or logit columns
+placed in zeros and summed, exact), and the row-parallel attention-out
+and MLP-down sums (the only float reordering against host-local
+serving).  ``compressed_collectives=True`` sums the logits through
+``distributed.compression.psum_compressed`` (int8 on the wire).  Each
+step stays one counted dispatch, attributed to every shard's owner tag
+(``kv/shard0`` ...), and token choice runs replicated from the full
+logits, so every rank picks the same token.  Over NCCL the collectives
+are captured inside each step's CUDA graph; gloo's run on the host and
+cannot be captured, so a gloo mesh on the card needs
+``cuda_graphs=False``.  Under a mesh the engine serves dense layouts
+only (``ValueError`` for SSM and MoE, as the JAX engine refuses them),
+and the eager prefill oracle (``fused_prefill=False``), which the JAX
+package runs on global arrays, raises ``NotImplementedError``.
+
+Not served (``ValueError``, as the JAX package raises): MLA attention
+and multi-group layouts.
 """
 
 from __future__ import annotations
@@ -143,6 +167,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.compression import psum_compressed
 from repro_torch.kernels.drange import ops as dr_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -154,7 +179,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (apply_rope, cast, embed, logits_out,
                                        mlp, rmsnorm, rope_sincos)
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import shard_params, tree_leaves, tree_map
 from .graphs import StepCache
 from .kv_cache import PagedKVCache, PagedStateArena, _bucket_pow2
 
@@ -199,8 +224,9 @@ class _ChunkPrefill:
 
 
 class PagedEngine:
-    """Single-device engine for GQA (dense and vlm, text-only), SSM,
-    hybrid and MoE decoders (the paged path)."""
+    """Paged serving engine for GQA (dense and vlm, text-only), SSM,
+    hybrid and MoE decoders, on one device or, for dense layouts, one
+    rank of a tensor-parallel mesh."""
 
     def __init__(self, cfg: ModelConfig, params, *, page_size: int = 16,
                  num_pages: int = 256, pcfg: Optional[ParallelConfig] = None,
@@ -232,15 +258,10 @@ class PagedEngine:
         self._has_attn = "attn" in kinds
         self._has_ssm = "mamba" in kinds
         self._has_moe = "moe" in kinds
-        if mesh is not None and (self._has_ssm or self._has_moe):
-            raise ValueError(
-                "paged engine: mesh= serving is dense-only (SSM state "
-                "arenas and MoE routing are host-local)")
-        for name, on in (("mesh", mesh is not None),
-                         ("compressed_collectives", compressed_collectives)):
-            if on:
-                raise NotImplementedError(
-                    f"PagedEngine({name}) is not ported yet")
+        if compressed_collectives and mesh is None:
+            raise ValueError("compressed_collectives requires mesh=")
+        if mesh is not None:
+            self._check_mesh(cfg, mesh, fused_prefill)
         if max_prefill_chunk is not None and max_prefill_chunk < 1:
             raise ValueError("max_prefill_chunk must be >= 1 (or None to "
                              "disable chunked prefill)")
@@ -259,6 +280,18 @@ class PagedEngine:
         self.cfg = cfg
         self.pcfg = pcfg or ParallelConfig(attention_impl="naive",
                                            remat="none")
+        self.mesh = mesh
+        self.compressed_collectives = compressed_collectives
+        self._tp: Optional[_TP] = None
+        if mesh is not None:
+            if (cuda_graphs and self.device.type == "cuda"
+                    and mesh.backend == "gloo"):
+                raise ValueError(
+                    "cuda_graphs=True with a gloo mesh: gloo's collectives "
+                    "run on the host and cannot be captured in a CUDA "
+                    "graph; pass cuda_graphs=False (or use nccl)")
+            params = shard_params(params, T.model_defs(cfg), mesh)
+            self._tp = _TP(mesh, compressed_collectives)
         self.params = params
         # lib: a caller's torch-face PimLib the cache binds its arenas to
         # (shared op queue and launch accounting); record_trace: keep a
@@ -266,7 +299,7 @@ class PagedEngine:
         self.cache = PagedKVCache(cfg, num_pages=num_pages,
                                   page_size=page_size, device=self.device,
                                   lib=lib, record_trace=record_trace,
-                                  prefix_cache=prefix_cache)
+                                  mesh=mesh, prefix_cache=prefix_cache)
         self.fused = fused
         self.fused_prefill = fused_prefill
         self.max_prefill_chunk = max_prefill_chunk
@@ -307,6 +340,34 @@ class PagedEngine:
         # every fused step, per shape bucket
         self._steps = StepCache(self.device, capture=cuda_graphs,
                                 stats=self.stats, arenas=self._arenas)
+
+    def _check_mesh(self, cfg: ModelConfig, mesh, fused_prefill: bool
+                    ) -> None:
+        """The JAX engine's refusals of a mesh it cannot serve."""
+        if self._has_ssm or self._has_moe:
+            raise ValueError(
+                "paged engine: mesh= serving is dense-only (SSM state "
+                "arenas and MoE routing are host-local)")
+        if "model" not in dict(mesh.shape):
+            raise ValueError("engine mesh needs a 'model' axis")
+        n = mesh.shape["model"]
+        if n > 1:
+            bad = {name: dim for name, dim in
+                   (("num_heads", cfg.num_heads),
+                    ("num_kv_heads", cfg.num_kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size))
+                   if dim % n != 0}
+            if bad:
+                # the spec would replicate a non-divisible dim, and the
+                # steps' sums would then count that path N times
+                raise ValueError(f"model dims {bad} not divisible by mesh "
+                                 f"model axis {n}")
+        if not fused_prefill:
+            raise NotImplementedError(
+                "fused_prefill=False under a mesh: the eager prefill oracle "
+                "runs the dense forward on global arrays in the JAX package "
+                "and is not ported to per-rank slices (ROADMAP Queue 1, "
+                "item 13)")
 
     # ----------------------------- API -------------------------------- #
 
@@ -929,7 +990,7 @@ class PagedEngine:
         return _fused_prefill_step(
             self.cfg, self.pcfg, self.params, toks, lens, self.cache.k_arena,
             self.cache.v_arena, _plan(pages, slots, src),
-            self._state_of(srows, rowmap))
+            self._state_of(srows, rowmap), tp=self._tp)
 
     def _chunk_body(self, toks, lens, offs, bt, plens, pages=None,
                     slots=None, src=None, srows=None,
@@ -937,21 +998,22 @@ class PagedEngine:
         return _fused_chunk_prefill_step(
             self.cfg, self.pcfg, self.params, toks, lens, offs,
             self.cache.k_arena, self.cache.v_arena, bt, plens,
-            _plan(pages, slots, src), self._state_of(srows, rowmap))
+            _plan(pages, slots, src), self._state_of(srows, rowmap),
+            tp=self._tp)
 
     def _decode_body(self, last, bt, lens, pages, slots, srows=None,
                      rowmap=None) -> torch.Tensor:
         return _fused_decode_step(
             self.cfg, self.pcfg, self.params, last, self.cache.k_arena,
             self.cache.v_arena, bt, lens, pages, slots,
-            self._state_of(srows, rowmap))
+            self._state_of(srows, rowmap), tp=self._tp)
 
     def _block_body(self, last, bt, lens, pages, slots, alive, srows=None,
                     rowmap=None) -> torch.Tensor:
         return _fused_block_round(
             self.cfg, self.pcfg, self.params, last, self.cache.k_arena,
             self.cache.v_arena, bt, lens, pages, slots, alive,
-            self._state_of(srows, rowmap, alive))
+            self._state_of(srows, rowmap, alive), tp=self._tp)
 
     def _decode_round(self) -> None:
         if not self.active:
@@ -1108,7 +1170,7 @@ class PagedEngine:
         state = self._state_round(rids, len(rids))
         logits, k_new, v_new = _decode_forward(
             self.cfg, self.pcfg, self.params, last, self.cache.k_arena,
-            self.cache.v_arena, bt, lens, state)
+            self.cache.v_arena, bt, lens, state, tp=self._tp)
         if self._has_attn:
             self.cache.queue.count_external("eager_attn_layer",
                                             self.cache.n_layers)
@@ -1163,15 +1225,80 @@ def _select_tokens(logits: torch.Tensor, temps: np.ndarray, seed: Seed,
     return torch.where(upload(temps == 0.0, dev), greedy, drawn)
 
 
+class _TP:
+    """A tensor-parallel step's collectives over the mesh's ``model``
+    axis (the JAX engine's ``psum``s inside its ``shard_map``)."""
+
+    def __init__(self, mesh, compressed: bool) -> None:
+        self.mesh = mesh
+        self.compressed = compressed
+        self.index = mesh.index("model")
+        self.world = mesh.shape["model"]
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(x, "model")
+
+    def psum_logits(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compressed:
+            return psum_compressed(x, self.mesh, "model")
+        return self.psum(x)
+
+
+def _embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
+                  tp: Optional[_TP] = None) -> torch.Tensor:
+    """Token embedding, host-local or vocab-parallel.  A rank holds
+    vocab rows ``[index * V_local, (index + 1) * V_local)``: the rank
+    owning a token contributes its (cast) row, every other rank exact
+    zeros, so the sum is bit-identical to the host-local lookup."""
+    if tp is None:
+        return embed(p, tokens, cfg)
+    vloc = p["tok"].shape[0]
+    local = tokens.long() - tp.index * vloc
+    ok = (local >= 0) & (local < vloc)
+    x = cast(p["tok"][local.clamp(0, vloc - 1)])
+    x = tp.psum(torch.where(ok[..., None], x, torch.zeros_like(x)))
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _logits_reduce(p, x: torch.Tensor, cfg: ModelConfig,
+                   tp: Optional[_TP] = None, fp32: bool = True
+                   ) -> torch.Tensor:
+    """Output logits, host-local or vocab-parallel: each rank computes
+    its (B, S, V_local) columns (the contraction over d_model is not
+    split, so each is the host-local multiply-accumulate), places them
+    at ``index * V_local`` in zeros and sums over the axis (exact), or
+    through :func:`psum_compressed` (int8 on the wire, logits at
+    quantization tolerance) when the engine compresses."""
+    if tp is None:
+        return logits_out(p, x, cfg, fp32=fp32)
+    table = p.get("out", p["tok"])
+    out = x @ cast(table).t()
+    if fp32:
+        out = out.float()
+    vloc = table.shape[0]
+    full = out.new_zeros(out.shape[:-1] + (vloc * tp.world,))
+    full[..., tp.index * vloc:(tp.index + 1) * vloc] = out
+    return tp.psum_logits(full)
+
+
 def _sublayer(cfg: ModelConfig, kind: str, sp, x: torch.Tensor,
-              sin: torch.Tensor, cos: torch.Tensor, attend: Callable):
+              sin: torch.Tensor, cos: torch.Tensor, attend: Callable,
+              tp: Optional[_TP] = None):
     """One pre-normed decoder sublayer.  ``attend(q, k, v)`` runs the
     attention over the (b, s, h, hd) projections (the decode callers
     attend one token against the arena, the prefill callers run the
-    length-masked flash kernel).  Returns (x, (k, v) | None)."""
+    length-masked flash kernel).  Returns (x, (k, v) | None).
+
+    With ``tp`` the weights are this rank's slices (wq/wk/wv over its
+    heads, wo and the MLP down projection row-parallel), so a layer's
+    only collectives are the two residual-branch sums, and the k/v
+    returned are the rank's KV-head slice, what its arenas store."""
     h = rmsnorm(x, sp["norm"], cfg.norm_eps)
     if kind == "mlp":
-        return x + mlp(sp["mlp"], h, cfg.activation), None
+        y = mlp(sp["mlp"], h, cfg.activation)
+        return x + (y if tp is None else tp.psum(y)), None
     if kind != "attn":
         raise NotImplementedError(f"sublayer kind {kind!r} is not ported")
     a = sp["attn"]
@@ -1182,6 +1309,8 @@ def _sublayer(cfg: ModelConfig, kind: str, sp, x: torch.Tensor,
     k = apply_rope(k, sin, cos)
     o = attend(q, k, v)
     out = torch.einsum("bshk,hkd->bsd", o, cast(a["wo"]))
+    if tp is not None:
+        out = tp.psum(out)
     return x + out, (k, v)
 
 
@@ -1262,7 +1391,8 @@ def _depth(cfg: ModelConfig) -> int:
 def _run_kinds(cfg: ModelConfig, p_layer, x: torch.Tensor, sin, cos,
                attend: Callable, state: Optional[_StateRound] = None,
                li: int = 0, lens: Optional[torch.Tensor] = None,
-               pcfg: Optional[ParallelConfig] = None):
+               pcfg: Optional[ParallelConfig] = None,
+               tp: Optional[_TP] = None):
     """Layer ``li``'s sublayer sequence: the per-kind dispatch every
     forward follows.  ``attn``/``mlp`` run :func:`_sublayer`; ``mamba``
     runs through ``state`` (decode when ``lens`` is None, else the
@@ -1282,7 +1412,7 @@ def _run_kinds(cfg: ModelConfig, p_layer, x: torch.Tensor, sin, cos,
             out, _aux = moe_mod.moe_layer(cfg, pcfg, sp["moe"], h)
             x = x + out
         else:
-            x, kv = _sublayer(cfg, kind, sp, x, sin, cos, attend)
+            x, kv = _sublayer(cfg, kind, sp, x, sin, cos, attend, tp)
             if kv is not None:
                 kv_out = kv
     return x, kv_out
@@ -1294,7 +1424,8 @@ def _stack(ts: List[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
                      toks: torch.Tensor, lens: torch.Tensor,
-                     state: Optional[_StateRound] = None):
+                     state: Optional[_StateRound] = None,
+                     tp: Optional[_TP] = None):
     """Batched prefill forward over a length-padded prompt batch, with
     causal + per-sequence-length masked flash attention; Mamba
     sublayers run the length-masked scan from the rows' state (zero for
@@ -1305,7 +1436,7 @@ def _prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
     ``None`` without attention)."""
     hd = cfg.resolved_head_dim
     B, S = toks.shape
-    x = embed(params["embed"], toks, cfg)
+    x = _embed_tokens(params["embed"], toks, cfg, tp)
     positions = torch.arange(S, dtype=torch.int32,
                              device=toks.device).expand(B, S)
     sin, cos = rope_sincos(positions, hd, cfg.rope_theta)
@@ -1321,14 +1452,15 @@ def _prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
     ks, vs = [], []
     for li in range(_depth(cfg)):
         x, kv = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend,
-                           state, li, lens, pcfg)
+                           state, li, lens, pcfg, tp)
         if kv is not None:
             ks.append(kv[0])
             vs.append(kv[1])
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     # each row's last real token (pad rows mirror row 0, lens >= 1)
     x_last = x[torch.arange(B, device=x.device), lens.long() - 1][:, None]
-    logits = logits_out(params["embed"], x_last, cfg, fp32=pcfg.logits_fp32)
+    logits = _logits_reduce(params["embed"], x_last, cfg, tp,
+                            fp32=pcfg.logits_fp32)
     return logits[:, 0], _stack(ks), _stack(vs)
 
 
@@ -1349,13 +1481,13 @@ def _scatter_kv(k_arena, v_arena, k_all, v_all, scatter) -> None:
 
 def _fused_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, params,
                         toks, lens, k_arena, v_arena, scatter,
-                        state: Optional[_StateRound] = None
-                        ) -> torch.Tensor:
+                        state: Optional[_StateRound] = None,
+                        tp: Optional[_TP] = None) -> torch.Tensor:
     """Masked prefill forward, then the batch's KV scatter (see
     :func:`_scatter_kv`) and its state scatter.  Returns the last-token
     logits (B, V)."""
     logits, k_all, v_all = _prefill_forward(cfg, pcfg, params, toks, lens,
-                                            state)
+                                            state, tp)
     _scatter_kv(k_arena, v_arena, k_all, v_all, scatter)
     if state is not None:
         state.scatter()
@@ -1364,7 +1496,8 @@ def _fused_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, params,
 
 def _chunk_prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
                            toks, lens, offs, k_arena, v_arena, bt, plens,
-                           state: Optional[_StateRound] = None):
+                           state: Optional[_StateRound] = None,
+                           tp: Optional[_TP] = None):
     """Batched forward over one prefill chunk per row, with prefix-KV
     flash attention: each row's queries attend causally over the chunk
     and in full over the row's committed arena KV, gathered through its
@@ -1380,7 +1513,7 @@ def _chunk_prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
     B, S = toks.shape
     ps = k_arena.shape[2]
     W = bt.shape[1]
-    x = embed(params["embed"], toks, cfg)
+    x = _embed_tokens(params["embed"], toks, cfg, tp)
     positions = offs[:, None] + torch.arange(S, dtype=torch.int32,
                                              device=toks.device)[None]
     sin, cos = rope_sincos(positions, hd, cfg.rope_theta)
@@ -1402,27 +1535,28 @@ def _chunk_prefill_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
             return o.transpose(1, 2)
 
         x, kv = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend,
-                           state, li, lens, pcfg)
+                           state, li, lens, pcfg, tp)
         if kv is not None:
             ks.append(kv[0])
             vs.append(kv[1])
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     x_last = x[torch.arange(B, device=x.device), lens.long() - 1][:, None]
-    logits = logits_out(params["embed"], x_last, cfg, fp32=pcfg.logits_fp32)
+    logits = _logits_reduce(params["embed"], x_last, cfg, tp,
+                            fp32=pcfg.logits_fp32)
     return logits[:, 0], _stack(ks), _stack(vs)
 
 
 def _fused_chunk_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig,
                               params, toks, lens, offs, k_arena, v_arena,
                               bt, plens, scatter,
-                              state: Optional[_StateRound] = None
-                              ) -> torch.Tensor:
+                              state: Optional[_StateRound] = None,
+                              tp: Optional[_TP] = None) -> torch.Tensor:
     """Chunk forward, then the chunk's KV and state scatters (after
     every layer's prefix gather has read the arena).  Returns the
     logits."""
     logits, k_all, v_all = _chunk_prefill_forward(
         cfg, pcfg, params, toks, lens, offs, k_arena, v_arena, bt, plens,
-        state)
+        state, tp)
     _scatter_kv(k_arena, v_arena, k_all, v_all, scatter)
     if state is not None:
         state.scatter()
@@ -1433,14 +1567,15 @@ def _decode_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
                     tokens: torch.Tensor, k_arena: torch.Tensor,
                     v_arena: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor,
-                    state: Optional[_StateRound] = None):
+                    state: Optional[_StateRound] = None,
+                    tp: Optional[_TP] = None):
     """Decoder forward for one token per sequence against the arenas:
     the paged-attention kernel per attention sublayer, the current
     token's K/V merged in-kernel; Mamba sublayers step their rows'
     state (kept in ``state`` until its scatter).  Returns (logits (B,
     V), k_new, v_new (L, B, kvh, hd) or ``None`` without attention)."""
     hd = cfg.resolved_head_dim
-    x = embed(params["embed"], tokens, cfg)
+    x = _embed_tokens(params["embed"], tokens, cfg, tp)
     positions = lengths[:, None]            # the token's position == length
     sin, cos = rope_sincos(positions, hd, cfg.rope_theta)
     gparams = params["group0"]
@@ -1455,24 +1590,25 @@ def _decode_forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
             return o[:, None]
 
         x, kv = _run_kinds(cfg, _layer(gparams, li), x, sin, cos, attend,
-                           state, li, pcfg=pcfg)
+                           state, li, pcfg=pcfg, tp=tp)
         if kv is not None:
             ks.append(kv[0][:, 0])
             vs.append(kv[1][:, 0])
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_out(params["embed"], x, cfg)
+    logits = _logits_reduce(params["embed"], x, cfg, tp)
     return logits[:, 0], _stack(ks), _stack(vs)
 
 
 def _fused_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, params, last,
                        k_arena, v_arena, bt, lens, pages, slots,
-                       state: Optional[_StateRound] = None) -> torch.Tensor:
+                       state: Optional[_StateRound] = None,
+                       tp: Optional[_TP] = None) -> torch.Tensor:
     """Decode forward, then the round's KV scatter (one launch for both
     arenas) and state scatter (one per arena), each covering every
     layer, arenas updated in place.  A pure-SSM round writes no KV.
     Returns the logits (B, V)."""
     logits, k_new, v_new = _decode_forward(cfg, pcfg, params, last, k_arena,
-                                           v_arena, bt, lens, state)
+                                           v_arena, bt, lens, state, tp)
     if k_new is not None:
         rc_ops.kv_scatter_pair_inline(k_arena, v_arena, pages, slots,
                                       k_new.to(k_arena.dtype),
@@ -1484,7 +1620,8 @@ def _fused_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, params, last,
 
 def _fused_block_round(cfg: ModelConfig, pcfg: ParallelConfig, params,
                        last, k_arena, v_arena, bt, lens, pages, slots, alive,
-                       state: Optional[_StateRound] = None) -> torch.Tensor:
+                       state: Optional[_StateRound] = None,
+                       tp: Optional[_TP] = None) -> torch.Tensor:
     """One round of a K-block: forward at the carried lengths, a masked
     KV scatter (a stopped row writes its slot's current value back, so
     the arena stays bit-identical to round-at-a-time decoding) and the
@@ -1492,7 +1629,8 @@ def _fused_block_round(cfg: ModelConfig, pcfg: ParallelConfig, params,
     keeps its state).  last, lens, pages, slots, alive: (Bp,).  Returns
     the logits (Bp, V)."""
     logits, k_new, v_new = _decode_forward(cfg, pcfg, params, last[:, None],
-                                           k_arena, v_arena, bt, lens, state)
+                                           k_arena, v_arena, bt, lens, state,
+                                           tp)
     if k_new is not None:
         keep = alive[None, :, None, None]
         k_val, v_val = (torch.where(keep, new.to(arena.dtype),

@@ -45,7 +45,15 @@ prefix hits and zero scans, which
 :func:`repro_torch.serving.trace.replay_on_device` prices on the
 simulated DDR3 prototype.
 
-Not in this slice (the constructor raises for it): device meshes.
+Tensor-parallel serving (``mesh=``, one process per shard): each
+rank's K/V arenas hold its ``num_kv_heads / N`` KV heads of every page
+(dim 3), N the mesh's ``model`` extent, while page ids, block tables,
+the prefix tree and the op queue are mesh-wide and identical on every
+rank (each rank runs the same host schedule).  The lib is tagged
+``kv`` and, at N > 1, attributes each launch to ``kv/shard0`` ...
+``kv/shard{N-1}``.  The zero-compare scan reduces its per-rank flags
+over the mesh (a page is zero when every rank's slice is).  A
+``num_kv_heads`` that N does not divide is refused.
 """
 
 from __future__ import annotations
@@ -265,9 +273,6 @@ class PagedKVCache:
                  record_trace: bool = False, mesh=None,
                  prefix_cache: bool = False, zero_scan: bool = False,
                  state_slots: Optional[int] = None):
-        if mesh is not None:
-            raise NotImplementedError("PagedKVCache(mesh=...) is not ported "
-                                      "yet")
         if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid") \
                 or cfg.mla is not None:
             raise NotImplementedError(
@@ -281,15 +286,25 @@ class PagedKVCache:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.n_layers = _num_attn_layers(cfg)
-        shape = (self.n_layers, num_pages, page_size, cfg.num_kv_heads,
+        kvh = cfg.num_kv_heads
+        # sharded serving: this rank's arenas hold its KV-head slice of
+        # every page (see the module docstring)
+        self.mesh = mesh
+        n_shard = mesh.shape["model"] if mesh is not None else 1
+        if n_shard > 1 and kvh % n_shard != 0:
+            raise ValueError(f"num_kv_heads={kvh} not divisible by mesh "
+                             f"model axis {n_shard}")
+        shape = (self.n_layers, num_pages, page_size, kvh // n_shard,
                  cfg.resolved_head_dim)
         k0 = torch.zeros(shape, dtype=dtype, device=self.device)
         v0 = torch.zeros(shape, dtype=dtype, device=self.device)
         self.allocator = SubarrayAllocator(
             arena_groups(num_slabs, num_pages // num_slabs))
+        shard_kw = dict(shard_axis=3, mesh=mesh) if n_shard > 1 else {}
         if lib is None:
             lib = TorchLib(buffers=[k0, v0], layered=True,
-                           allocator=self.allocator, deferred=True)
+                           allocator=self.allocator, deferred=True,
+                           tag="kv", **shard_kw)
         else:
             if lib.face != "torch":
                 raise ValueError(
@@ -297,7 +312,7 @@ class PagedKVCache:
                     f"{lib.face!r} (replay a recorded trace for model-face "
                     "accounting)")
             lib.adopt_buffers([k0, v0], layered=True,
-                              allocator=self.allocator)
+                              allocator=self.allocator, **shard_kw)
         self.lib = lib
         self.queue = lib.queue
         self.refcount: Dict[int, int] = {}
@@ -439,6 +454,11 @@ class PagedKVCache:
         self.flush_pending()
         k, v = self.lib.buffers
         flags = amb_ops.pim_page_zero_scan_pair(k, v, idx)
+        if self.mesh is not None:
+            # a page is zero when every rank's head slice is
+            t = torch.from_numpy(flags.astype(np.uint8)).to(k.device)
+            self.mesh.all_reduce(t, "model", op="min")
+            flags = t.cpu().numpy().astype(bool)
         self.queue.count_external("page_zero_scan", len(self.lib.buffers))
         if self.trace is not None:
             self.trace.record_zero_scan(idx)

@@ -8,6 +8,13 @@ place (see ``training/optimizer.py``).  Gradients are taken with
 ``torch.autograd.grad`` against aliases of the parameters (``detach()``
 views that require grad), so the caller's tensors gain no ``.grad`` and
 no ``requires_grad``.
+
+Data parallel (``mesh=``, one process per rank, parameters and
+optimizer state replicated): each rank takes the gradients of its
+block of the global batch, and one float32 ``all_reduce`` over the
+mesh's data axis, before the clip, sums them weighted by each block's
+token count, together with the loss terms, so the loss, the gradient
+norm and the update are those of the global batch.
 """
 
 from __future__ import annotations
@@ -71,11 +78,44 @@ def _grads(loss_fn, params, batch):
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
+def _sync_grads(grads, metrics, mesh, axis: str):
+    """The global batch's gradients and loss terms from every rank's
+    (one float32 ``all_reduce``): each rank's gradients and loss
+    weighted by its token count, summed and divided by the total; the
+    aux loss averaged over the ranks.  The sum runs in one flat buffer,
+    and the float32 gradients returned are views of it (one more copy of
+    the gradients, not three)."""
+    paths = [p for p, _ in tree_leaves(grads)]
+    leaves = [g for _, g in tree_leaves(grads)]
+    n = metrics["tokens"].float()
+    size = sum(g.numel() for g in leaves)
+    flat = torch.empty(size + 3, dtype=torch.float32, device=n.device)
+    off = 0
+    for g in leaves:
+        torch.mul(g.reshape(-1), n, out=flat[off:off + g.numel()])
+        off += g.numel()
+    flat[size:] = torch.stack([metrics["loss"].float() * n,
+                               metrics["aux"].float(), n])
+    mesh.all_reduce(flat, axis)
+    total = flat[-1].clone()
+    flat[:size].div_(total)
+    out, off = [], 0
+    for g in leaves:
+        out.append(flat[off:off + g.numel()].view(g.shape).to(g.dtype))
+        off += g.numel()
+    metrics = dict(metrics, loss=flat[-3] / total,
+                   aux=flat[-2] / mesh.shape[axis], tokens=total)
+    return tree_unflatten(grads, dict(zip(paths, out))), metrics
+
+
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                     ocfg: OptimizerConfig,
-                    state_dtype: torch.dtype = torch.float32):
+                    state_dtype: torch.dtype = torch.float32, mesh=None,
+                    data_axis: str = "data"):
     """(init_state(params), train_step(state, batch) -> (state,
-    metrics)); metrics are 0-d tensors: loss, aux, tokens, grad_norm."""
+    metrics)); metrics are 0-d tensors: loss, aux, tokens, grad_norm.
+    With ``mesh`` the step is data parallel over ``data_axis`` (see the
+    module docstring): ``batch`` is this rank's block."""
     loss_fn = make_loss_fn(cfg, pcfg)
     opt_init, opt_update = make_optimizer(ocfg, state_dtype)
 
@@ -105,6 +145,8 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 
     def train_step(state, batch):
         grads, metrics = grads_of(state["params"], batch)
+        if mesh is not None:
+            grads, metrics = _sync_grads(grads, metrics, mesh, data_axis)
         grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip)
         params, opt = opt_update(state["params"], grads, state["opt"])
         return {"params": params, "opt": opt}, dict(metrics, grad_norm=gnorm)

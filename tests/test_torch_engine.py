@@ -194,16 +194,16 @@ def test_eos_stops_a_request(model):
 
 
 def test_engine_refuses_what_is_not_ported(model):
-    """What still raises: meshes and compressed collectives are not
-    ported (``NotImplementedError``); MLA and multi-group layouts are
-    refused with ``ValueError``, as the JAX engine refuses them.  Caller
-    libs and trace recording are served (``tests/test_torch_trace.py``),
-    and so is the eager prefill oracle
-    (``tests/test_torch_eager_prefill.py``)."""
+    """What still raises: compressed collectives without a mesh, MLA and
+    multi-group layouts are refused with ``ValueError``, as the JAX
+    engine refuses them (``test_compressed_requires_mesh``).  Meshes
+    are served (``tests/test_torch_sharded.py``), caller libs and trace
+    recording too (``tests/test_torch_trace.py``), and so is the eager
+    prefill oracle (``tests/test_torch_eager_prefill.py``)."""
     _, cfg, _, params = model
-    for kw in (dict(mesh=object()), dict(compressed_collectives=True)):
-        with pytest.raises(NotImplementedError):
-            PagedEngine(cfg, params, device="cpu", **kw)
+    with pytest.raises(ValueError, match="compressed_collectives requires "
+                                         "mesh="):
+        PagedEngine(cfg, params, device="cpu", compressed_collectives=True)
     mla = reduced(ARCHS["deepseek-v2-236b"])
     with pytest.raises(ValueError, match="MLA"):
         PagedEngine(mla, params, device="cpu")

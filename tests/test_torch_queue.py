@@ -2,6 +2,8 @@
 package's, exactly: the same scripted ops must give the same launch
 accounting, the same allocator decisions and bit-identical arenas."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -243,12 +245,21 @@ def test_block_reservation_and_fused_commits_match_jax():
 
 
 def test_cache_refuses_what_is_not_ported():
-    """Meshes and MLA still raise; ``state_slots`` and trace recording
-    are served (a dense cache has no state arena), and so is the VLM
-    family, laid out as dense."""
+    """A mesh whose ``model`` axis does not divide ``num_kv_heads`` is
+    refused with the JAX cache's ``ValueError`` (meshes are served:
+    ``tests/test_torch_sharded.py``); MLA still raises; ``state_slots``
+    and trace recording are served (a dense cache has no state arena),
+    and so is the VLM family, laid out as dense."""
     cfg = reduced(ARCHS["granite-3-8b"], num_layers=2)
-    with pytest.raises(NotImplementedError):
-        PagedKVCache(cfg, device="cpu", mesh=object())
+
+    class TwoWay:
+        shape = {"data": 1, "model": 2}
+
+    with pytest.raises(ValueError,
+                       match="num_kv_heads=3 not divisible by mesh model "
+                             "axis 2"):
+        PagedKVCache(dataclasses.replace(cfg, num_kv_heads=3), device="cpu",
+                     mesh=TwoWay())
     assert PagedKVCache(cfg, device="cpu", record_trace=True).trace.events \
         == []
     with pytest.raises(NotImplementedError):

@@ -316,9 +316,16 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
 
 
 def test_launcher_refuses_data_parallelism(capsys):
-    """``--data-axis 2`` stops the launcher with a usage error that
-    names ROADMAP item 13, before any device is touched."""
+    """``--data-axis 2`` runs data parallel (``test_torch_data_parallel.py``)
+    but is refused before any rank starts when it cannot run: without a
+    ``--backend`` (a usage error), and over NCCL with more ranks than the
+    host has cards (NCCL runs one rank a card)."""
     with pytest.raises(SystemExit) as e:
         launch_train.main(["--device", "cpu", "--data-axis", "2"])
     assert e.value.code == 2
-    assert "item 13" in capsys.readouterr().err
+    assert "--backend" in capsys.readouterr().err
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    ranks = max(cards + 1, 2)
+    with pytest.raises(ValueError, match="nccl with .* ranks needs"):
+        launch_train.main(["--data-axis", str(ranks), "--backend", "nccl",
+                           "--batch", str(2 * ranks)])
