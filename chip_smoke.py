@@ -18,8 +18,9 @@ exits nonzero:
    the (K, V) pair in one launch, including a batch whose destination
    is another op's source (one launch, staged in a thread-block
    cluster) and a page holding only a ``-0.0``, each time beside its
-   goal; ``state_scatter`` on mamba2-1.3b's 2 MiB SSD-state rows and
-   its conv rows, bit for bit, beside the state arena's row copy and
+   goal; ``state_scatter`` on mamba2-1.3b's conv rows and 2 MiB
+   SSD-state rows in one launch (the pair, as every step writes them)
+   and each alone, bit for bit, beside the state arena's row copy and
    init and the state fork's copy of the conv/SSD pair in one launch;
    ``page_copy_batched`` on an overlapping batch (the cluster route) and
    a disjoint one (the direct route), each on one arena and the (K, V)
@@ -179,17 +180,30 @@ exits nonzero:
     in this process first: logits within ``TP_LOGIT_ATOL`` and the margin
     rule, the ranks equal, each rank's K/V slice the one-process arenas'
     head slice (layer 0 bit for bit), one dispatch a round, owners
-    ``kv/shard0``/``kv/shard1``; its ms are two ranks time-sharing one
-    card through host collectives, not a speed of tensor parallelism;
+    ``kv/shard0``/``kv/shard1``; then the eager prefill oracle
+    (``fused_prefill=False``) on the ranks' slices, the 4 requests one
+    at a time, teacher-forced by the fused path in one process (logits
+    within ``TP_EAGER_LOGIT_ATOL`` and its margin rule); its ms are two
+    ranks time-sharing one card through host collectives, not a speed
+    of tensor parallelism;
 21. data-parallel training: (a) ``launch.train.main --data-axis 2
-    --backend gloo`` at 19(a)'s size against one process on the same
-    global batch; (b) gemma-2b at full width over two gloo ranks, the
-    depth cut (printed with the bytes) so two replicated copies of the
-    training state fit the card, 3 steps at 4 x 2048; (c)
-    ``compressed_grad_sync`` on CUDA tensors at world 1 over NCCL and
-    world 2 over gloo, bit for bit with the quantization formula on the
-    CPU.  The ``total`` line gives the whole run's seconds, phase 19's
-    and phases 20-21's.
+    --backend gloo`` (the ZeRO-3 layout) at 19(a)'s size against one
+    process on the same global batch; (b) gemma-2b at full width over
+    two gloo ranks with the state replicated, the depth cut (printed
+    with the bytes) so two replicated copies of the training state fit
+    the card, 3 steps at 4 x 2048; (c) ``compressed_grad_sync`` on CUDA
+    tensors at world 1 over NCCL and world 2 over gloo, bit for bit with
+    the quantization formula on the CPU;
+22. ZeRO-3 training (``sharding_env(mesh, fsdp=True)``, the JAX
+    launcher's layout): gemma-2b at full width over two gloo ranks, each
+    holding its slices of the weights and AdamW's moments; (a) at 21(b)'s
+    depth, its losses, grad norms and parameter checksums held against
+    21(b)'s replicated run and its peak GB reserved a rank beside
+    21(b)'s; (b) the deepest depth a two-rank probe at one and two
+    layers allows, ``ZERO_STEPS`` steps; each rank's collective bytes by
+    kind (``Mesh.collective_bytes``); then ``repro_torch.examples.serve_rowclone`` in a subprocess on the
+    card.  The ``total`` line gives the whole run's seconds, phase 19's,
+    phases 20-21's and phase 22's.
 
 Every serving phase runs with the engine's default ``cuda_graphs=True``:
 its prefill batches, chunk steps, mixed rounds (two graphs each), decode
@@ -205,8 +219,10 @@ exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1013,14 +1029,18 @@ def ambit_parity(dev, randn, L, P, S, E) -> dict:
 
 def ssm_parity(dev) -> dict:
     """``state_scatter`` on mamba2-1.3b's decode shapes, bit for bit
-    against its plain version on both arenas: the SSD state (48 layers,
-    16 rows of 64 x 64 x 128 float32 = 2 MiB) and the conv window (48
-    layers, 16 rows of 3 x 4352 bf16), 8 rows whose last duplicates the
-    first in place with an identical payload, a lone ``-0.0`` planted in
-    the payload.  Timed: the wrapper call (``ms``, with the host's
-    checks), the bare launch on rows already on the card
-    (``kernel_only_ms``), the plain version, and ``index_copy_`` as the
-    library call.  Bound: the payload read once and the 7 distinct rows
+    against its plain version: the conv window (48 layers, 16 rows of 3
+    x 4352 bf16, 26,112 B) and the SSD state (48 layers, 16 rows of 64 x
+    64 x 128 float32, 2 MiB), 8 rows whose last duplicates the first in
+    place with an identical payload, a lone ``-0.0`` planted in each
+    payload; the pair in one launch (the serving path's: rows on the
+    card, as a captured step holds them, and host rows in the launch's
+    parameters, as the eager flush passes them) and each arena alone.
+    Timed: the pair's wrapper (``ms``), its bare launch
+    (``kernel_only_ms``), the two one-arena calls a step made before
+    (``two_calls_ms``), each arena alone (wrapper and bare), the plain
+    version, and ``index_copy_`` as the library call (one per arena).
+    Bound: the payloads read once and the 7 distinct rows of each
     written once.  Beside it, the state arena's copy-on-fork and
     init-on-free (RowClone batched kernels on the (L, R, E) view) at
     2 MiB rows: one row (a fork, a free) and 8 rows."""
@@ -1035,67 +1055,111 @@ def ssm_parity(dev) -> dict:
     rows = torch.tensor(rows_l, dtype=torch.int32, device=dev)
     lib = _build.load("ssm_scan")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for name, E, dtype in (("ssm", 64 * 64 * 128, torch.float32),
-                           ("conv", 3 * 4352, torch.bfloat16)):
-        arena = torch.randn((L, 1, R, E), generator=gen, device=dev,
-                            dtype=dtype)
+    shapes = {"conv": (3 * 4352, torch.bfloat16),
+              "ssm": (64 * 64 * 128, torch.float32)}
+    arenas, news = {}, {}
+    for name, (E, dtype) in shapes.items():
+        arenas[name] = torch.randn((L, 1, R, E), generator=gen, device=dev,
+                                   dtype=dtype)
         new = torch.randn((L, 1, B, E), generator=gen, device=dev,
                           dtype=dtype)
         new[:, :, B - 1] = new[:, :, 0]
         new[L - 1, 0, 2, E - 1] = -0.0
-        want = ss_ref.state_scatter(arena.clone().view(L, R, E), rows,
-                                    new.view(L, B, E))
-        got = ss_ops.state_scatter_inline(arena.clone(), rows, new)
+        news[name] = new
+    names = tuple(shapes)
+    want = {n: ss_ref.state_scatter(arenas[n].clone().view(L, R, -1), rows,
+                                    news[n].view(L, B, -1)) for n in names}
+
+    def check(got, what):
         torch.cuda.synchronize()
-        if not same_bits(got.view(L, R, E), want):
-            raise AssertionError(f"state_scatter ({name}) disagrees with "
-                                 "its plain version")
-        if got.view(L, R, E)[L - 1, rows_l[2], E - 1].view(
-                torch.int16 if dtype == torch.bfloat16 else torch.int32
-        ).item() == 0:
-            raise AssertionError("the planted -0.0 lost its sign bit")
-        del want, got
-        work = arena.clone()
-        flat = work.view(L, R, E)
-        row_bytes = E * arena.element_size()
-        nb, by = bound(L * B * row_bytes + L * len(set(rows_l)) * row_bytes
-                       + 4 * B, 0)
-        idx = rows.long()
-        rows_out[name] = dict(
-            arena=[L, R, E], dtype=str(dtype).split(".")[-1], rows=B,
-            max_abs_err=0.0,
-            ms=time_ms(lambda: ss_ops.state_scatter_inline(work, rows,
-                                                           new)),
+        for n, g in got.items():
+            if not same_bits(g.view(L, R, -1), want[n]):
+                raise AssertionError(f"state_scatter ({what}, {n}) "
+                                     "disagrees with its plain version")
+            bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+            if g.view(L, R, -1)[L - 1, rows_l[2], -1].view(bits).item() == 0:
+                raise AssertionError("the planted -0.0 lost its sign bit")
+
+    for what, idx in (("pair, rows on the card", rows),
+                      ("pair, host rows", rows_l)):
+        got = {n: arenas[n].clone() for n in names}
+        ss_ops.state_scatter_pair_inline(got["conv"], got["ssm"], idx,
+                                         news["conv"], news["ssm"])
+        check(got, what)
+        del got
+    for n in names:
+        got = {n: arenas[n].clone()}
+        ss_ops.state_scatter_inline(got[n], rows, news[n])
+        check(got, "one arena")
+        del got
+    del want
+    work = {n: arenas[n].clone() for n in names}
+    flat = {n: work[n].view(L, R, -1) for n in names}
+    row_bytes = {n: E * dtype.itemsize for n, (E, dtype) in shapes.items()}
+
+    def desc(ns):
+        return array("q", [v for n in ns for v in (
+            work[n].data_ptr(), news[n].data_ptr(), R, row_bytes[n],
+            L)]).tobytes()
+
+    def nbytes(ns):
+        return sum(L * B * row_bytes[n] + L * len(set(rows_l)) * row_bytes[n]
+                   for n in ns) + 4 * B
+
+    idx = rows.long()
+    pair_desc = desc(names)
+    nb, by = bound(nbytes(names), 0)
+    row = dict(
+        arenas={n: [L, R, shapes[n][0]] for n in names},
+        dtypes={n: str(shapes[n][1]).split(".")[-1] for n in names},
+        rows=B, max_abs_err=0.0,
+        ms=time_ms(lambda: ss_ops.state_scatter_pair_inline(
+            work["conv"], work["ssm"], rows, news["conv"], news["ssm"])),
+        host_rows_ms=time_ms(lambda: ss_ops.state_scatter_pair_inline(
+            work["conv"], work["ssm"], rows_l, news["conv"], news["ssm"])),
+        kernel_only_ms=time_ms(lambda: lib.ss_state_scatter(
+            pair_desc, 2, rows.data_ptr(), None, B, stream)),
+        two_calls_ms=time_ms(lambda: [ss_ops.state_scatter_inline(
+            work[n], rows, news[n]) for n in names]),
+        plain_ms=time_ms(lambda: [ss_ref.state_scatter(
+            flat[n], rows, news[n].view(L, B, -1)) for n in names]),
+        bound_ms=nb, bound_by=by,
+        library_ms=time_ms(lambda: [flat[n].index_copy_(
+            1, idx, news[n].view(L, B, -1)) for n in names]))
+    for n in names:
+        one_desc = desc((n,))
+        nb_n, by_n = bound(nbytes((n,)), 0)
+        row[n] = dict(
+            ms=time_ms(lambda: ss_ops.state_scatter_inline(work[n], rows,
+                                                           news[n])),
+            ms_least=time_ms_least(lambda: ss_ops.state_scatter_inline(
+                work[n], rows, news[n])),
             kernel_only_ms=time_ms(lambda: lib.ss_state_scatter(
-                work.data_ptr(), new.data_ptr(), rows.data_ptr(), L, B, R,
-                row_bytes, stream)),
+                one_desc, 1, rows.data_ptr(), None, B, stream)),
             plain_ms=time_ms(lambda: ss_ref.state_scatter(
-                flat, rows, new.view(L, B, E))),
-            bound_ms=nb, bound_by=by,
-            library_ms=time_ms(lambda: flat.index_copy_(
-                1, idx, new.view(L, B, E))))
-        if name == "ssm":
-            # copy-on-fork and init-on-free on the 2 MiB rows
-            for n in (1, 8):
-                src, dst = list(range(n)), list(range(R - n, R))
-                nb_c, _ = bound(2 * L * n * row_bytes, 0)
-                nb_i, _ = bound(L * n * row_bytes, 0)
-                bare, _ = bare_copy((flat,), 2, src, dst, stream)
-                rows_out[f"state_copy_{n}_rows"] = dict(
-                    ms=time_ms(lambda: ss_ops.pim_state_copy(work, src,
-                                                             dst)),
-                    kernel_only_ms=time_ms(
-                        lambda: _build.load("rowclone").rc_copy_pages(
-                            *bare)),
-                    bound_ms=nb_c, bound_by="bytes")
-                rows_out[f"state_init_{n}_rows"] = dict(
-                    ms=time_ms(lambda: ss_ops.pim_state_init(work, dst,
-                                                             0.0)),
-                    bound_ms=nb_i, bound_by="bytes")
-        del work, flat, arena, new
+                flat[n], rows, news[n].view(L, B, -1))),
+            bound_ms=nb_n, bound_by=by_n,
+            library_ms=time_ms(lambda: flat[n].index_copy_(
+                1, idx, news[n].view(L, B, -1))))
+    # copy-on-fork and init-on-free on the 2 MiB rows
+    for n in (1, 8):
+        src, dst = list(range(n)), list(range(R - n, R))
+        rb = row_bytes["ssm"]
+        nb_c, _ = bound(2 * L * n * rb, 0)
+        nb_i, _ = bound(L * n * rb, 0)
+        bare, _ = bare_copy((flat["ssm"],), 2, src, dst, stream)
+        rows_out[f"state_copy_{n}_rows"] = dict(
+            ms=time_ms(lambda: ss_ops.pim_state_copy(work["ssm"], src,
+                                                     dst)),
+            kernel_only_ms=time_ms(
+                lambda: _build.load("rowclone").rc_copy_pages(*bare)),
+            bound_ms=nb_c, bound_by="bytes")
+        rows_out[f"state_init_{n}_rows"] = dict(
+            ms=time_ms(lambda: ss_ops.pim_state_init(work["ssm"], dst,
+                                                     0.0)),
+            bound_ms=nb_i, bound_by="bytes")
+    del work, flat, arenas, news
     rows_out.update(state_pair_rows(dev, gen, L, R))
-    row = rows_out.pop("ssm")
-    row["conv"] = rows_out.pop("conv")
     return {"state_scatter": row, "state_rows": rows_out}
 
 
@@ -3248,7 +3312,7 @@ def serving_ssm(dev) -> dict:
     decode blocks, odd ids sampled at temperature 1.0, requests 4-7
     arriving after the second step.  No attention: ``paged_attention``,
     ``flash_*`` and ``kv_scatter`` must not launch, ``state_scatter``
-    at least twice a step."""
+    at least once a step (one launch writes both arenas)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
@@ -3295,7 +3359,7 @@ def serving_ssm(dev) -> dict:
     attn = {k: counts[k] for k in ("kv_scatter", "paged_attention",
                                    "flash_attention",
                                    "flash_attention_prefix")}
-    if any(attn.values()) or counts["state_scatter"] < 2 * steps:
+    if any(attn.values()) or counts["state_scatter"] < steps:
         raise AssertionError(f"serve_ssm (a): launches {counts}")
     _check_drained(engine, "serve_ssm (a)")
     check_streams(cfg, out["results"], 8)
@@ -3332,7 +3396,7 @@ def serving_ssm(dev) -> dict:
     G = cfg.num_layers
     if e_kind.get("ssm_state_write") != 2 \
             or e_kind.get("eager_ssm_layer") != G \
-            or e_counts["state_scatter"] != 2 + 2:
+            or e_counts["state_scatter"] != 1 + 1:
         raise AssertionError(f"eager round: {_nonzero(e_kind)} "
                              f"{_nonzero(e_counts)}")
     _check_drained(eager, "eager round")
@@ -3554,7 +3618,12 @@ def _attention_fan_in(params, cfg) -> None:
     product it enters.  Under the rule gemma's ``wk``/``wv`` draw at std
     1: its scores reach hundreds and the gradient norm grows ~500x every
     two layers, ~1e13 at 18 (phase 19(b) prints it), where a clip to 1
-    leaves AdamW's updates below its eps and the loss cannot fall."""
+    leaves AdamW's updates below its eps and the loss cannot fall.  The
+    init rule's fan-in is read from the definitions, so a rank's slices
+    (ZeRO-3, phase 22) scale as the whole leaves do."""
+    from repro_torch.models import transformer as T
+
+    defs = T.model_defs(cfg)
     for name, group in params.items():
         if not name.startswith("group"):
             continue
@@ -3564,7 +3633,8 @@ def _attention_fan_in(params, cfg) -> None:
             for w, t in sub["attn"].items():
                 fan = (cfg.num_heads * cfg.resolved_head_dim if w == "wo"
                        else cfg.d_model)
-                t.mul_((t.shape[-2] / fan) ** 0.5)
+                init = defs[name][key]["attn"][w].shape[-2]
+                t.mul_((init / fan) ** 0.5)
 
 
 def train_cross_check(dev) -> dict:
@@ -3934,6 +4004,11 @@ def train_restart(dev) -> dict:
 # layers, and the logits are bf16 products (spacing 2**-5 at |logit| in
 # [4, 8)); 0.094 (three such steps) measured on an H100
 TP_LOGIT_ATOL = 0.1
+# phase 20(b)'s eager prefill oracle over the ranks against the fused
+# path in one process: the tensor-parallel reordering above plus the
+# eager-against-fused difference phase 16 holds at LOGIT_ATOL (a naive
+# attention in float32 softmax against the flash kernel's tiles)
+TP_EAGER_LOGIT_ATOL = TP_LOGIT_ATOL + LOGIT_ATOL
 # its K/V past layer 0, relative to the largest |value| of the layer
 TP_ARENA_RTOL = 2 ** -5
 # phase 21(a): the launcher's losses at two ranks against one: the first
@@ -3962,6 +4037,18 @@ DP_SEQ = 2048          # phase 21(b): gemma-2b's global batch is 4 x DP_SEQ
 # allocator's reserved bytes (its CUDA context, the kernels' modules)
 # and slack for the allocator's rounding past the probed depths
 DP_RANK_OVERHEAD = 2e9
+# phase 22: gemma-2b under ZeRO-3 against phase 21(b)'s replicated run at
+# the same depth, on the same weights and batches: the first step's loss
+# is the same forward (the gathers are exact), so DP_FIRST_RTOL; the
+# grad norms sum the slices' squares over the ranks, DP_GNORM_RTOL; the
+# later losses move with AdamW's eps=1e-8 as phase 21(a)'s do,
+# DP_LOSS_RTOL; the parameter checksums (the float64 sum of ~1 B float32
+# values, each moved by about lr a step) by the same sign flips, at
+# DP_LOSS_RTOL too
+ZERO_STEPS = 2
+# what a ZeRO-3 rank holds a parameter beyond activations: float32
+# weights, AdamW's m and v and the gradient, each a slice of two
+ZERO_STATE_BYTES = 16 / 2
 
 
 def _recorder_class():
@@ -4203,6 +4290,26 @@ def _tp_rank(rank: int, world: int, cfg, ref_path: str, device: str
                 "mixed_dispatches", "multi_round_blocks",
                 "fused_dispatches")}}
         del eng
+    # the eager prefill oracle on the rank's slices, one request at a
+    # time, teacher-forced by the fused path's one-process run
+    r = ref["eager"]
+    eng = Recorder(cfg, params, page_size=16, num_pages=512, device=dev,
+                   mesh=mesh, cuda_graphs=False, fused_prefill=False,
+                   ref_tokens=[t.to(dev) for t in r["tokens"]])
+    results, deltas = {}, []
+    t = time.perf_counter()
+    for req in seeded_requests(cfg, Request, **ref["reqs"]):
+        run = _drive(eng, [req])
+        results.update(run["results"])
+        deltas += run["deltas"]
+    out["eager"] = {
+        "results": results, "deltas": deltas,
+        "choices": _margin_check(eng.logits, r["logits"],
+                                 TP_EAGER_LOGIT_ATOL),
+        "logits_sum": [float(lg.double().sum()) for lg in eng.logits],
+        "seconds": time.perf_counter() - t,
+        "pages_in_use": eng.cache.pages_in_use}
+    del eng
     out["kernel_launches"] = launch_counts()
     out["peak_gb"] = _peak_gb(dev)
     return out
@@ -4224,9 +4331,13 @@ def tp_world2(dev, card) -> tuple:
     K/V slice after step 2 equal to the one-process arenas' head slice
     (layer 0 bit for bit; layers 1 and 31 within TP_ARENA_RTOL of the
     layer's largest |value|), one dispatch a step and owners
-    ``kv/shard0`` / ``kv/shard1``.  Two ranks time-share the card and
-    sum through host collectives: its ms are not a speed of tensor
-    parallelism."""
+    ``kv/shard0`` / ``kv/shard1``.  Then the eager prefill oracle
+    (``fused_prefill=False``) on the ranks' slices, the 4 requests one
+    at a time, teacher-forced by the fused path's one-process run of
+    them: logits within TP_EAGER_LOGIT_ATOL and its margin rule, the
+    ranks equal, no fused prefill launched.  Two ranks time-share the
+    card and sum through host collectives: its ms are not a speed of
+    tensor parallelism."""
     import tempfile
     from repro_torch.configs import ARCHS
     from repro_torch.launch.mesh import run_ranks
@@ -4254,6 +4365,15 @@ def tp_world2(dev, card) -> tuple:
                       "decode_round_ms_median": run["decode_round_ms_median"],
                       "tokens_per_s": run["tokens"] / run["seconds"]}
         del eng, run
+    # the eager oracle's reference: the fused path, one request at a time
+    eng = Recorder(cfg, params, page_size=16, num_pages=512, device=dev)
+    results = {}
+    for req in seeded_requests(cfg, Request, **TP_REQS):
+        results.update(_drive(eng, [req])["results"])
+    ref["eager"] = {"tokens": [t.cpu() for t in eng.tokens],
+                    "logits": [lg.cpu() for lg in eng.logits]}
+    host["eager"] = {"results": results}
+    del eng
     del params
     _free_card()
     with tempfile.TemporaryDirectory() as d:
@@ -4307,6 +4427,20 @@ def tp_world2(dev, card) -> tuple:
         ok = ok and (row["streams_equal_one_process"] and same_ranks
                      and row["deltas_equal_one_process"] and one
                      and owners == ["kv/shard0", "kv/shard1"] and arenas_ok)
+    e0, e1 = ranks[0]["eager"], ranks[1]["eager"]
+    out["eager"] = {
+        "fused_prefill": False, "one_request_at_a_time": True,
+        "streams_equal_fused_one_process": e0["results"] == host["eager"][
+            "results"],
+        "ranks_equal": (e0["results"] == e1["results"]
+                        and e0["logits_sum"] == e1["logits_sum"]),
+        "no_fused_prefill": not any("fused_prefill" in d
+                                    for d in e0["deltas"]),
+        "choices": e0["choices"], "seconds": e0["seconds"],
+        "pages_in_use": [e0["pages_in_use"], e1["pages_in_use"]]}
+    ok = ok and all(out["eager"][k] for k in (
+        "streams_equal_fused_one_process", "ranks_equal",
+        "no_fused_prefill")) and out["eager"]["pages_in_use"] == [0, 0]
     out["chunked_ran_mixed_and_blocks"] = (
         out["chunked"]["stats"]["mixed_dispatches"] > 0
         and out["chunked"]["stats"]["multi_round_blocks"] > 0)
@@ -4333,14 +4467,22 @@ def _dp_steps(cfg, pcfg, ocfg, params, batches, dev, *, mesh=None,
     ``batches``, each on this rank's contiguous block of it: each step's
     loss, grad norm, a checksum of the parameters after it (the float64
     sum of every leaf) and its ms; the parameters after the last step
-    (on the CPU) with ``keep_params``."""
+    (on the CPU) with ``keep_params``.  Under ``sharding_env(mesh,
+    fsdp=True)`` (a ZeRO-3 rank, phase 22) the checksum is the whole
+    leaves' and ``checksums_split`` this rank's slices' (the caller
+    sums them over the ranks), beside the mesh's collective bytes over
+    the steps."""
     from repro_torch.models.params import tree_leaves
     from repro_torch.training.train_step import make_train_step
 
     init, step = make_train_step(cfg, pcfg, ocfg, mesh=mesh)
     state = init(params)
     del params
+    layout = step.layout
     out = {"losses": [], "grad_norms": [], "checksums": [], "step_ms": []}
+    if layout is not None:
+        out["checksums_split"] = []
+        mesh.reset_collectives()
     for b in batches:
         per = b["tokens"].shape[0] // world
         b = {k: v[rank * per:(rank + 1) * per] for k, v in b.items()}
@@ -4351,9 +4493,19 @@ def _dp_steps(cfg, pcfg, ocfg, params, batches, dev, *, mesh=None,
         out["step_ms"].append((time.perf_counter() - t) * 1e3)
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
-        out["checksums"].append(sum(
-            float(t_.sum(dtype=torch.float64))
-            for _, t_ in tree_leaves(state["params"])))
+        sums = [(k, float(t_.sum(dtype=torch.float64)))
+                for k, t_ in tree_leaves(state["params"])]
+        if layout is None:
+            out["checksums"].append(sum(v for _, v in sums))
+        else:
+            # a rank's slices (summed over the ranks by the caller) and
+            # the whole leaves (every rank's alike)
+            out["checksums_split"].append(sum(
+                v for k, v in sums if layout.dims[k] is not None))
+            out["checksums"].append(sum(
+                v for k, v in sums if layout.dims[k] is None))
+    if layout is not None:
+        out["collective_bytes"] = mesh.collective_bytes()
     if keep_params:
         out["params"] = {k: t_.cpu()
                          for k, t_ in tree_leaves(state["params"])}
@@ -4384,11 +4536,14 @@ def _dp_small(dev) -> tuple:
             [{"tokens": toks[:, :-1], "labels": toks[:, 1:]}])
 
 
-def _dp_gemma(cfg, dev, steps: int) -> tuple:
+def _dp_gemma(cfg, dev, steps: int, mesh=None) -> tuple:
     """Phase 21(b)'s run: gemma-2b (``cfg`` cut in depth), float32
     master weights (attention at its fan-in, as phase 19), remat full,
     chunked attention, AdamW, ``steps`` global batches of 4 x DP_SEQ
-    from ``SyntheticLM``."""
+    from ``SyntheticLM``.  With ``mesh`` (inside ``sharding_env(mesh,
+    fsdp=True)``, phase 22) each leaf is drawn whole and cut to this
+    rank's ZeRO-3 slice at once: the same weights, never whole on the
+    card."""
     from repro_torch.configs import (OptimizerConfig, ParallelConfig,
                                      ShapeConfig)
     from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
@@ -4396,7 +4551,7 @@ def _dp_gemma(cfg, dev, steps: int) -> tuple:
     from repro_torch.models.params import init_params
 
     params = init_params(T.model_defs(cfg), torch.Generator(
-        device=dev).manual_seed(19), dev, torch.float32)
+        device=dev).manual_seed(19), dev, torch.float32, mesh=mesh)
     _attention_fan_in(params, cfg)
     pcfg = ParallelConfig(remat="full", attention_impl="chunked",
                           attention_chunk=512, moe_impl="dense")
@@ -4436,12 +4591,15 @@ def _dp_rank(rank: int, world: int, gemma_cfg, steps: int,
     return {"small": small, "gemma": big}
 
 
-def _dp_probe_rank(rank: int, world: int, cfg, device: str) -> list:
-    """The rank of :func:`_dp_probe`: rank 0's first train step of a
-    two-rank run (its block, 2 x DP_SEQ, of the global batch; through a
-    one-rank gloo group, so the sync's flat buffer is held too) at one
-    and at two layers, the allocator's peak reserved bytes of each (0
-    on the CPU)."""
+def _dp_probe_rank(rank: int, world: int, cfg, device: str,
+                   zero: bool = False) -> list:
+    """The rank of :func:`_dp_probe`: its first train step of a two-rank
+    run (its block, 2 x DP_SEQ, of the global batch) at one and at two
+    layers, the allocator's peak reserved bytes of each (0 on the CPU).
+    Replicated (phase 21(b)): rank 0 alone, through a one-rank gloo
+    group, so the sync's flat buffer is held too; ``zero`` (phase 22):
+    both ranks under ``sharding_env(mesh, fsdp=True)``."""
+    from repro_torch.distributed.sharding import sharding_env
     from repro_torch.launch.mesh import make_local_mesh
 
     dev = torch.device(device)
@@ -4458,33 +4616,42 @@ def _dp_probe_rank(rank: int, world: int, cfg, device: str) -> list:
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         before = torch.cuda.memory_reserved(dev) if cuda else 0
-        pcfg, ocfg, params, batches = _dp_gemma(c, dev, 1)
-        _dp_steps(c, pcfg, ocfg, params, batches, dev, mesh=mesh, world=2)
+        with (sharding_env(mesh, fsdp=True) if zero
+              else contextlib.nullcontext()):
+            pcfg, ocfg, params, batches = _dp_gemma(
+                c, dev, 1, mesh=mesh if zero else None)
+            _dp_steps(c, pcfg, ocfg, params, batches, dev, mesh=mesh,
+                      rank=rank, world=2)
         del params
         peaks.append(torch.cuda.max_memory_reserved(dev) - before
                      if cuda else 0)
     return peaks
 
 
-def _dp_probe(cfg, dev) -> dict:
-    """Phase 21(b)'s depth from a measurement: :func:`_dp_probe_rank` in
-    a fresh process, as each rank starts; a rank then needs about
-    ``base + layers x per_layer`` bytes."""
+def _dp_probe(cfg, dev, zero: bool = False) -> dict:
+    """Phase 21(b)'s (and, with ``zero``, phase 22's) depth from a
+    measurement: :func:`_dp_probe_rank` in fresh processes, as each
+    rank starts (one for the replicated layout, both ranks for ZeRO-3);
+    a rank then needs about ``base + layers x per_layer`` bytes (the
+    larger rank's)."""
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import transformer as T
     from repro_torch.models.params import param_count
 
-    peaks = run_ranks(_dp_probe_rank, 1, backend="gloo",
-                      args=(cfg, str(dev)), timeout=300.0)[0]
+    peaks = run_ranks(_dp_probe_rank, 2 if zero else 1, backend="gloo",
+                      args=(cfg, str(dev), zero), timeout=300.0)
+    one, two = max(p[0] for p in peaks), max(p[1] for p in peaks)
     # a layer holds at least its training state: 20 bytes a parameter
-    # (float32 weights, gradients, AdamW m and v, the sync's buffer)
-    state = 20 * (param_count(T.model_defs(dataclasses.replace(
-        cfg, num_layers=2))) - param_count(T.model_defs(
-            dataclasses.replace(cfg, num_layers=1))))
-    per_layer = max(peaks[1] - peaks[0], state)
-    return {"peak_reserved_bytes": {"1": peaks[0], "2": peaks[1]},
+    # replicated (float32 weights, gradients, AdamW m and v, the sync's
+    # buffer), ZERO_STATE_BYTES a rank under ZeRO-3
+    state = (ZERO_STATE_BYTES if zero else 20) * (
+        param_count(T.model_defs(dataclasses.replace(cfg, num_layers=2)))
+        - param_count(T.model_defs(dataclasses.replace(cfg,
+                                                       num_layers=1))))
+    per_layer = max(two - one, state)
+    return {"peak_reserved_bytes": {"1": one, "2": two},
             "layer_state_bytes": state, "per_layer_bytes": per_layer,
-            "base_bytes": peaks[0] - per_layer}
+            "base_bytes": one - per_layer}
 
 
 def _compress_rank(rank: int, world: int, grads, device: str) -> dict:
@@ -4623,6 +4790,7 @@ def dp_training(dev, card) -> dict:
                 embed + cfg.num_layers * per_layer),
             "batch": [4, DP_SEQ], "losses": g[0]["losses"],
             "grad_norms": g[0]["grad_norms"],
+            "checksums": g[0]["checksums"],
             "ranks_equal": all(g[0][k] == g[1][k] for k in (
                 "losses", "grad_norms", "checksums")),
             "step_ms": g[0]["step_ms"],
@@ -4666,6 +4834,155 @@ def dp_training(dev, card) -> dict:
                               "world2_gloo_bit_equal", "zero_leaf_exact"))):
         raise AssertionError(f"dp_training: {json.dumps(out, default=str)}")
     return out
+
+
+def _zero_rank(rank: int, world: int, cfg, steps: int, device: str
+               ) -> dict:
+    """One rank of phase 22: gemma-2b at full width cut to ``cfg``'s
+    depth under ``sharding_env(mesh, fsdp=True)``: the slices drawn leaf
+    by leaf from phase 21(b)'s seed, ``steps`` steps of phase 21(b)'s
+    batches on this rank's block; its peak bytes measured over the
+    steps only."""
+    from repro_torch.distributed.sharding import sharding_env
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(data=world)
+    with sharding_env(mesh, fsdp=True):
+        t = time.perf_counter()
+        pcfg, ocfg, params, batches = _dp_gemma(cfg, dev, steps, mesh=mesh)
+        init_s = time.perf_counter() - t
+        _free_card()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        out = _dp_steps(cfg, pcfg, ocfg, params, batches, dev, mesh=mesh,
+                        rank=rank, world=world)
+    out["init_seconds"] = init_s
+    out["peak_gb"] = _peak_gb(dev)
+    out["peak_reserved_gb"] = (torch.cuda.max_memory_reserved(dev) / 1e9
+                               if dev.type == "cuda" else None)
+    return out
+
+
+def _zero_run(cfg, dev) -> dict:
+    """Two ZeRO-3 ranks of phase 22 at ``cfg``'s depth, put together:
+    rank 0's losses and grad norms, the checksum over both ranks'
+    slices and the whole leaves, each rank's peak bytes."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t = time.perf_counter()
+    ranks = run_ranks(_zero_rank, 2, backend="gloo",
+                      args=(cfg, ZERO_STEPS, str(dev)), timeout=900.0)
+    r0, r1 = ranks
+    return {"layers": cfg.num_layers, "losses": r0["losses"],
+            "grad_norms": r0["grad_norms"],
+            "checksums": [a + b + w for a, b, w in zip(
+                r0["checksums_split"], r1["checksums_split"],
+                r0["checksums"])],
+            "ranks_equal": all(r0[k] == r1[k] for k in (
+                "losses", "grad_norms", "checksums")),
+            "step_ms": r0["step_ms"],
+            "init_seconds": [r["init_seconds"] for r in ranks],
+            "peak_gb": [r["peak_gb"] for r in ranks],
+            "peak_reserved_gb": [r["peak_reserved_gb"] for r in ranks],
+            "collective_bytes": r0["collective_bytes"],
+            "seconds": time.perf_counter() - t}
+
+
+def zero_training(dev, card, dp: dict) -> dict:
+    """Phase 22: gemma-2b at full width under the JAX launcher's ZeRO-3
+    layout (``sharding_env(mesh, fsdp=True)``) over two gloo ranks on
+    the card, each holding its slices of the float32 weights and AdamW's
+    moments.  (a) At phase 21(b)'s depth, ZERO_STEPS steps held against
+    phase 21(b)'s replicated run of the same weights and batches
+    (losses, grad norms, parameter checksums; see the tolerances above),
+    the peak GB reserved a rank beside phase 21(b)'s; (b) the deepest
+    depth a probe allows (two ZeRO-3 ranks at one and two layers, as
+    phase 21(b) probes its one), ZERO_STEPS steps, finite, the ranks
+    equal.  Two ranks time-share the card and gather through the host
+    (gloo): the step ms are not a speed of ZeRO-3."""
+    from repro_torch.configs import ARCHS
+
+    ref = dp["gemma_2b_full_width"]
+    cfg = ARCHS["gemma-2b"]
+    t0 = time.perf_counter()
+    same = _zero_run(dataclasses.replace(cfg, num_layers=ref["layers"]),
+                     dev)
+    n = ZERO_STEPS
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a[:n], b[:n])]
+
+    held = {"loss_rel_diff": rel(same["losses"], ref["losses"]),
+            "grad_norm_rel_diff": rel(same["grad_norms"],
+                                      ref["grad_norms"]),
+            "checksum_rel_diff": rel(same["checksums"], ref["checksums"]),
+            "replicated_losses": ref["losses"][:n],
+            "replicated_grad_norms": ref["grad_norms"][:n],
+            "replicated_peak_reserved_gb": ref["peak_reserved_gb"]}
+    same_ok = (same["ranks_equal"]
+               and held["loss_rel_diff"][0] <= DP_FIRST_RTOL
+               and max(held["loss_rel_diff"]) <= DP_LOSS_RTOL
+               and max(held["grad_norm_rel_diff"]) <= DP_GNORM_RTOL
+               and max(held["checksum_rel_diff"]) <= DP_LOSS_RTOL)
+    _free_card()
+    probe = _dp_probe(cfg, dev, zero=True)
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else 0
+    budget = free / 2 - DP_RANK_OVERHEAD
+    layers = int(min(cfg.num_layers, (budget - probe["base_bytes"])
+                     // probe["per_layer_bytes"])) if dev.type == "cuda" \
+        else cfg.num_layers
+    if layers < ref["layers"]:
+        raise AssertionError(f"zero_training: the probe allows {layers} "
+                             f"layers, fewer than phase 21(b)'s "
+                             f"{ref['layers']}")
+    deep = _zero_run(dataclasses.replace(cfg, num_layers=layers), dev)
+    deep_ok = (deep["ranks_equal"] and all(np.isfinite(deep["losses"]))
+               and all(np.isfinite(deep["grad_norms"])))
+    out = {"phase": "zero_training", "nvidia_smi": card,
+           "arch": cfg.name, "of_layers": cfg.num_layers,
+           "layout": "sharding_env(mesh, fsdp=True): ZeRO-3 over data=2",
+           "backend": "gloo", "ranks_on_one_card": 2,
+           "batch": [4, DP_SEQ], "steps": n,
+           "at_phase21_depth": dict(same, held=held),
+           "probe": probe, "free_bytes_before": free,
+           "budget_bytes_per_rank": budget, "deepest": deep,
+           "seconds": time.perf_counter() - t0,
+           "note": ("two ranks time-share one card and gather through "
+                    "host collectives (gloo): not a speed of ZeRO-3")}
+    _free_card()
+    if not (same_ok and deep_ok):
+        raise AssertionError(f"zero_training: {json.dumps(out, default=str)}")
+    return out
+
+
+def serve_rowclone_example(dev) -> dict:
+    """``python -m repro_torch.examples.serve_rowclone`` (the JAX
+    package's serving example, the same arguments) in a subprocess on the
+    card: it must exit 0 and print its summary, eight requests served on
+    the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.serve_rowclone"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"serve_rowclone exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    text = proc.stdout
+    summary = json.loads(text[text.index("{"):text.index("\n}\n") + 2])
+    if not (summary["device"].startswith("cuda")
+            and summary["requests"] == 8 and summary["tokens"] == 64
+            and summary["engine_stats"]["prefix_hits"] > 0):
+        raise AssertionError(f"serve_rowclone: {json.dumps(summary)}")
+    return {"phase": "serve_rowclone", "seconds": seconds,
+            "device": summary["device"], "requests": summary["requests"],
+            "tokens": summary["tokens"],
+            "prefix_hits": summary["engine_stats"]["prefix_hits"],
+            "launches_by_kind": summary["launches_by_kind"],
+            "pages_in_use_at_end": summary["pages_in_use_at_end"]}
 
 
 # ---------------------------------------------------------------------- #
@@ -4806,8 +5123,13 @@ def main() -> int:
     emit(tp1)
     tp2, counts_tp2 = tp_world2(dev, card)
     emit(tp2)
-    emit(dp_training(dev, card))
+    dp = dp_training(dev, card)
+    emit(dp)
     dist_s = time.perf_counter() - t20
+    t22 = time.perf_counter()
+    emit(zero_training(dev, card, dp))
+    zero_s = time.perf_counter() - t22
+    emit(serve_rowclone_example(dev))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -4828,6 +5150,7 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "training_seconds": train_s, "distributed_seconds": dist_s,
+          "zero_seconds": zero_s,
           "nvidia_smi": card})
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -14,6 +14,13 @@ read back through the manifest's dtype.
 may be updated in place right after), then writes the files on a
 background thread; ``wait()`` joins it (``save`` and ``load`` call it
 first; a caller calls it before shutdown).  ``keep`` bounds the checkpoints kept on disk.
+
+A ZeRO-3 state (``shards``: ``distributed.sharding.StateShards``) is
+saved and loaded in the same one-device layout: every rank calls
+``save``, each leaf in turn is gathered whole (a collective) and rank 0
+copies it to host memory before the next leaf is gathered, so no rank
+holds the whole state on the card; ``load`` reads each whole leaf and
+keeps this rank's slice.
 """
 
 from __future__ import annotations
@@ -97,11 +104,23 @@ class Checkpointer:
     # ------------------------------ save ------------------------------- #
 
     def save(self, step: int, state: Any, *, blocking: bool = False,
-             extra: Optional[Dict] = None) -> None:
+             extra: Optional[Dict] = None, shards=None) -> None:
+        """Write ``state`` as step ``step``.  With ``shards`` every rank
+        calls this and rank 0 writes (see the module docstring)."""
         self.wait()
         # the host copy is synchronous (the caller may update the state
         # in place next); the files are written on a background thread
-        host = [(_leaf_name(p), *_host(x)) for p, x in _flatten(state)]
+        if shards is None:
+            host = [(_leaf_name(p), *_host(x)) for p, x in _flatten(state)]
+        else:
+            host = []
+            for p, x in _flatten(state):
+                whole = shards.whole("/".join(p), x)
+                if shards.rank == 0:
+                    host.append((_leaf_name(p), *_host(whole)))
+                del whole
+            if shards.rank != 0:
+                return
 
         def _write():
             tmp = os.path.join(self.dir, f".tmp_step_{step}")
@@ -151,11 +170,13 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def load(self, state_like: Any, step: Optional[int] = None,
-             device: DeviceLike = None) -> Tuple[Any, int]:
+             device: DeviceLike = None, shards=None) -> Tuple[Any, int]:
         """Restore into the structure of ``state_like`` (the latest step
         unless ``step`` is given).  Each leaf goes to ``device``, or,
         when None, to the device of its ``state_like`` leaf; it keeps
-        the dtype it was saved with."""
+        the dtype it was saved with.  With ``shards`` ``state_like``
+        holds this rank's slices, and each leaf read whole is cut to
+        its slice."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -167,13 +188,16 @@ class Checkpointer:
         leaves = {}
         for p, like in _flatten(state_like):
             name = _leaf_name(p)
-            if name not in meta or tuple(meta[name]["shape"]) != tuple(
-                    like.shape):
+            shape = tuple(like.shape) if shards is None else \
+                shards.whole_shape("/".join(p), like.shape)
+            if name not in meta or tuple(meta[name]["shape"]) != shape:
                 raise ValueError(f"checkpoint step {step}: leaf {name} is "
-                                 f"{meta.get(name)}, the state's "
-                                 f"{tuple(like.shape)}")
+                                 f"{meta.get(name)}, the state's {shape}")
             dev = device if device is not None else getattr(
                 like, "device", "cpu")
-            leaves[name] = _load_leaf(os.path.join(d, name + ".npy"),
-                                      meta[name]["dtype"], dev)
+            leaf = _load_leaf(os.path.join(d, name + ".npy"),
+                              meta[name]["dtype"], "cpu" if shards else dev)
+            if shards is not None:
+                leaf = shards.part("/".join(p), leaf).to(dev)
+            leaves[name] = leaf
         return _rebuild(state_like, leaves), step

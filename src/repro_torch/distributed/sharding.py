@@ -14,6 +14,14 @@ The port runs one process per shard, so nothing is placed by a spec:
 exactly the block ``jax.device_put`` gives the device at this rank's
 mesh coordinates, and :func:`shard` (a sharding constraint in JAX) is
 the identity.
+
+Under ``sharding_env(mesh, fsdp=True)`` the JAX launcher's parameters
+and optimizer state are split over the data axis (ZeRO-3) and GSPMD
+gathers them where they are used.  The port does so by hand:
+:class:`ZeroLayout` names each leaf's split dim, and a forward run
+under :func:`gathering` gathers each leaf where it is used (the
+layers' inside their remat body, so the recompute gathers again), its
+gradient reduce-scattered back to the slice.
 """
 
 from __future__ import annotations
@@ -172,3 +180,177 @@ def shard(x: torch.Tensor, *laxes: Optional[str]) -> torch.Tensor:
     code places nothing (JAX's version is a sharding constraint)."""
     del laxes
     return x
+
+
+# --------------------------------------------------------------------- #
+# The ZeRO-3 layout of a training state (``sharding_env(mesh, fsdp=True)``)
+# --------------------------------------------------------------------- #
+
+
+def fsdp_dim(spec: Spec, axis: str) -> Optional[int]:
+    """The dim a parameter spec splits over ``axis`` (the FSDP hint's
+    dim), or None for a replicated leaf.  A spec that names another
+    mesh axis is refused: the train step splits the data axis only."""
+    dim = None
+    for i, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        if not axes:
+            continue
+        if axes != (axis,):
+            raise ValueError(f"spec {spec}: a training layout splits the "
+                             f"{axis!r} axis only")
+        dim = i
+    return dim
+
+
+class _Gather(torch.autograd.Function):
+    """A leaf's slices all-gathered along its dim, cast to ``dtype``
+    first when one is given (the cast commutes with the gather, and a
+    bf16 gather moves half a float32 one's bytes); the backward
+    reduce-scatters the full gradient, in float32, back to the slice in
+    the leaf's dtype: each rank's gradient times its token count, summed
+    over the axis, divided by the total (:meth:`ZeroLayout.weigh`), as
+    the replicated step's ``_sync_grads`` sums it."""
+
+    @staticmethod
+    def forward(ctx, x, layout, dim, dtype):
+        ctx.layout, ctx.dim, ctx.dtype = layout, dim, x.dtype
+        if dtype is not None:
+            x = x.to(dtype)
+        return layout.mesh.all_gather(x, layout.axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lay = ctx.layout
+        g32 = g.float()
+        if lay.count is not None:
+            g32 = g32 * lay.count
+        out = lay.mesh.reduce_scatter(g32, lay.axis, ctx.dim)
+        if lay.total is not None:
+            out = out.div_(lay.total)
+        return out.to(ctx.dtype), None, None, None
+
+
+class ZeroLayout:
+    """Where a ZeRO-3 training state lives: every leaf whose parameter
+    spec (``param_specs`` with the FSDP hint) splits a dim over the mesh
+    axis ``axis`` is held as this rank's slice of that dim, the others
+    replicated.  ``dims`` maps a leaf's path (``tree_leaves``' paths, of
+    the parameter tree) to its dim or None.
+
+    :meth:`gather` hands the forward a leaf's full tensor (an autograd
+    gather whose backward reduce-scatters the gradient); :meth:`full`
+    and :meth:`local` move whole leaves between the layouts (the
+    checkpoint's one-device layout and a rank's slice);
+    :meth:`psum` sums over the axis.  ``count`` and ``total`` (0-d
+    float32 tensors, this rank's token count and the axis's) weight the
+    gradient sum; :meth:`weigh` sets them before a backward."""
+
+    def __init__(self, mesh, dims: Dict[str, Optional[int]],
+                 axis: str = "data") -> None:
+        self.mesh = mesh
+        self.axis = axis
+        self.dims = dict(dims)
+        self.count: Optional[torch.Tensor] = None
+        self.total: Optional[torch.Tensor] = None
+
+    @property
+    def world(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    def weigh(self, count: torch.Tensor,
+              total: Optional[torch.Tensor]) -> None:
+        self.count, self.total = count, total
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(x, self.axis)
+
+    def gather(self, x: torch.Tensor, dim: Optional[int],
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``x``'s full tensor (``x`` itself for a replicated leaf), cast
+        to ``dtype`` if given (a consumer that casts first)."""
+        if dim is None:
+            return x
+        return _Gather.apply(x, self, dim, dtype)
+
+    def gather_tree(self, tree, prefix: str, lead: int = 0,
+                    dtype: Optional[torch.dtype] = None):
+        """``tree`` (the parameter subtree at ``prefix``; ``lead`` leading
+        dims already indexed away, as a layer's view of a stacked group)
+        with every split leaf gathered (cast to ``dtype`` if given)."""
+        if isinstance(tree, dict):
+            return {k: self.gather_tree(v, f"{prefix}/{k}" if prefix
+                                        else k, lead, dtype)
+                    for k, v in tree.items()}
+        dim = self.dims[prefix]
+        return self.gather(tree, None if dim is None else dim - lead, dtype)
+
+    def full(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """The whole leaf from every rank's slice (no autograd)."""
+        return x if dim is None else self.mesh.all_gather(x, self.axis, dim)
+
+    def local(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``x`` (a view)."""
+        if dim is None:
+            return x
+        size = x.shape[dim] // self.world
+        return x.narrow(dim, self.mesh.index(self.axis) * size, size)
+
+
+def current_layout() -> Optional[ZeroLayout]:
+    """The :class:`ZeroLayout` a forward runs under (:func:`gathering`),
+    or None: parameters are whole."""
+    return getattr(_tls, "zero", None)
+
+
+@contextlib.contextmanager
+def gathering(layout: Optional[ZeroLayout]):
+    """Run the ``with`` block's forwards on ``layout``'s slices: the
+    model gathers each leaf where it is used."""
+    prev = getattr(_tls, "zero", None)
+    _tls.zero = layout
+    try:
+        yield layout
+    finally:
+        _tls.zero = prev
+
+
+def gather_params(tree, prefix: str, lead: int = 0,
+                  dtype: Optional[torch.dtype] = None):
+    """:meth:`ZeroLayout.gather_tree` under the current layout, else
+    ``tree`` itself.  ``dtype``: the dtype every consumer of the leaves
+    casts them to first, gathered in it."""
+    layout = current_layout()
+    if layout is None:
+        return tree
+    return layout.gather_tree(tree, prefix, lead, dtype)
+
+
+class StateShards:
+    """A ZeRO-3 training state's leaves by their '/'-joined path in the
+    state tree (``dims``: path -> split dim or None): the whole leaf
+    from every rank's slice (:meth:`whole`, a collective every rank
+    joins) and this rank's slice of a whole leaf (:meth:`part`), so a
+    checkpoint keeps the one-device layout."""
+
+    def __init__(self, layout: ZeroLayout,
+                 dims: Dict[str, Optional[int]]) -> None:
+        self.layout = layout
+        self.dims = dict(dims)
+
+    @property
+    def rank(self) -> int:
+        return self.layout.mesh.rank
+
+    def whole(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        return self.layout.full(x, self.dims[path])
+
+    def part(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        return self.layout.local(x, self.dims[path]).clone()
+
+    def whole_shape(self, path: str, shape) -> Tuple[int, ...]:
+        out = list(shape)
+        dim = self.dims[path]
+        if dim is not None:
+            out[dim] *= self.layout.world
+        return tuple(out)

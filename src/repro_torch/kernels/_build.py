@@ -78,7 +78,7 @@ SIGNATURES = {
         "am_stream_wait": [_P],
     },
     "ssm_scan": {
-        "ss_state_scatter": [_P, _P, _P, _I, _I, _L, _L, _P],
+        "ss_state_scatter": [_P, _I, _P, _P, _I, _P],
     },
 }
 

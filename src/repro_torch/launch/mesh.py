@@ -13,7 +13,9 @@ that axis's subgroup.
   devices, there is one subgroup per axis, and ``index(axis)`` is this
   rank's coordinate (JAX's ``axis_index``).  Its collectives
   (:meth:`Mesh.all_reduce`, :meth:`Mesh.all_to_all_single`,
-  :meth:`Mesh.all_gather`) run over that subgroup, on CPU tensors over
+  :meth:`Mesh.all_gather`, :meth:`Mesh.reduce_scatter`) run over that
+  subgroup, count their bytes and calls by kind
+  (:meth:`Mesh.collective_bytes`), on CPU tensors over
   gloo and on CUDA tensors over NCCL or gloo (gloo copies them through
   the host itself).
 * :func:`run_ranks` starts ``world`` ranks on this host, each in a
@@ -45,9 +47,14 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 AXES = ("pod", "data", "model")
+#: collective kinds, as the JAX package's roofline names HLO collectives
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
 # all_gather into one tensor (renamed all_gather_single in later torch)
 _ALL_GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 
 class Mesh:
@@ -75,6 +82,11 @@ class Mesh:
         self._coords = dict(zip(names, (int(c) for c in
                                         np.unravel_index(rank, sizes))))
         grid = np.arange(world).reshape(sizes)
+        # per-kind bytes and calls of this mesh's collectives (the
+        # output tensor's bytes, as the JAX package's roofline counts an
+        # HLO collective)
+        self._bytes: Dict[str, int] = {k: 0 for k in COLLECTIVES}
+        self._calls: Dict[str, int] = {k: 0 for k in COLLECTIVES}
         self._groups = {}
         for ai, axis in enumerate(names):
             # new_group is collective: every rank makes every group, in
@@ -97,6 +109,22 @@ class Mesh:
 
     # -- collectives over one axis ------------------------------------- #
 
+    def _count(self, kind: str, out: torch.Tensor) -> None:
+        self._bytes[kind] += out.numel() * out.element_size()
+        self._calls[kind] += 1
+
+    def collective_bytes(self) -> Dict[str, Any]:
+        """Bytes and calls of this mesh's collectives by kind since it
+        was made or :meth:`reset_collectives`: ``{kind: bytes, ...,
+        "_counts": {kind: calls}}``, the shape of the JAX package's
+        ``roofline.analysis.parse_collective_bytes`` (whose HLO text the
+        port has no counterpart of)."""
+        return dict(self._bytes, _counts=dict(self._calls))
+
+    def reset_collectives(self) -> None:
+        for k in COLLECTIVES:
+            self._bytes[k] = self._calls[k] = 0
+
     def all_reduce(self, x: torch.Tensor, axis: str,
                    op: str = "sum") -> torch.Tensor:
         """Reduce ``x`` in place over ``axis`` (``sum``, ``min`` or
@@ -104,6 +132,7 @@ class Mesh:
         rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                "max": dist.ReduceOp.MAX}[op]
         dist.all_reduce(x, rop, group=self._groups[axis])
+        self._count("all-reduce", x)
         return x
 
     def all_to_all_single(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -112,16 +141,40 @@ class Mesh:
         came from coordinate ``i``."""
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x.contiguous(), group=self._groups[axis])
+        self._count("all-to-all", out)
         return out
 
-    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """``(size(axis),) + x.shape``: every coordinate's ``x``, in
-        coordinate order."""
-        out = torch.empty((self.shape[axis] * x.numel(),), dtype=x.dtype,
-                          device=x.device)
+    def all_gather(self, x: torch.Tensor, axis: str,
+                   dim: Optional[int] = None) -> torch.Tensor:
+        """Every coordinate's ``x`` in coordinate order: stacked,
+        ``(size(axis),) + x.shape``, or with ``dim`` concatenated along
+        that dim (the full tensor whose blocks the coordinates hold, as
+        :func:`~repro_torch.distributed.sharding.local_slice` cuts
+        it)."""
+        n = self.shape[axis]
+        out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
         _ALL_GATHER(out, x.reshape(-1).contiguous(),
                     group=self._groups[axis])
-        return out.view((self.shape[axis],) + tuple(x.shape))
+        self._count("all-gather", out)
+        out = out.view((n,) + tuple(x.shape))
+        if dim is None:
+            return out
+        shape = list(x.shape)
+        shape[dim] *= n
+        return out.movedim(0, dim).reshape(shape)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int = 0) -> torch.Tensor:
+        """The sum of every coordinate's ``x`` over ``axis``, this
+        coordinate's block of it along ``dim`` (``x.shape[dim]`` must
+        divide by ``size(axis)``)."""
+        n = self.shape[axis]
+        full = x.movedim(dim, 0).contiguous()
+        out = torch.empty((full.shape[0] // n,) + tuple(full.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        _REDUCE_SCATTER(out, full, group=self._groups[axis])
+        self._count("reduce-scatter", out)
+        return out.movedim(0, dim).contiguous()
 
     def barrier(self) -> None:
         dist.barrier()
@@ -277,5 +330,5 @@ def run_ranks(fn: Callable[..., Any], world: int, *, backend: str,
     return [results[r] for r in range(world)]
 
 
-__all__ = ["AXES", "Mesh", "make_local_mesh", "make_production_mesh",
-           "process_group", "run_ranks"]
+__all__ = ["AXES", "COLLECTIVES", "Mesh", "make_local_mesh",
+           "make_production_mesh", "process_group", "run_ranks"]

@@ -112,7 +112,9 @@ def make_requests(cfg: ModelConfig, n: int, prompt_len: int, max_new: int,
     return reqs
 
 
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> Dict:
+    """Serve the command line's scenario (``argv``: its arguments, the
+    process's by default); prints and returns the summary."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-8b")
     ap.add_argument("--requests", type=int, default=8)
@@ -128,7 +130,7 @@ def main() -> None:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = reduced(ARCHS[args.arch])
@@ -153,7 +155,7 @@ def main() -> None:
                 prefix_cache=args.share_prefix,
                 between_rounds=commit_base_first)
     engine = out["engine"]
-    print(json.dumps({
+    summary = {
         "device": str(dev), "requests": len(out["results"]),
         "tokens": out["tokens"], "seconds": out["seconds"],
         "engine_stats": engine.stats,
@@ -161,9 +163,11 @@ def main() -> None:
         "launches_by_kind": engine.cache.queue.launches_by_kind,
         "ops_saved_by_sharing": engine.cache.queue.saved_by_kind,
         "pages_in_use_at_end": engine.cache.pages_in_use,
-    }, indent=1))
+    }
+    print(json.dumps(summary, indent=1))
     for rid in sorted(out["results"])[:4]:
         print(rid, out["results"][rid][:10])
+    return dict(summary, results=out["results"])
 
 
 if __name__ == "__main__":

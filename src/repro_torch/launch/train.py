@@ -18,17 +18,19 @@ Data parallelism (``--data-axis N`` with ``--backend gloo|nccl``):
 ``launch.mesh.run_ranks`` starts N ranks on this host under a time
 limit (``--rank-timeout``), one process each, over the named backend
 (NCCL takes one card a rank and refuses more ranks than cards; gloo
-runs on the CPU, or shares the card).  Every rank draws the same
-weights, keeps the parameters and optimizer state replicated, takes
-its contiguous block of ``SyntheticLM``'s global batch, and the train
-step sums the ranks' gradients in float32 with one ``all_reduce``
-before the clip (``training/train_step``), so the losses are those of
-the global batch.  Rank 0 writes the checkpoints (the one-device
-layout) and prints; the ``Supervisor`` runs on every rank, so an
-injected failure restarts every rank from the checkpoint rank 0 wrote.
-The JAX launcher's ZeRO-3 layout (``sharding_env(mesh, fsdp=True)``:
-parameters and optimizer state split over the data axis) is not ported:
-it changes where the state lives, not the numbers.
+runs on the CPU, or shares the card).  As the JAX launcher does, every
+rank trains under ``sharding_env(mesh, fsdp=True)``: the ZeRO-3 layout,
+each leaf of the parameters and of the optimizer state this rank's
+slice of its FSDP dim (drawn whole from the same seed, then cut), the
+forward gathering each leaf where it is used and the backward
+reduce-scattering its gradient (``training/train_step``).  Each rank
+takes its contiguous block of ``SyntheticLM``'s global batch, and the
+ranks' gradients are summed in float32 weighted by their token counts
+before the clip, so the losses are those of the global batch.  Every
+rank joins a checkpoint's gathers, one leaf at a time, and rank 0
+writes it in the one-device layout; a restart reads it back into each
+rank's slices.  Rank 0 prints; the ``Supervisor`` runs on every rank,
+so an injected failure restarts every rank from the checkpoint.
 ``compressed_grad_sync`` (``distributed/compression``) is a library
 function, as in the JAX package, which the launcher does not call.
 ``main(argv)`` returns the printed summary with the loss of every step
@@ -51,25 +53,30 @@ from repro_torch.configs import (ARCHS, OptimizerConfig, ParallelConfig,
                                  ShapeConfig, reduced)
 from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import sharding_env
 from repro_torch.launch.mesh import make_local_mesh, run_ranks
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_params, param_count
 from repro_torch.runtime.fault_tolerance import FailureInjector, Supervisor
-from repro_torch.training.train_step import make_train_step
+from repro_torch.training.train_step import make_train_step, state_shards
 
 
 class _RankCheckpointer:
-    """A rank's view of the one checkpoint directory: rank 0 writes,
+    """A rank's view of the one checkpoint directory: rank 0 writes
+    (every rank joins the gathers of a ZeRO-3 state's ``shards``),
     every rank reads, and :meth:`wait` (the ``Supervisor`` calls it
     before a restart reads the latest step, and at the end) lets no
     rank past until rank 0's writes have landed."""
 
-    def __init__(self, ckpt: Checkpointer, mesh) -> None:
+    def __init__(self, ckpt: Checkpointer, mesh, shards=None) -> None:
         self.ckpt = ckpt
         self.mesh = mesh
+        self.shards = shards
 
     def save(self, step: int, state) -> None:
-        if self.mesh.rank == 0:
+        if self.shards is not None:
+            self.ckpt.save(step, state, shards=self.shards)
+        elif self.mesh.rank == 0:
             self.ckpt.save(step, state)
 
     def wait(self) -> None:
@@ -80,7 +87,7 @@ class _RankCheckpointer:
         return self.ckpt.latest_step()
 
     def load(self, state):
-        return self.ckpt.load(state)
+        return self.ckpt.load(state, shards=self.shards)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -141,7 +148,15 @@ def _train_rank(rank: int, world: int, args, ckpt_dir: str) -> Dict:
 
 
 def _train(args, ckpt_dir: str, mesh=None) -> Dict:
-    """The training run of one process (one rank of ``mesh``)."""
+    """The training run of one process (one rank of ``mesh``, under the
+    ZeRO-3 layout)."""
+    if mesh is None:
+        return _run(args, ckpt_dir)
+    with sharding_env(mesh, fsdp=True):
+        return _run(args, ckpt_dir, mesh)
+
+
+def _run(args, ckpt_dir: str, mesh=None) -> Dict:
     dev = resolve_device(args.device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -162,9 +177,12 @@ def _train(args, ckpt_dir: str, mesh=None) -> Dict:
     say(f"arch={cfg.name} params={param_count(defs):,} device={dev} "
         f"ranks={world}")
     params = init_params(defs, torch.Generator(device=dev).manual_seed(0),
-                         dev, torch.float32)
+                         dev, torch.float32, mesh=mesh)
     init_state, step_fn = make_train_step(cfg, pcfg, ocfg, mesh=mesh)
     state = init_state(params)
+    del params
+    shards = (state_shards(state, step_fn.layout)
+              if step_fn.layout is not None else None)
 
     data = SyntheticLM(cfg, shape, PipelineConfig(seed=1))
     per = args.batch // world
@@ -177,10 +195,10 @@ def _train(args, ckpt_dir: str, mesh=None) -> Dict:
     ckpt = Checkpointer(ckpt_dir)
     start = 0
     if args.resume and ckpt.latest_step() is not None:
-        state, start = ckpt.load(state)
+        state, start = ckpt.load(state, shards=shards)
         say(f"resumed from step {start}")
     if mesh is not None:
-        ckpt = _RankCheckpointer(ckpt, mesh)
+        ckpt = _RankCheckpointer(ckpt, mesh, shards)
 
     sup = Supervisor(ckpt, ckpt_every=args.ckpt_every,
                      injector=FailureInjector(fail_at=args.fail_at))

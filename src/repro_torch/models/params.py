@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import (local_shape, local_slice,
+from repro_torch.distributed.sharding import (env, local_shape, local_slice,
                                               resolve_spec, sharding_env)
 
 
@@ -82,7 +82,11 @@ def init_params(defs: Any, generator: torch.Generator,
     ``generator``, which must live on that device.  The values are drawn
     on the device itself, so a full-width model never passes through
     host memory.  The draws differ from ``jax.random``'s for the same
-    seed; compare the packages through :func:`from_jax_params`."""
+    seed; compare the packages through :func:`from_jax_params`.  With
+    ``mesh`` each leaf is drawn whole and this rank keeps its block:
+    the tensor-parallel serving layout (:func:`param_specs_for_mesh`),
+    or, inside ``sharding_env(mesh, fsdp=True)``, the ZeRO-3 training
+    layout (:func:`param_specs`), as the JAX launcher resolves it."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator lives on {generator.device}, "
@@ -97,8 +101,12 @@ def init_params(defs: Any, generator: torch.Generator,
                           device=dev)
         return out.mul_(_std(d))
 
-    specs = dict(tree_leaves(param_specs_for_mesh(defs, mesh))) \
-        if mesh is not None else {}
+    specs = {}
+    if mesh is not None:
+        e = env()
+        specs = dict(tree_leaves(
+            param_specs(defs) if e.mesh is mesh and e.fsdp
+            else param_specs_for_mesh(defs, mesh)))
 
     def keep(path: str, t: torch.Tensor) -> torch.Tensor:
         if mesh is None:

@@ -39,8 +39,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import resolve_spec
+from repro_torch.distributed.sharding import (current_layout, gather_params,
+                                              resolve_spec)
 from . import attention as attn_mod
+from . import layers as _layers
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .attention import attn_defs
@@ -221,7 +223,16 @@ def cache_pspecs(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _run_sublayer(cfg, pcfg, kind, p, x, positions, *, mode, cache,
-                  write_pos, lengths, memory, causal):
+                  write_pos, lengths, memory, causal, tp=None):
+    """One pre-normed sublayer; returns (x, new cache, aux).  With ``tp``
+    (the serving engine's tensor-parallel collectives) ``p`` holds this
+    rank's slices: the attention's heads and KV heads (its cache the
+    rank's KV-head slice) and the MLP's hidden units, whose row-parallel
+    outputs (``wo``, the down projection) are summed over the model
+    axis, as in the engine's fused steps."""
+    if tp is not None and kind not in ("attn", "mlp"):
+        raise NotImplementedError(f"sublayer kind {kind!r} under a mesh: "
+                                  "the engine serves dense layers there")
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "mla":
@@ -247,6 +258,8 @@ def _run_sublayer(cfg, pcfg, kind, p, x, positions, *, mode, cache,
         new_cache = None
     else:
         raise ValueError(kind)
+    if tp is not None:
+        out = tp.psum(out)
     return x + out, new_cache, aux
 
 
@@ -261,15 +274,20 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
-               write_pos, lengths, memory, causal):
-    """One stacked layer group, a Python loop over its layers.  Each
-    layer's cache is a view of the stacked ``gcache``; a sublayer that
-    returns new cache tensors (an SSM's final state, a cross-attention
-    prefill's memory k/v) has them copied into that view.  While autograd
-    records (train, features), each layer's body is rematerialised as
-    ``pcfg.remat`` says: "full" saves only its inputs, "dots" also its
-    products without batch dims, "none" everything.  Returns (x, gcache
-    or None, the summed aux loss)."""
+               write_pos, lengths, memory, causal, gname="group0",
+               tp=None):
+    """One stacked layer group (``params[gname]``), a Python loop over
+    its layers.  Each layer's cache is a view of the stacked ``gcache``;
+    a sublayer that returns new cache tensors (an SSM's final state, a
+    cross-attention prefill's memory k/v) has them copied into that
+    view.  While autograd records (train, features), each layer's body
+    is rematerialised as ``pcfg.remat`` says: "full" saves only its
+    inputs, "dots" also its products without batch dims, "none"
+    everything.  Under a ZeRO-3 layout (``sharding.gathering``) the body
+    first gathers its layer's leaves, so a recompute gathers them again
+    and only one layer is ever whole.  ``tp``: see
+    :func:`_run_sublayer`.  Returns (x, gcache or None, the summed aux
+    loss)."""
     leaf = gparams
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
@@ -281,6 +299,9 @@ def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
         x.requires_grad
         or any(t.requires_grad for _, t in tree_leaves(gparams)))
     remat = pcfg.remat if records else "none"
+    # read while the forward runs: a recompute runs inside the backward,
+    # on autograd's device thread for CUDA tensors
+    layout = current_layout()
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(leaf.shape[0]):
         p_layer = tree_map(lambda t: t[li], layers)
@@ -291,10 +312,16 @@ def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
                 view = None
                 if gcache and key in gcache:
                     view = tuple(c[li] for c in gcache[key])
+                # a dense sublayer casts each of its leaves to the compute
+                # dtype first (its norm to the stream's), so they gather in it
+                p = p_layer[key] if layout is None else layout.gather_tree(
+                    p_layer[key], f"{gname}/{key}", lead=1,
+                    dtype=(_layers.COMPUTE_DTYPE if k in ("attn", "mlp")
+                           else None))
                 x, nc, aux = _run_sublayer(
-                    cfg, pcfg, k, p_layer[key], x, positions, mode=mode,
+                    cfg, pcfg, k, p, x, positions, mode=mode,
                     cache=view, write_pos=write_pos, lengths=lengths,
-                    memory=memory, causal=causal)
+                    memory=memory, causal=causal, tp=tp)
                 if view is not None and nc is not None:
                     for dst, src in zip(view, nc):
                         if src.data_ptr() != dst.data_ptr():
@@ -320,15 +347,27 @@ def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
 # --------------------------------------------------------------------- #
 
 
-def _input_embed(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
-    """Token (and stub-frontend patch) embedding; returns (x,
-    positions)."""
-    x = embed(params["embed"], batch["tokens"], cfg)
+def _input_embed(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                 tp=None):
+    """Token (and stub-frontend patch) embedding, vocab-parallel with
+    ``tp``; returns (x, positions)."""
+    if tp is not None:
+        x = tp.embed(params["embed"], batch["tokens"], cfg)
+    else:
+        # whole, in its own dtype: the lookup's backward sums a token's
+        # rows in the table's dtype
+        tok = gather_params(params["embed"]["tok"], "embed/tok")
+        x = embed({"tok": tok}, batch["tokens"], cfg)
     if cfg.num_patch_tokens and "patch_embeds" in batch \
             and cfg.family != "encdec":
+        if tp is not None:
+            raise NotImplementedError("patch embeddings under a mesh: the "
+                                      "engine serves the vlm family "
+                                      "text-only")
         # the JAX einsum promotes the bf16 weights to the embeds' float32
+        proj = gather_params(params["patch_proj"], "patch_proj")
         pe = cast(torch.einsum("bpe,ed->bpd", batch["patch_embeds"].float(),
-                               cast(params["patch_proj"]).float()))
+                               cast(proj).float()))
         x = torch.cat([pe, x], dim=1)
     positions = batch.get("positions")
     if positions is None:
@@ -338,22 +377,35 @@ def _input_embed(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 
 
 def _encoder(cfg, pcfg, params, batch):
+    proj = gather_params(params["frame_proj"], "frame_proj")
     frames = cast(torch.einsum("bse,ed->bsd", batch["frames"].float(),
-                               cast(params["frame_proj"]).float()))
+                               cast(proj).float()))
     pos = torch.arange(frames.shape[1], dtype=torch.int32,
                        device=frames.device).expand(frames.shape[:2])
     _, kinds = layer_groups(cfg)[0]
     h, _, _ = _run_group(cfg, pcfg, kinds, params["group0"], frames, pos,
                          mode="train", gcache=None, write_pos=None,
                          lengths=None, memory=None, causal=False)
-    return rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
+    return rmsnorm(h, gather_params(params["enc_final_norm"],
+                                    "enc_final_norm"), cfg.norm_eps)
+
+
+def _logits(cfg: ModelConfig, pcfg: ParallelConfig, params,
+            x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Output logits over the output table (the tied token table where
+    there is none), vocab-parallel with ``tp``."""
+    if tp is not None:
+        return tp.logits(params["embed"], x, cfg, fp32=pcfg.logits_fp32)
+    key = "out" if "out" in params["embed"] else "tok"
+    table = gather_params(params["embed"][key], f"embed/{key}")
+    return logits_out({"tok": table}, x, cfg, fp32=pcfg.logits_fp32)
 
 
 def forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
             batch: Dict[str, torch.Tensor], *, mode: str,
             cache: Optional[Dict[str, Any]] = None,
             write_pos: Optional[int] = None,
-            lengths: Optional[torch.Tensor] = None):
+            lengths: Optional[torch.Tensor] = None, tp=None):
     """The unified forward.
 
     train:    returns (logits, aux)
@@ -363,11 +415,19 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
 
     ``cache`` (from :func:`init_cache`) is written in place and returned;
     ``write_pos`` is the decode token's cache position, ``lengths`` the
-    valid lengths (decode: including the token decoded)."""
+    valid lengths (decode: including the token decoded).
+
+    ``params`` may be this rank's slices: under a ZeRO-3 layout
+    (``sharding.gathering``) each leaf is gathered where it is used;
+    with ``tp`` (the serving engine's tensor-parallel collectives, dense
+    layers only) the weights stay sliced, heads and KV heads local (the
+    cache holds the rank's KV-head slice), the row-parallel outputs
+    summed and the embedding and logits vocab-parallel, as the engine's
+    fused steps run them."""
     memory = None
     if cfg.family == "encdec" and mode != "decode":
         memory = _encoder(cfg, pcfg, params, batch)
-    x, positions = _input_embed(cfg, params, batch)
+    x, positions = _input_embed(cfg, params, batch, tp)
     if mode == "decode" and lengths is not None:
         # lengths count the context including the token decoded, whose
         # position is therefore lengths - 1
@@ -382,20 +442,17 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
         x, ngc, aux = _run_group(
             cfg, pcfg, kinds, params[gname], x, positions, mode=mode,
             gcache=(cache or {}).get(gname), write_pos=write_pos,
-            lengths=lengths, memory=memory, causal=True)
+            lengths=lengths, memory=memory, causal=True, gname=gname, tp=tp)
         if ngc is not None:
             new_cache[gname] = ngc
         aux_total = aux_total + aux
 
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = rmsnorm(x, gather_params(params["final_norm"], "final_norm",
+                                 dtype=x.dtype), cfg.norm_eps)
     if mode == "features":
         return x, aux_total
     if mode == "train":
-        return logits_out(params["embed"], x, cfg,
-                          fp32=pcfg.logits_fp32), aux_total
+        return _logits(cfg, pcfg, params, x, tp), aux_total
     if mode == "prefill":
-        logits = logits_out(params["embed"], x[:, -1:], cfg,
-                            fp32=pcfg.logits_fp32)
-        return logits, new_cache, aux_total
-    return logits_out(params["embed"], x, cfg,
-                      fp32=pcfg.logits_fp32), new_cache
+        return _logits(cfg, pcfg, params, x[:, -1:], tp), new_cache, aux_total
+    return _logits(cfg, pcfg, params, x, tp), new_cache

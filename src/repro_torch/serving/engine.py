@@ -100,14 +100,15 @@ in one loop (:func:`_run_kinds`):
 * Mamba sublayers carry per-sequence recurrent state in the cache's
   :class:`~repro_torch.serving.kv_cache.PagedStateArena`: each gathers
   its rows of the batch, runs, and keeps its new state; after the
-  forward, ONE ``state_scatter`` launch per arena (conv window, SSD
-  state) writes the whole depth for the batch's unique real rows.  A
+  forward, ONE ``state_scatter`` launch over both arenas (conv window,
+  SSD state) writes the whole depth for the batch's unique real rows.  A
   mixed round scatters its chunk half's state before the decode half
   gathers, and a K-block's dead row writes its old state back;
 * MoE sublayers route through the exact dense MoE (every token through
   every expert), as a host-local JAX engine does;
 * the eager oracle writes its round's state through the op queue's
-  ``ssm_state_write`` kind (one flush, ``state_scatter`` per arena).
+  ``ssm_state_write`` kind (one flush, one ``state_scatter`` launch
+  over both arenas, which the queue counts as two, as JAX does).
 
 Chunked prefill over Mamba layers splits prompts at multiples of
 ``cfg.ssm.chunk_size`` (the SSD chunk scan regroups exactly only
@@ -148,9 +149,11 @@ logits, so every rank picks the same token.  Over NCCL the collectives
 are captured inside each step's CUDA graph; gloo's run on the host and
 cannot be captured, so a gloo mesh on the card needs
 ``cuda_graphs=False``.  Under a mesh the engine serves dense layouts
-only (``ValueError`` for SSM and MoE, as the JAX engine refuses them),
-and the eager prefill oracle (``fused_prefill=False``), which the JAX
-package runs on global arrays, raises ``NotImplementedError``.
+only (``ValueError`` for SSM and MoE, as the JAX engine refuses them).
+The eager prefill oracle (``fused_prefill=False``), which the JAX
+package runs on global arrays, runs the dense forward on the rank's
+slices with the same collectives (``transformer.forward(tp=)``), its
+dense cache the rank's KV-head slice.
 
 Not served (``ValueError``, as the JAX package raises): MLA attention
 and multi-group layouts.
@@ -158,6 +161,7 @@ and multi-group layouts.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -261,7 +265,7 @@ class PagedEngine:
         if compressed_collectives and mesh is None:
             raise ValueError("compressed_collectives requires mesh=")
         if mesh is not None:
-            self._check_mesh(cfg, mesh, fused_prefill)
+            self._check_mesh(cfg, mesh)
         if max_prefill_chunk is not None and max_prefill_chunk < 1:
             raise ValueError("max_prefill_chunk must be >= 1 (or None to "
                              "disable chunked prefill)")
@@ -341,8 +345,7 @@ class PagedEngine:
         self._steps = StepCache(self.device, capture=cuda_graphs,
                                 stats=self.stats, arenas=self._arenas)
 
-    def _check_mesh(self, cfg: ModelConfig, mesh, fused_prefill: bool
-                    ) -> None:
+    def _check_mesh(self, cfg: ModelConfig, mesh) -> None:
         """The JAX engine's refusals of a mesh it cannot serve."""
         if self._has_ssm or self._has_moe:
             raise ValueError(
@@ -362,12 +365,6 @@ class PagedEngine:
                 # steps' sums would then count that path N times
                 raise ValueError(f"model dims {bad} not divisible by mesh "
                                  f"model axis {n}")
-        if not fused_prefill:
-            raise NotImplementedError(
-                "fused_prefill=False under a mesh: the eager prefill oracle "
-                "runs the dense forward on global arrays in the JAX package "
-                "and is not ported to per-rank slices (ROADMAP Queue 1, "
-                "item 13)")
 
     # ----------------------------- API -------------------------------- #
 
@@ -531,11 +528,13 @@ class PagedEngine:
     def _prefill(self, req: Request) -> None:
         """The eager per-request prefill, the fused path's oracle (the JAX
         engine's ``_prefill``): the dense :func:`~repro_torch.models.
-        transformer.forward` over the prompt into a fresh dense cache,
+        transformer.forward` over the prompt into a fresh dense cache
+        (under a mesh on this rank's slices, the cache its KV-head
+        slice, with the fused steps' collectives),
         then the prompt's KV past any shared prefix through the op queue
         (one ``kv_write`` flush: a ``kv_scatter`` launch), on Mamba
         layers the final state through the ``ssm_state_write`` kind
-        (one flush: ``state_scatter`` per arena, accounted as one
+        (one flush: one ``state_scatter`` launch, accounted as one
         ``eager_ssm_layer`` launch per Mamba layer), and the first token
         through :meth:`_choose`, one draw per request."""
         seq = self.cache.create(req.req_id, len(req.prompt),
@@ -543,11 +542,18 @@ class PagedEngine:
                                 shared_len=req.shared_len, tokens=req.prompt)
         start = seq.shared_prefix_pages * self.cache.page_size
         n = len(req.prompt)
-        cache = T.init_cache(self.cfg, 1, n, device=self.device)
+        cfg = self.cfg
+        if self._tp is not None:
+            # the dense cache holds this rank's KV-head slice, what its
+            # arenas store
+            cfg = dataclasses.replace(
+                cfg, num_kv_heads=cfg.num_kv_heads // self._tp.world)
+        cache = T.init_cache(cfg, 1, n, device=self.device)
         logits, dense, _ = T.forward(
             self.cfg, self.pcfg, self.params,
             {"tokens": self._tensor(np.asarray(req.prompt)[None])},
-            mode="prefill", cache=cache, lengths=self._tensor([n]))
+            mode="prefill", cache=cache, lengths=self._tensor([n]),
+            tp=self._tp)
         g = dense["group0"]
         for key in (k for k in g if k.endswith("_attn")):
             k, v = g[key]                       # (L, 1, n, kvh, hd)
@@ -1243,6 +1249,16 @@ class _TP:
             return psum_compressed(x, self.mesh, "model")
         return self.psum(x)
 
+    # the vocab-parallel ends of the dense forward (``transformer.forward
+    # (tp=)``, the eager prefill oracle under a mesh)
+    def embed(self, p, tokens: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+        return _embed_tokens(p, tokens, cfg, self)
+
+    def logits(self, p, x: torch.Tensor, cfg: ModelConfig,
+               fp32: bool = True) -> torch.Tensor:
+        return _logits_reduce(p, x, cfg, self, fp32)
+
 
 def _embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
                   tp: Optional[_TP] = None) -> torch.Tensor:
@@ -1321,12 +1337,13 @@ class _StateRound:
     row in (G, M, Bp, ...) buffers, row ``b`` holding the new state of
     row ``rowmap[b]`` (pad rows duplicate row 0, so they carry row 0's
     state bit for bit).  :meth:`scatter` then writes the whole depth
-    with ONE ``state_scatter`` launch per arena, the pad rows' duplicate
-    writes carrying identical payloads.  That is the JAX package's
-    in-scan row set: each sublayer reads its rows once, before anything
-    writes them.  ``alive`` (a K-block's row mask) makes a dead row keep
-    its old state, as its KV slot does.  Nothing here depends on the
-    count of real rows, so a captured step serves its whole bucket."""
+    with ONE ``state_scatter`` launch over both arenas, the pad rows'
+    duplicate writes carrying identical payloads.  That is the JAX
+    package's in-scan row set: each sublayer reads its rows once, before
+    anything writes them.  ``alive`` (a K-block's row mask) makes a dead
+    row keep its old state, as its KV slot does.  Nothing here depends
+    on the count of real rows, so a captured step serves its whole
+    bucket."""
 
     def __init__(self, arena: PagedStateArena, rows: torch.Tensor,
                  rowmap: torch.Tensor,
@@ -1368,9 +1385,10 @@ class _StateRound:
         return out
 
     def scatter(self) -> None:
-        """Write the whole depth's new rows: one launch per arena."""
-        ssm_ops.state_scatter_inline(self.conv, self.rows, self.new_conv)
-        ssm_ops.state_scatter_inline(self.ssm, self.rows, self.new_ssm)
+        """Write the whole depth's new rows of both arenas: one
+        launch."""
+        ssm_ops.state_scatter_pair_inline(self.conv, self.ssm, self.rows,
+                                          self.new_conv, self.new_ssm)
 
 
 def _plan(pages, slots, src):

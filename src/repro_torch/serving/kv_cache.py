@@ -112,9 +112,9 @@ class PagedStateArena:
 
     Mutations route through the owning cache's op queue under three
     kinds, each flushed as one launch per arena whatever the depth or
-    batch (``state_copy`` as one launch over both, accounted as two):
-    ``ssm_state_write`` (the eager round's state write, through
-    the ``state_scatter`` kernel), ``state_copy`` (copy-on-fork) and
+    batch (``state_copy`` and ``ssm_state_write`` as one launch over
+    both, accounted as two): ``ssm_state_write`` (the eager round's
+    state write, through the ``state_scatter`` kernel), ``state_copy`` (copy-on-fork) and
     ``state_init`` (init-on-free, so a fresh slot is zero and no request
     sees another's state).  Hazard rows are ``("state", slot)`` tuples,
     which never collide with KV page ids: a fork's ``state_copy`` that
@@ -155,15 +155,17 @@ class PagedStateArena:
     # -- queue flush executors (arena-bound; the KV arenas pass through)
 
     def _flush_write(self, q, arenas, ops: List[StateWriteBatch]):
-        rows = upload_index([r for o in ops for r in o.rows],
-                            self.num_slots, "state row", self.ssm.device)
+        # host rows: they travel in the launch's parameters
+        rows = [r for o in ops for r in o.rows]
         if len(ops) == 1:
             conv, ssm = ops[0].conv, ops[0].ssm
         else:
             conv = torch.cat([o.conv for o in ops], dim=2)
             ssm = torch.cat([o.ssm for o in ops], dim=2)
-        ssm_ops.state_scatter_inline(self.conv, rows, conv)
-        ssm_ops.state_scatter_inline(self.ssm, rows, ssm)
+        # one launch over both arenas; accounted as two, one per arena,
+        # as the JAX package counts them
+        ssm_ops.state_scatter_pair_inline(self.conv, self.ssm, rows, conv,
+                                          ssm)
         q._count_launch("ssm_state_write", 2)
         return arenas
 

@@ -42,11 +42,21 @@ def lr_schedule(ocfg: OptimizerConfig
     return fn
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, layout=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the
-    leaves summed in the reference's order (sorted keys)."""
-    return torch.sqrt(sum(x.float().square().sum()
-                          for _, x in tree_leaves(tree)))
+    leaves summed in the reference's order (sorted keys).  Under a
+    ZeRO-3 ``layout`` (``distributed.sharding.ZeroLayout``) the split
+    leaves' squares are summed over its axis first, the whole leaves'
+    counted once."""
+    if layout is None:
+        return torch.sqrt(sum(x.float().square().sum()
+                              for _, x in tree_leaves(tree)))
+    split = [x.float().square().sum() for p, x in tree_leaves(tree)
+             if layout.dims[p] is not None]
+    whole = [x.float().square().sum() for p, x in tree_leaves(tree)
+             if layout.dims[p] is None]
+    total = layout.psum(torch.stack(split).sum()) if split else 0.0
+    return torch.sqrt(total + sum(whole))
 
 
 def _write(dst: torch.Tensor, val32: torch.Tensor) -> None:
@@ -57,11 +67,12 @@ def _write(dst: torch.Tensor, val32: torch.Tensor) -> None:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Any, max_norm: float
+def clip_by_global_norm(grads: Any, max_norm: float, layout=None
                         ) -> Tuple[Any, torch.Tensor]:
     """Scale ``grads`` in place so their global norm is at most
-    ``max_norm``; returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    ``max_norm``; returns (grads, the norm before clipping).  ``layout``:
+    see :func:`global_norm`."""
+    norm = global_norm(grads, layout)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for _, g in tree_leaves(grads):
         _write(g, g.float().mul_(scale))
@@ -136,29 +147,45 @@ def _fac_of(fac: Any, path: str) -> Dict[str, torch.Tensor]:
 
 @torch.no_grad()
 def adafactor_update(params: Any, grads: Any, opt: Dict[str, Any],
-                     ocfg: OptimizerConfig):
+                     ocfg: OptimizerConfig, layout=None):
     """One Adafactor step (update clipping d = 1); ``params`` and ``opt``
-    are updated in place and returned as (params, opt)."""
+    are updated in place and returned as (params, opt).  Under a ZeRO-3
+    ``layout`` each leaf is this rank's slice of its split dim: a mean
+    over that dim (a factored moment's, the update's RMS) sums over the
+    layout's axis, and the factors keep the dims that are not reduced
+    (``train_step.state_shards`` names them)."""
     step = opt["step"] + 1
     lr = lr_schedule(ocfg)(step)
     beta2 = 1.0 - step.float() ** -0.8
     eps = 1e-30
+
+    def mean(x, dim, split, keepdim=False):
+        """``x.mean(dim)``, over every rank's slice when ``split``."""
+        if not split:
+            return x.mean(dim=dim, keepdim=keepdim)
+        total = layout.psum(x.sum(dim=dim, keepdim=keepdim))
+        n = x.numel() if dim is None else x.shape[dim]
+        return total / (n * layout.world)
+
     for (path, p), (_, g) in zip(tree_leaves(params), tree_leaves(grads)):
         s = _fac_of(opt["fac"], path)
+        d = None if layout is None else layout.dims[path]
         g32 = g.float()
         g2 = g32 * g32 + eps
         if p.ndim >= 2:
-            vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(dim=-1)
-            vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(dim=-2)
+            last = p.ndim - 1
+            vr = beta2 * s["vr"] + (1 - beta2) * mean(g2, -1, d == last)
+            vc = beta2 * s["vc"] + (1 - beta2) * mean(g2, -2, d == last - 1)
             rms = (vr[..., None] * vc[..., None, :]) / (
-                vr.mean(dim=-1, keepdim=True)[..., None] + eps)
+                mean(vr, -1, d == last - 1, keepdim=True)[..., None] + eps)
             update = g32 / (torch.sqrt(rms) + 1e-8)
             s["vr"], s["vc"] = vr, vc
         else:
             v = beta2 * s["v"] + (1 - beta2) * g2
             update = g32 / (torch.sqrt(v) + 1e-8)
             s["v"] = v
-        denom = torch.clamp(torch.sqrt((update * update).mean()), min=1.0)
+        denom = torch.clamp(torch.sqrt(mean(update * update, None,
+                                            d is not None)), min=1.0)
         p32 = p.float()
         _write(p, p32 - lr * update / denom - lr * ocfg.weight_decay * p32)
     opt["step"] = step
@@ -166,11 +193,14 @@ def adafactor_update(params: Any, grads: Any, opt: Dict[str, Any],
 
 
 def make_optimizer(ocfg: OptimizerConfig,
-                   state_dtype: torch.dtype = torch.float32):
-    """(init(params), update(params, grads, opt)) for ``ocfg.name``."""
+                   state_dtype: torch.dtype = torch.float32, layout=None):
+    """(init(params), update(params, grads, opt)) for ``ocfg.name``, on
+    a ZeRO-3 ``layout``'s slices where one is given (AdamW is
+    elementwise and needs nothing of it)."""
     if ocfg.name == "adamw":
         return (lambda p: adamw_init(p, state_dtype),
                 lambda p, g, o: adamw_update(p, g, o, ocfg))
     if ocfg.name == "adafactor":
-        return adafactor_init, lambda p, g, o: adafactor_update(p, g, o, ocfg)
+        return adafactor_init, lambda p, g, o: adafactor_update(
+            p, g, o, ocfg, layout)
     raise ValueError(ocfg.name)

@@ -9,25 +9,45 @@ place (see ``training/optimizer.py``).  Gradients are taken with
 views that require grad), so the caller's tensors gain no ``.grad`` and
 no ``requires_grad``.
 
-Data parallel (``mesh=``, one process per rank, parameters and
-optimizer state replicated): each rank takes the gradients of its
-block of the global batch, and one float32 ``all_reduce`` over the
-mesh's data axis, before the clip, sums them weighted by each block's
-token count, together with the loss terms, so the loss, the gradient
-norm and the update are those of the global batch.
+Data parallel (``mesh=``, one process per rank): each rank takes the
+gradients of its block of the global batch, summed over the mesh's data
+axis in float32 before the clip, weighted by each block's token count,
+together with the loss terms, so the loss, the gradient norm and the
+update are those of the global batch.  The layout is chosen as the JAX
+package chooses it, by the active ``sharding_env``:
+
+* replicated (no ``sharding_env``, or ``fsdp=False``): parameters and
+  optimizer state whole on every rank, the gradients summed by one
+  ``all_reduce``;
+* ZeRO-3 (``sharding_env(mesh, fsdp=True)``, the JAX launcher's
+  layout): each leaf of the parameters and of the optimizer state is
+  this rank's slice of the dim the FSDP hint splits
+  (``param_specs``), the others whole.  The forward gathers each leaf
+  where it is used (``sharding.gathering``; a layer's inside its remat
+  body), and the gather's backward reduce-scatters the gradient in
+  float32, each rank's times its token count and the sum divided by
+  the total, which one small ``all_reduce`` gives before the forward;
+  the whole leaves' gradients and the loss terms take the replicated
+  path's ``all_reduce``.  The clip's norm sums the slices' squares over
+  the axis; AdamW runs on the slices as it is; Adafactor sums its
+  factored means over the axis where they reduce the split dim.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig, \
     ParallelConfig
+from repro_torch.distributed.sharding import (StateShards, ZeroLayout, env,
+                                              fsdp_dim, gather_params,
+                                              gathering)
 from repro_torch.models import transformer as T
 from repro_torch.models.lm_head import fused_xent
-from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.params import (param_specs, tree_leaves, tree_map,
+                                       tree_unflatten)
 from .optimizer import clip_by_global_norm, make_optimizer
 
 IGNORE = -100
@@ -53,8 +73,8 @@ def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig):
 
     def loss_fn(params, batch: Dict[str, torch.Tensor]):
         feats, aux = T.forward(cfg, pcfg, params, batch, mode="features")
-        embed = params["embed"]
-        table = embed["out"] if "out" in embed else embed["tok"]
+        key = "out" if "out" in params["embed"] else "tok"
+        table = gather_params(params["embed"][key], f"embed/{key}")
         nll, count = fused_xent(feats, table, batch["labels"])
         loss = nll / torch.clamp(count, min=1)
         total = loss + AUX_WEIGHT * aux
@@ -108,6 +128,52 @@ def _sync_grads(grads, metrics, mesh, axis: str):
     return tree_unflatten(grads, dict(zip(paths, out))), metrics
 
 
+def zero_layout(cfg: ModelConfig, mesh,
+                axis: str = "data") -> Optional[ZeroLayout]:
+    """The ZeRO-3 layout of ``cfg``'s parameters over ``mesh``'s
+    ``axis`` when a ``sharding_env`` with ``fsdp=True`` is active (the
+    JAX launcher's), else None (replicated)."""
+    e = env()
+    if mesh is None or e.mesh is None or not e.fsdp:
+        return None
+    dims = {path: fsdp_dim(spec, axis) for path, spec in
+            tree_leaves(param_specs(T.model_defs(cfg)))}
+    return ZeroLayout(mesh, dims, axis)
+
+
+def state_shards(state, layout: ZeroLayout) -> StateShards:
+    """Each leaf of a training state (``{"params", "opt"}``) by its
+    split dim: a parameter's, AdamW's moments as their parameter,
+    Adafactor's factored moments where they keep the split dim (a row
+    or column mean over it is whole), the step count whole."""
+    dims = {}
+    for path, t in tree_leaves(state):
+        parts = path.split("/")
+        d = None
+        if parts[0] == "params":
+            d = layout.dims["/".join(parts[1:])]
+        elif parts[1] in ("m", "v"):
+            d = layout.dims["/".join(parts[2:])]
+        elif parts[1] == "fac":
+            pd = layout.dims["/".join(parts[2:-1])]
+            nd = t.ndim + (parts[-1] != "v")    # the parameter's rank
+            if pd is None or parts[-1] == "v":
+                d = pd
+            elif parts[-1] == "vr":
+                d = pd if pd < nd - 1 else None
+            else:                               # vc: dims [:-2] + [-1:]
+                d = {nd - 1: nd - 2, nd - 2: None}.get(pd, pd)
+        dims[path] = d
+    return StateShards(layout, dims)
+
+
+def _token_count(labels: torch.Tensor, microbatches: int) -> torch.Tensor:
+    """The loss's token count of this rank's batch as the step's metrics
+    carry it (the microbatches' mean): the labels that are not
+    ``IGNORE``."""
+    return (labels != IGNORE).sum().float() / max(microbatches, 1)
+
+
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                     ocfg: OptimizerConfig,
                     state_dtype: torch.dtype = torch.float32, mesh=None,
@@ -115,11 +181,24 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
     """(init_state(params), train_step(state, batch) -> (state,
     metrics)); metrics are 0-d tensors: loss, aux, tokens, grad_norm.
     With ``mesh`` the step is data parallel over ``data_axis`` (see the
-    module docstring): ``batch`` is this rank's block."""
+    module docstring): ``batch`` is this rank's block.  Under
+    ``sharding_env(mesh, fsdp=True)`` the state is the ZeRO-3 layout's
+    (``train_step.layout``, else None): ``init_state`` cuts whole
+    parameters to this rank's slices (slices are kept as they are)."""
     loss_fn = make_loss_fn(cfg, pcfg)
-    opt_init, opt_update = make_optimizer(ocfg, state_dtype)
+    layout = zero_layout(cfg, mesh, data_axis)
+    opt_init, opt_update = make_optimizer(ocfg, state_dtype, layout)
+    shapes = {path: d.shape for path, d in tree_leaves(T.model_defs(cfg))}
 
     def init_state(params):
+        if layout is not None:
+            def cut(path, t):
+                if tuple(t.shape) != tuple(shapes[path]):
+                    return t
+                return layout.local(t, layout.dims[path]).clone()
+
+            params = tree_unflatten(params, {
+                path: cut(path, t) for path, t in tree_leaves(params)})
         return {"params": params, "opt": opt_init(params)}
 
     def grads_of(params, batch):
@@ -143,14 +222,35 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                      for k, v in metrics.items()}
         return g_acc, m_acc
 
+    def zero_grads(params, batch):
+        """The ZeRO-3 step's gradients: the split leaves' summed by the
+        gathers' backward, the whole leaves' and the loss terms by
+        ``_sync_grads``."""
+        count = _token_count(batch["labels"], pcfg.microbatches)
+        layout.weigh(count, layout.psum(count.clone()))
+        try:
+            with gathering(layout):
+                grads, metrics = grads_of(params, batch)
+        finally:
+            layout.weigh(None, None)
+        flat = dict(tree_leaves(grads))
+        whole = {p: g for p, g in flat.items() if layout.dims[p] is None}
+        whole, metrics = _sync_grads(whole, metrics, mesh, data_axis)
+        flat.update(whole)
+        return tree_unflatten(grads, flat), metrics
+
     def train_step(state, batch):
-        grads, metrics = grads_of(state["params"], batch)
-        if mesh is not None:
-            grads, metrics = _sync_grads(grads, metrics, mesh, data_axis)
-        grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip)
+        if layout is not None:
+            grads, metrics = zero_grads(state["params"], batch)
+        else:
+            grads, metrics = grads_of(state["params"], batch)
+            if mesh is not None:
+                grads, metrics = _sync_grads(grads, metrics, mesh, data_axis)
+        grads, gnorm = clip_by_global_norm(grads, ocfg.grad_clip, layout)
         params, opt = opt_update(state["params"], grads, state["opt"])
         return {"params": params, "opt": opt}, dict(metrics, grad_norm=gnorm)
 
+    train_step.layout = layout
     return init_state, train_step
 
 

@@ -211,8 +211,8 @@ def test_mesh1_owner_is_kv_and_one_dispatch_a_step(model, refs, world1):
 
 def test_mesh_refusals(model):
     """The JAX engine's refusals: compressed collectives without a mesh,
-    SSM or MoE layouts, a mesh without a ``model`` axis; and the eager
-    prefill oracle, which the port does not run on slices."""
+    SSM or MoE layouts, a mesh without a ``model`` axis (the eager
+    prefill oracle under a mesh: ``test_torch_sharded_eager.py``)."""
     _, cfg, _, _, params = model
     with pytest.raises(ValueError, match="mesh"):
         PagedEngine(cfg, params, device="cpu", compressed_collectives=True)
@@ -227,9 +227,6 @@ def test_mesh_refusals(model):
             shape = {"data": 1}
         with pytest.raises(ValueError, match="'model' axis"):
             PagedEngine(cfg, params, device="cpu", mesh=NoModel())
-        with pytest.raises(NotImplementedError, match="item 13"):
-            PagedEngine(cfg, params, device="cpu", mesh=mesh,
-                        fused_prefill=False)
 
 
 # ---------------------------- worlds 2 and 4 --------------------------- #

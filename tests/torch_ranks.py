@@ -246,6 +246,35 @@ def train_step_ranks(rank: int, world: int, cfg, np_params, batch) -> Dict:
             "params": dict(tree_leaves(state["params"]))}
 
 
+def sharded_eager(rank: int, world: int, cfg, np_params,
+                  ref_tokens: List[np.ndarray]) -> Dict:
+    """The main workload through the eager prefill oracle
+    (``fused_prefill=False``) on a ``model`` mesh of ``world`` ranks,
+    teacher-forced by ``ref_tokens``; rank 0 keeps the gathered
+    arenas."""
+    mesh = make_local_mesh(model=world)
+    params = from_jax_params(np_params, "cpu")
+    out = serve(cfg, params, "main", mesh=mesh, ref_tokens=ref_tokens,
+                fused_prefill=False)
+    if rank:
+        out["arenas"] = None
+    return out
+
+
+def round_collectives(rank: int, world: int, cfg, np_params) -> Dict:
+    """The mesh's collective counters over one decode round of the main
+    workload (after its prefill), and the round's padded batch."""
+    mesh = make_local_mesh(model=world)
+    eng = PagedEngine(cfg, from_jax_params(np_params, "cpu"), page_size=PAGE,
+                      num_pages=64, device="cpu", mesh=mesh)
+    for i, p in enumerate(prompts(cfg.vocab_size)):
+        eng.submit(Request(i, p, max_new_tokens=8, temperature=0.0))
+    eng._prefill_round()
+    mesh.reset_collectives()
+    eng._decode_round()
+    return {"bytes": mesh.collective_bytes(), "active": len(eng.active)}
+
+
 def mesh_layout(rank: int, world: int) -> Dict:
     """This rank's coordinates and subgroup sums on a {data: 2, model: 2}
     mesh, and the production mesh's refusal at this world size."""
@@ -274,3 +303,89 @@ def fail_or_hang(rank: int, world: int, how: str) -> None:
         torch.distributed.barrier()
     elif rank == 1:
         time.sleep(600)
+
+
+def zero_steps(rank: int, world: int, cfg, np_params, batches, opt_kw,
+               ckpt_dir: Optional[str] = None, resume: bool = False,
+               save_after: Optional[int] = None, snap_after: int = 1,
+               f32: bool = True) -> Dict:
+    """``make_train_step`` steps under ``sharding_env(mesh, fsdp=True)``
+    (the ZeRO-3 layout) on this rank's block of each of ``batches``, in
+    float32 (``layers.COMPUTE_DTYPE``; bf16 with ``f32=False``, where
+    the dense layers' leaves gather in bf16), beside the replicated
+    data-parallel step on the same blocks from the same weights.
+    Returns the ZeRO step's metrics by step, its state's slices at the
+    end and after ``snap_after`` steps, the replicated state after
+    ``snap_after`` steps cut to the same slices and its metrics, and
+    each state leaf's split dim.  ``ckpt_dir``: with ``save_after`` every rank joins a
+    save of the ZeRO state after that many steps (rank 0 writes the
+    one-device layout); with ``resume`` the ZeRO state is first loaded
+    from the latest checkpoint there and only the batches after it
+    run."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import OptimizerConfig, ParallelConfig
+    from repro_torch.distributed.sharding import sharding_env
+    from repro_torch.models import layers
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.training.train_step import make_train_step, state_shards
+
+    if f32:
+        layers.COMPUTE_DTYPE = torch.float32
+    mesh = make_local_mesh(data=world)
+    params = from_jax_params(np_params, "cpu")
+    pcfg = ParallelConfig(remat="full", attention_impl="naive",
+                          moe_impl="dense")
+    ocfg = OptimizerConfig(**opt_kw)
+    with sharding_env(mesh, fsdp=True):
+        zinit, zstep = make_train_step(cfg, pcfg, ocfg, mesh=mesh)
+    rinit, rstep = make_train_step(cfg, pcfg, ocfg, mesh=mesh)
+    zstate = zinit(tree_map(torch.clone, params))
+    rstate = rinit(tree_map(torch.clone, params))
+    shards = state_shards(zstate, zstep.layout)
+    start = 0
+    if resume:
+        zstate, start = Checkpointer(ckpt_dir).load(zstate, shards=shards)
+    per = batches[0]["tokens"].shape[0] // world
+    out = {"metrics": [], "start": start, "dims": shards.dims}
+    for i, batch in enumerate(batches[start:], start):
+        mine = {k: torch.from_numpy(v[rank * per:(rank + 1) * per])
+                for k, v in batch.items()}
+        zstate, m = zstep(zstate, mine)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if i < snap_after and not resume:
+            rstate, rm = rstep(rstate, mine)
+            out.setdefault("replicated_metrics", []).append(
+                {k: float(v) for k, v in rm.items()})
+        if i + 1 == snap_after:
+            out["snap"] = {p: t.clone() for p, t in tree_leaves(zstate)}
+            out["replicated"] = {p: shards.part(p, t)
+                                 for p, t in tree_leaves(rstate)}
+        if save_after == i + 1:
+            ckpt = Checkpointer(ckpt_dir)
+            ckpt.save(i + 1, zstate, shards=shards)
+            ckpt.wait()
+            mesh.barrier()
+    out["state"] = dict(tree_leaves(zstate))
+    return out
+
+
+def zero_steps_each(rank: int, world: int, cfg, np_params, batches,
+                    opts: Dict[str, Dict]) -> Dict:
+    """:func:`zero_steps` for each optimizer of ``opts`` (name ->
+    ``OptimizerConfig`` keywords), in one rank group."""
+    return {name: zero_steps(rank, world, cfg, np_params, batches, kw)
+            for name, kw in opts.items()}
+
+
+def collectives(rank: int, world: int) -> Dict:
+    """``Mesh.all_gather`` along a dim and ``Mesh.reduce_scatter`` on
+    rank-dependent tensors, and the mesh's byte counters after them."""
+    mesh = make_local_mesh(data=world)
+    x = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4) + 100 * rank
+    out = {"gather1": mesh.all_gather(x, "data", 1),
+           "gather0": mesh.all_gather(x, "data", 0)}
+    full = torch.arange(8 * world * 3, dtype=torch.float32).reshape(
+        3, 8 * world) * (rank + 1)
+    out["scatter"] = mesh.reduce_scatter(full, "data", 1)
+    out["bytes"] = mesh.collective_bytes()
+    return out
