@@ -203,7 +203,21 @@ exits nonzero:
     layers allows, ``ZERO_STEPS`` steps; each rank's collective bytes by
     kind (``Mesh.collective_bytes``); then ``repro_torch.examples.serve_rowclone`` in a subprocess on the
     card.  The ``total`` line gives the whole run's seconds, phase 19's,
-    phases 20-21's and phase 22's.
+    phases 20-21's, phase 22's and phase 23's;
+23. the dry run (``repro_torch.launch.dryrun.trace_cell``, last): two
+    cells traced on the card as rank 0 of their production world under a
+    fake process group, with real tensors at the rank's shapes —
+    gemma-2b ``train_4k`` at ``{"data": 256, "model": 1}`` (ZeRO-3) and
+    minitron-8b ``decode_32k`` at ``{"data": 32, "model": 8}`` (tensor
+    parallel) — each with its peak allocated and reserved bytes above
+    what the process held when the trace began (printed as the
+    baseline) beside the record's argument bytes, ``analytic_memory`` and the card's
+    80 GB, the step's ms (CUDA events; the fake collectives move nothing,
+    so compute only) beside the rank's ``t_compute``, ``t_memory`` and
+    ``t_bound`` from the traced flops and bytes, and the traced
+    collective bytes by kind; the same cells traced on meta tensors must
+    count the same flops and collective bytes.  It prints torch's version
+    and fails if torch has no fake process group.
 
 Every serving phase runs with the engine's default ``cuda_graphs=True``:
 its prefill batches, chunk steps, mixed rounds (two graphs each), decode
@@ -4957,6 +4971,68 @@ def zero_training(dev, card, dp: dict) -> dict:
     return out
 
 
+DRYRUN_CELLS = (("gemma-2b", "train_4k"), ("minitron-8b", "decode_32k"))
+
+
+def dryrun_phase(dev, card) -> dict:
+    """Phase 23: each of ``DRYRUN_CELLS`` traced on the card as rank 0
+    (``launch.dryrun.trace_cell``) and on meta tensors; the card's run
+    must fit, time its step and count the meta trace's flops and
+    collective bytes."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun as D
+    out = {"phase": "dryrun", "torch": torch.__version__,
+           "nvidia_smi": card, "cells": []}
+    for arch, shape in DRYRUN_CELLS:
+        cfg, sh = ARCHS[arch], SHAPES[shape]
+        meta = D.trace_cell(cfg, sh, multi_pod=False, device="meta")
+        rec = D.trace_cell(cfg, sh, multi_pod=False, device=dev)
+        what = f"{arch} {shape}"
+        if "unsupported" in rec or "unsupported" in meta:
+            raise AssertionError(f"{what}: {rec.get('unsupported')} / "
+                                 f"{meta.get('unsupported')}")
+        mem, roof = rec["memory"], rec["roofline"]
+        if not mem.get("fits_hbm_measured"):
+            raise AssertionError(f"{what} did not fit the card: {mem}")
+        if rec["traced"]["flops"] != meta["traced"]["flops"] \
+                or rec["collectives"] != meta["collectives"]:
+            raise AssertionError(f"{what}: card {rec['traced']} "
+                                 f"{rec['collectives']}, meta "
+                                 f"{meta['traced']} {meta['collectives']}")
+        if not (rec["step_ms"] > 0 and np.isfinite(rec["step_ms"])
+                and mem["peak_bytes_per_device"] >= mem["argument_bytes"]):
+            raise AssertionError(f"{what}: step {rec['step_ms']} ms, "
+                                 f"memory {mem}")
+        t_bound = max(roof["t_compute_s"], roof["t_memory_s"])
+        out["cells"].append({
+            "arch": arch, "shape": shape, "layout": rec["layout"],
+            "rank_mesh": rec["rank_mesh"], "batch_local": rec["batch_local"],
+            "microbatches": rec["microbatches"],
+            "attention_chunk": rec["attention_chunk"],
+            "peak_bytes": mem["peak_bytes_per_device"],
+            "peak_reserved_bytes": mem["peak_reserved_bytes"],
+            "baseline_bytes": mem["baseline_bytes"],
+            "baseline_reserved_bytes": mem["baseline_reserved_bytes"],
+            "argument_bytes": mem["argument_bytes"],
+            "analytic_bytes": mem["analytic_bytes_per_device"],
+            "hbm_bytes": mem["hbm_bytes"],
+            "step_ms": rec["step_ms"],
+            "t_compute_ms": roof["t_compute_s"] * 1e3,
+            "t_memory_ms": roof["t_memory_s"] * 1e3,
+            "t_bound_ms": t_bound * 1e3,
+            "step_over_bound": rec["step_ms"] / (t_bound * 1e3),
+            "bottleneck": roof["bottleneck"],
+            "flops": rec["traced"]["flops"],
+            "meta_flops": meta["traced"]["flops"],
+            "bytes": rec["traced"]["bytes"],
+            "meta_bytes": meta["traced"]["bytes"],
+            "aten_ops": rec["traced"]["aten_ops"],
+            "collectives": rec["collectives"],
+            "collective_counts": rec["collective_counts"],
+            "trace_s": rec["trace_s"], "meta_trace_s": meta["trace_s"]})
+    return out
+
+
 def serve_rowclone_example(dev) -> dict:
     """``python -m repro_torch.examples.serve_rowclone`` (the JAX
     package's serving example, the same arguments) in a subprocess on the
@@ -5130,6 +5206,10 @@ def main() -> int:
     emit(zero_training(dev, card, dp))
     zero_s = time.perf_counter() - t22
     emit(serve_rowclone_example(dev))
+    _free_card()
+    t23 = time.perf_counter()
+    emit(dryrun_phase(dev, card))
+    dryrun_s = time.perf_counter() - t23
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -5150,7 +5230,7 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "training_seconds": train_s, "distributed_seconds": dist_s,
-          "zero_seconds": zero_s,
+          "zero_seconds": zero_s, "dryrun_seconds": dryrun_s,
           "nvidia_smi": card})
     print(card, flush=True)
     emit({"kernels": kernels})

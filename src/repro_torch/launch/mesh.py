@@ -17,7 +17,9 @@ that axis's subgroup.
   subgroup, count their bytes and calls by kind
   (:meth:`Mesh.collective_bytes`), on CPU tensors over
   gloo and on CUDA tensors over NCCL or gloo (gloo copies them through
-  the host itself).
+  the host itself).  A collective over an axis of one rank runs but
+  is not counted (XLA drops such collectives, so the counts stay the
+  JAX package's).
 * :func:`run_ranks` starts ``world`` ranks on this host, each in a
   fresh spawned process that joins the group through a ``FileStore`` in
   a new temporary directory (so concurrent rank groups never collide on
@@ -109,7 +111,9 @@ class Mesh:
 
     # -- collectives over one axis ------------------------------------- #
 
-    def _count(self, kind: str, out: torch.Tensor) -> None:
+    def _count(self, kind: str, out: torch.Tensor, axis: str) -> None:
+        if self.shape[axis] == 1:
+            return
         self._bytes[kind] += out.numel() * out.element_size()
         self._calls[kind] += 1
 
@@ -132,7 +136,7 @@ class Mesh:
         rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                "max": dist.ReduceOp.MAX}[op]
         dist.all_reduce(x, rop, group=self._groups[axis])
-        self._count("all-reduce", x)
+        self._count("all-reduce", x, axis)
         return x
 
     def all_to_all_single(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -141,7 +145,7 @@ class Mesh:
         came from coordinate ``i``."""
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x.contiguous(), group=self._groups[axis])
-        self._count("all-to-all", out)
+        self._count("all-to-all", out, axis)
         return out
 
     def all_gather(self, x: torch.Tensor, axis: str,
@@ -155,7 +159,7 @@ class Mesh:
         out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
         _ALL_GATHER(out, x.reshape(-1).contiguous(),
                     group=self._groups[axis])
-        self._count("all-gather", out)
+        self._count("all-gather", out, axis)
         out = out.view((n,) + tuple(x.shape))
         if dim is None:
             return out
@@ -173,7 +177,7 @@ class Mesh:
         out = torch.empty((full.shape[0] // n,) + tuple(full.shape[1:]),
                           dtype=x.dtype, device=x.device)
         _REDUCE_SCATTER(out, full, group=self._groups[axis])
-        self._count("reduce-scatter", out)
+        self._count("reduce-scatter", out, axis)
         return out.movedim(0, dim).contiguous()
 
     def barrier(self) -> None:

@@ -74,6 +74,22 @@ def _std(d: ParamDef) -> float:
     return d.scale / float(np.sqrt(max(fan_in, 1)))
 
 
+def draw_leaf(d: ParamDef, generator: torch.Generator, device: torch.device,
+              dtype: torch.dtype = torch.float32,
+              shape: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """One leaf of ``d``'s scheme on ``device`` (``generator`` lives
+    there), at ``shape`` when given: a rank's block drawn at the block's
+    shape, with the whole leaf's scale, where a whole leaf would not
+    fit."""
+    shape = tuple(d.shape if shape is None else shape)
+    if d.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    out = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    return out.mul_(_std(d))
+
+
 def init_params(defs: Any, generator: torch.Generator,
                 device: DeviceLike = None,
                 dtype: torch.dtype = torch.float32, mesh=None) -> Any:
@@ -92,15 +108,6 @@ def init_params(defs: Any, generator: torch.Generator,
         raise ValueError(f"generator lives on {generator.device}, "
                          f"parameters on {dev}")
 
-    def make(d: ParamDef) -> torch.Tensor:
-        if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=dtype, device=dev)
-        if d.init == "ones":
-            return torch.ones(d.shape, dtype=dtype, device=dev)
-        out = torch.randn(d.shape, generator=generator, dtype=dtype,
-                          device=dev)
-        return out.mul_(_std(d))
-
     specs = {}
     if mesh is not None:
         e = env()
@@ -114,7 +121,8 @@ def init_params(defs: Any, generator: torch.Generator,
         return local_slice(t, specs[path], mesh).clone()
 
     # draw in the JAX package's leaf order so a seed fixes every leaf
-    flat = {path: keep(path, make(d)) for path, d in tree_leaves(defs)}
+    flat = {path: keep(path, draw_leaf(d, generator, dev, dtype))
+            for path, d in tree_leaves(defs)}
     return tree_unflatten(defs, flat)
 
 

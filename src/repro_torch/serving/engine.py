@@ -354,17 +354,10 @@ class PagedEngine:
         if "model" not in dict(mesh.shape):
             raise ValueError("engine mesh needs a 'model' axis")
         n = mesh.shape["model"]
-        if n > 1:
-            bad = {name: dim for name, dim in
-                   (("num_heads", cfg.num_heads),
-                    ("num_kv_heads", cfg.num_kv_heads),
-                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size))
-                   if dim % n != 0}
-            if bad:
-                # the spec would replicate a non-divisible dim, and the
-                # steps' sums would then count that path N times
-                raise ValueError(f"model dims {bad} not divisible by mesh "
-                                 f"model axis {n}")
+        bad = indivisible_dims(cfg, n)
+        if bad:
+            raise ValueError(f"model dims {bad} not divisible by mesh "
+                             f"model axis {n}")
 
     # ----------------------------- API -------------------------------- #
 
@@ -1229,6 +1222,19 @@ def _select_tokens(logits: torch.Tensor, temps: np.ndarray, seed: Seed,
     cum = torch.cumsum(probs, dim=-1)
     drawn = torch.argmax((cum > u[:, None]).to(torch.uint8), dim=-1)
     return torch.where(upload(temps == 0.0, dev), greedy, drawn)
+
+
+def indivisible_dims(cfg: ModelConfig, n: int) -> Dict[str, int]:
+    """The model dims a tensor-parallel step over a model axis of ``n``
+    ranks cannot split (empty: the engine serves ``cfg`` over it).  The
+    spec would replicate a non-divisible dim, and the steps' sums would
+    then count that path ``n`` times."""
+    if n <= 1:
+        return {}
+    return {name: dim for name, dim in
+            (("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
+             ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size))
+            if dim % n != 0}
 
 
 class _TP:

@@ -268,21 +268,26 @@ def make_eval_step(cfg: ModelConfig, pcfg: ParallelConfig):
 # ----------------------- serve steps (dry-run units) -------------------- #
 
 
-def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig):
+def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, tp=None):
+    """``tp``: the serving engine's tensor-parallel collectives (see
+    ``transformer.forward``); ``params`` and ``cache`` are then this
+    rank's slices."""
     @torch.no_grad()
     def prefill_step(params, batch, cache, lengths):
         logits, new_cache, _ = T.forward(cfg, pcfg, params, batch,
                                          mode="prefill", cache=cache,
-                                         lengths=lengths)
+                                         lengths=lengths, tp=tp)
         return logits, new_cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig):
+def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, tp=None):
+    """``tp``: as :func:`make_prefill_step`."""
     @torch.no_grad()
     def decode_step(params, batch, cache, write_pos, lengths):
         return T.forward(cfg, pcfg, params, batch, mode="decode",
-                         cache=cache, write_pos=write_pos, lengths=lengths)
+                         cache=cache, write_pos=write_pos, lengths=lengths,
+                         tp=tp)
 
     return decode_step

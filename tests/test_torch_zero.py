@@ -25,7 +25,7 @@ one process and in the JAX package's ``Checkpointer`` equal to the
 ranks' slices put together, and two ranks that resume from it take the
 last steps bit for bit as the unbroken run did.  ``Mesh.all_gather``
 along a dim and ``Mesh.reduce_scatter`` (both routes) are held at world
-4.
+4; the collectives over an axis of one rank run and are not counted.
 """
 
 import numpy as np
@@ -248,3 +248,20 @@ def test_gather_and_reduce_scatter_over_four_ranks():
         assert b["all-gather"] == 2 * 4 * 24 * 4
         assert b["reduce-scatter"] == 3 * 8 * 4
         assert b["all-reduce"] == 0
+
+
+def test_one_rank_axis_runs_and_is_not_counted():
+    """A collective over an axis of one rank goes to the backend (its
+    result the input's) and adds nothing to the byte counters, as XLA
+    drops such collectives from the JAX package's counts."""
+    from repro_torch.launch.mesh import make_local_mesh, process_group
+    with process_group("gloo"):
+        mesh = make_local_mesh()
+        x = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+        assert torch.equal(mesh.all_reduce(x.clone(), "model"), x)
+        assert torch.equal(mesh.all_gather(x, "data", 1), x)
+        assert torch.equal(mesh.reduce_scatter(x, "data", 1), x)
+        assert torch.equal(mesh.all_to_all_single(x, "model"), x)
+        b = mesh.collective_bytes()
+    assert set(b.pop("_counts").values()) == {0}
+    assert set(b.values()) == {0}
