@@ -204,12 +204,16 @@ exits nonzero:
     kind (``Mesh.collective_bytes``); then ``repro_torch.examples.serve_rowclone`` in a subprocess on the
     card.  The ``total`` line gives the whole run's seconds, phase 19's,
     phases 20-21's, phase 22's and phase 23's;
-23. the dry run (``repro_torch.launch.dryrun.trace_cell``, last): two
+23. the dry run (``repro_torch.launch.dryrun.trace_cell``, last): four
     cells traced on the card as rank 0 of their production world under a
     fake process group, with real tensors at the rank's shapes —
-    gemma-2b ``train_4k`` at ``{"data": 256, "model": 1}`` (ZeRO-3) and
-    minitron-8b ``decode_32k`` at ``{"data": 32, "model": 8}`` (tensor
-    parallel) — each with its peak allocated and reserved bytes above
+    gemma-2b ``train_4k`` at ``{"data": 256, "model": 1}`` (ZeRO-3),
+    minitron-8b ``decode_32k`` at ``{"data": 32, "model": 8}`` (the
+    engine's tensor-parallel step, forced), and granite-3-8b and
+    llama4-scout-17b-a16e ``decode_32k`` in the JAX rule set's serving
+    layout at ``{"data": 16, "model": 16}`` (granite's vocab and KV
+    heads whole over ``model``, llama4's experts over it) — each with
+    its argument GB and its peak allocated and reserved bytes above
     what the process held when the trace began (printed as the
     baseline) beside the record's argument bytes, ``analytic_memory`` and the card's
     80 GB, the step's ms (CUDA events; the fake collectives move nothing,
@@ -4971,7 +4975,13 @@ def zero_training(dev, card, dp: dict) -> dict:
     return out
 
 
-DRYRUN_CELLS = (("gemma-2b", "train_4k"), ("minitron-8b", "decode_32k"))
+# (arch, shape, the model axis forced onto the engine's tensor-parallel
+# step, or None for the layout the sweep plans: ZeRO-3 for training, the
+# rule set's serving layout otherwise)
+DRYRUN_CELLS = (("gemma-2b", "train_4k", None),
+                ("minitron-8b", "decode_32k", 8),
+                ("granite-3-8b", "decode_32k", None),
+                ("llama4-scout-17b-a16e", "decode_32k", None))
 
 
 def dryrun_phase(dev, card) -> dict:
@@ -4983,10 +4993,12 @@ def dryrun_phase(dev, card) -> dict:
     from repro_torch.launch import dryrun as D
     out = {"phase": "dryrun", "torch": torch.__version__,
            "nvidia_smi": card, "cells": []}
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, model in DRYRUN_CELLS:
         cfg, sh = ARCHS[arch], SHAPES[shape]
-        meta = D.trace_cell(cfg, sh, multi_pod=False, device="meta")
-        rec = D.trace_cell(cfg, sh, multi_pod=False, device=dev)
+        meta = D.trace_cell(cfg, sh, multi_pod=False, device="meta",
+                            model=model)
+        rec = D.trace_cell(cfg, sh, multi_pod=False, device=dev,
+                           model=model)
         what = f"{arch} {shape}"
         if "unsupported" in rec or "unsupported" in meta:
             raise AssertionError(f"{what}: {rec.get('unsupported')} / "
@@ -5014,6 +5026,10 @@ def dryrun_phase(dev, card) -> dict:
             "baseline_bytes": mem["baseline_bytes"],
             "baseline_reserved_bytes": mem["baseline_reserved_bytes"],
             "argument_bytes": mem["argument_bytes"],
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "peak_gb": mem["peak_bytes_per_device"] / 1e9,
+            "peak_reserved_gb": mem["peak_reserved_bytes"] / 1e9,
+            "card_equals_meta": True,
             "analytic_bytes": mem["analytic_bytes_per_device"],
             "hbm_bytes": mem["hbm_bytes"],
             "step_ms": rec["step_ms"],

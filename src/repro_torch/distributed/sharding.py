@@ -22,6 +22,15 @@ gathers them where they are used.  The port does so by hand:
 under :func:`gathering` gathers each leaf where it is used (the
 layers' inside their remat body, so the recompute gathers again), its
 gradient reduce-scattered back to the slice.
+
+The JAX dryrun's serving steps run the whole rule set at once: tensor
+parallelism over ``model`` (with the divisibility fallback), FSDP over
+the batch axes (``("pod", "data")`` on the multi-pod mesh), the batch
+over the batch axes and the decode cache's sequence over ``model``.
+:class:`RuleLayout` is a rank's share of that: its FSDP gather (a
+:class:`ZeroLayout` over the batch axes, no backward needed) and the
+model axis's collectives the layers call where a dim they contract is
+split (``transformer.forward(rules=)``).
 """
 
 from __future__ import annotations
@@ -203,6 +212,15 @@ def fsdp_dim(spec: Spec, axis: str) -> Optional[int]:
     return dim
 
 
+def batch_dim(spec: Spec, batch_axes: Tuple[str, ...]) -> Optional[int]:
+    """The dim a parameter spec splits over the batch axes (the FSDP
+    hint's dim), whatever it splits over ``model``, or None."""
+    for i, entry in enumerate(spec):
+        if _dim_axes(entry) == tuple(batch_axes):
+            return i
+    return None
+
+
 class _Gather(torch.autograd.Function):
     """A leaf's slices all-gathered along its dim, cast to ``dtype``
     first when one is given (the cast commutes with the gather, and a
@@ -247,7 +265,7 @@ class ZeroLayout:
     gradient sum; :meth:`weigh` sets them before a backward."""
 
     def __init__(self, mesh, dims: Dict[str, Optional[int]],
-                 axis: str = "data") -> None:
+                 axis: Union[str, Tuple[str, ...]] = "data") -> None:
         self.mesh = mesh
         self.axis = axis
         self.dims = dict(dims)
@@ -256,7 +274,7 @@ class ZeroLayout:
 
     @property
     def world(self) -> int:
-        return self.mesh.shape[self.axis]
+        return _axes_size(self.mesh, _dim_axes(self.axis))
 
     def weigh(self, count: torch.Tensor,
               total: Optional[torch.Tensor]) -> None:
@@ -354,3 +372,115 @@ class StateShards:
         if dim is not None:
             out[dim] *= self.layout.world
         return tuple(out)
+
+
+# --------------------------------------------------------------------- #
+# The rule set's serving layout (the JAX dryrun's prefill/decode steps)
+# --------------------------------------------------------------------- #
+
+
+class RuleLayout:
+    """One rank's share of the JAX rule set's serving layout on a
+    ``(pod x) data x model`` mesh (``transformer.rule_layout`` builds
+    it): parameters under ``param_specs`` (a dict by leaf path) with the
+    FSDP hint, the batch over the batch axes where it divides them
+    (``batch_shards`` blocks, else whole), the decode cache under
+    ``cache_specs`` (``cache_pspecs``: its sequence over ``model`` where
+    the length divides it).
+
+    ``fsdp`` is the FSDP gather, a :class:`ZeroLayout` over the batch
+    axes whose ``dims`` are each leaf's FSDP dim: a forward under
+    ``sharding.gathering(fsdp)`` gathers a layer's leaves where they are
+    used, so a leaf then holds its ``model`` block only.  The layers
+    read what is split from their leaves' shapes (a dim shorter than the
+    config's is this rank's block over ``model``) and call the model
+    axis's collectives below where a split dim is contracted or a whole
+    one is needed: a path computed whole on every model rank (a dim the
+    fallback leaves whole) is never summed over ``model``.
+    ``max_len`` and ``enc_len`` are the cache's full sequence lengths."""
+
+    def __init__(self, mesh, param_specs: Dict[str, Spec], cache_specs, *,
+                 global_batch: int, max_len: int, enc_len: int = 0) -> None:
+        self.mesh = mesh
+        self.batch_axes: Tuple[str, ...] = tuple(
+            a for a in ("pod", "data") if a in mesh.shape)
+        self.fsdp = ZeroLayout(
+            mesh, {p: batch_dim(s, self.batch_axes)
+                   for p, s in param_specs.items()}, axis=self.batch_axes)
+        self.cache_specs = cache_specs
+        self.model = int(mesh.shape.get("model", 1))
+        self.index = mesh.index("model") if self.model > 1 else 0
+        nb = _axes_size(mesh, self.batch_axes)
+        #: the batch blocks the global batch is cut into (1: whole)
+        self.batch_shards = nb if nb > 1 and global_batch % nb == 0 else 1
+        self.max_len, self.enc_len = max_len, enc_len
+
+    # -- a rank's blocks of whole inputs --------------------------------- #
+
+    def cut_batch(self, batch: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of each whole batch input (``lengths`` too),
+        each a tensor of its own."""
+        i = self.mesh.index(self.batch_axes) if self.batch_shards > 1 else 0
+        n = {k: v.shape[0] // self.batch_shards for k, v in batch.items()}
+        return {k: v.narrow(0, i * n[k], n[k]).clone()
+                for k, v in batch.items()}
+
+    def cut_cache(self, cache):
+        """This rank's blocks of a whole decode cache (``init_cache``'s
+        nested dict of tuples), each a tensor of its own."""
+        def cut(c, sp):
+            if isinstance(c, dict):
+                return {k: cut(c[k], sp[k]) for k in c}
+            return tuple(local_slice(t, s, self.mesh).clone()
+                         for t, s in zip(c, sp))
+        return cut(cache, self.cache_specs)
+
+    # -- the model axis ------------------------------------------------ #
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over ``model`` of a partial result (a split dim
+        contracted)."""
+        return self.mesh.all_reduce(x, "model") if self.model > 1 else x
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(x, "model", op="max") \
+            if self.model > 1 else x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of a tensor split along ``dim`` over ``model``."""
+        dim = dim % x.dim()
+        return self.mesh.all_gather(x, "model", dim) if self.model > 1 \
+            else x
+
+    def whole(self, x: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """``x`` whole along ``dim``: gathered over ``model`` if it is a
+        block of a ``full``-long dim, else as it is."""
+        return self.gather(x, dim) if x.shape[dim] < full else x
+
+    def block(self, full: int) -> Tuple[int, int]:
+        """(first index, length) of this rank's block of a dim of
+        ``full`` over ``model``: the whole dim where it does not divide
+        (``resolve_spec``'s fallback)."""
+        if self.model > 1 and full % self.model == 0:
+            n = full // self.model
+            return self.index * n, n
+        return 0, full
+
+    def seq_block(self, x: torch.Tensor, full: int) -> torch.Tensor:
+        """The positions of this rank's cache block, ``[lo, lo + n)`` of
+        ``full``, of ``x`` (b, s, heads, ...), whose heads are split over
+        ``model`` and whose ``s <= full`` positions start at 0: one
+        all-to-all over ``model`` hands each rank every rank's heads of
+        its positions (zeros past ``s``).  Returns (b, n, all heads,
+        ...)."""
+        lo, n = self.block(full)
+        if n == full:
+            return self.gather(x, 2)
+        b, s = x.shape[:2]
+        if s < full:
+            x = torch.cat([x, x.new_zeros((b, full - s) + x.shape[2:])], 1)
+        parts = x.reshape((b, self.model, n) + x.shape[2:]).movedim(1, 0)
+        got = self.mesh.all_to_all_single(parts.contiguous(), "model")
+        # block i holds coordinate i's heads: heads are i-major
+        return got.movedim(0, 2).reshape((b, n, -1) + x.shape[3:])

@@ -41,20 +41,27 @@ The layouts (the record names its ``layout`` and ``rank_mesh``):
   launcher trains (a model axis would replicate the whole step: the
   port's ``ZeroLayout`` splits the data axis only).  The microbatch
   count is cut to a divisor of the rank's batch.
-* prefill and decode, ``tensor_parallel``: ``{"data": world // m,
-  "model": m}``, m the largest of 16, 8, 4, 2 whose dims the serving
-  engine's tensor-parallel step splits (``engine.indivisible_dims``)
-  and whose sublayers ``forward(tp=)`` runs (attention and MLP, no
-  patch embeddings fed); the step is ``forward(tp=_TP)`` and the cache
-  the rank's KV-head slice.
-* otherwise ``replica`` (m = 1): each rank serves its batch block alone
-  with whole weights and no model axis (the MoE layer's dense form), as
-  the engine serves the SSM, hybrid, MoE and encoder-decoder families.
+* prefill and decode, ``rules``: the JAX dryrun's own layout on its
+  mesh, ``{"data": 16, "model": 16}`` or ``{"pod": 2, "data": 16,
+  "model": 16}``: every parameter, cache leaf and batch input is the
+  block JAX's ``param_specs`` (FSDP hint on), ``cache_pspecs`` and
+  ``batch_pspecs`` give the device at the rank's coordinates, and the
+  step is ``forward(rules=transformer.rule_layout(...))`` for every
+  family: tensor parallelism over ``model`` where a dim divides it,
+  FSDP slices gathered over the batch axes a layer at a time, the
+  cache's sequence over ``model`` with decode attention merged across
+  it, MoE in the expert-parallel body.
+* ``trace_cell(model=m)`` forces the serving engine's tensor-parallel
+  step instead, ``tensor_parallel`` on ``{"data": world // m, "model":
+  m}`` (``forward(tp=_TP)``, dense layers only, the cache the rank's
+  KV-head slice), or ``replica`` at m = 1 (whole weights a rank).
 
-A batch that does not divide the data axis stays whole on every rank,
-as ``resolve_spec`` leaves it.  Multi-pod cells have no pod axis in the
-port's steps: one data axis of 512 ranks.  A cell whose step the port
-cannot run in its layout (its forward, optimizer or layout raises
+A batch that does not divide the batch axes (``long_500k``'s one row)
+stays whole on every rank, as ``resolve_spec`` leaves it, and so does
+any dim that does not divide the mesh axes it is ruled onto
+(``resolve_spec``'s fallback): a path computed whole on every ``model``
+rank is not summed over it.  A cell whose step the port cannot run in
+its layout (its forward, optimizer or layout raises
 ``NotImplementedError`` or ``ValueError``) is recorded with
 ``"unsupported"``: the port's own error text, and no roofline.
 
@@ -107,11 +114,10 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.params import (ParamDef, draw_leaf, param_count,
                                        param_specs, param_specs_for_mesh,
-                                       tree_leaves, tree_map,
-                                       tree_unflatten)
+                                       tree_leaves, tree_unflatten)
 from repro_torch.roofline import analysis as ra
 from repro_torch.roofline import hw
-from repro_torch.serving.engine import _TP, indivisible_dims
+from repro_torch.serving.engine import _TP
 from repro_torch.training import train_step as ts
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__),
@@ -240,8 +246,9 @@ def production_world(multi_pod: bool) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """The port's layout of one cell: ``zero3``, ``tensor_parallel`` or
-    ``replica`` (see the module docstring) over ``mesh``."""
+    """The port's layout of one cell: ``zero3``, ``rules``,
+    ``tensor_parallel`` or ``replica`` (see the module docstring) over
+    ``mesh``."""
     name: str
     mesh: Dict[str, int]
 
@@ -250,31 +257,23 @@ class Layout:
         return self.mesh["model"]
 
 
-def tensor_parallel_width(cfg: ModelConfig, shape: ShapeConfig,
-                          world: int) -> int:
-    """The model axis of a serving cell: the largest of 16, 8, 4, 2
-    that divides ``world`` and that the engine's tensor-parallel step
-    admits, else 1."""
-    kinds = {k for _, group in T.layer_groups(cfg) for k in group}
-    if shape.kind == "train" or not kinds <= {"attn", "mlp"} \
-            or "patch_embeds" in input_specs(cfg, shape):
-        return 1
-    for m in (16, 8, 4, 2):
-        if world % m == 0 and not indivisible_dims(cfg, m):
-            return m
-    return 1
-
-
-def plan_layout(cfg: ModelConfig, shape: ShapeConfig, world: int,
-                model: Optional[int] = None) -> Layout:
-    """The cell's layout at ``world`` ranks; ``model`` forces the model
-    axis (a training step refuses any but 1)."""
+def plan_layout(shape: ShapeConfig, world: int, model: Optional[int] = None,
+                multi_pod: bool = False) -> Layout:
+    """The cell's layout at ``world`` ranks.  A serving cell takes the
+    rule set's layout on the JAX dryrun's mesh (the production mesh at
+    its world; elsewhere ``{"data": world // m, "model": m}``, m the
+    largest of 16, 8, 4, 2, 1 dividing ``world``); ``model`` forces the
+    engine's tensor-parallel step on that model axis instead (a
+    training step refuses any but 1)."""
     if shape.kind == "train":
         m, name = model or 1, "zero3"
+    elif model is None:
+        if world == production_world(multi_pod):
+            return Layout("rules", production_mesh_shape(multi_pod).shape)
+        m = next(k for k in (16, 8, 4, 2, 1) if world % k == 0)
+        return Layout("rules", {"data": world // m, "model": m})
     else:
-        m = tensor_parallel_width(cfg, shape, world) if model is None \
-            else model
-        name = "tensor_parallel" if m > 1 else "replica"
+        m, name = model, ("tensor_parallel" if model > 1 else "replica")
     if world % m:
         raise ValueError(f"model axis {m} does not divide {world} ranks")
     return Layout(name, {"data": world // m, "model": m})
@@ -422,9 +421,15 @@ def _nbytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _env(layout: Layout, ms: MeshShape):
+    """The sharding env the layout's specs resolve under."""
+    return sharding_env(ms, multi_pod="pod" in ms.shape,
+                        fsdp=layout.name in ("zero3", "rules"))
+
+
 def _param_specs(defs, layout: Layout, ms: MeshShape) -> Dict[str, Any]:
-    if layout.name == "zero3":
-        with sharding_env(ms, fsdp=True):
+    if layout.name in ("zero3", "rules"):
+        with _env(layout, ms):
             return dict(tree_leaves(param_specs(defs)))
     if layout.name == "tensor_parallel":
         return dict(tree_leaves(param_specs_for_mesh(defs, ms)))
@@ -440,7 +445,7 @@ def _rank_params(defs, layout: Layout, ms: MeshShape, dtype, make: _Maker):
 
 def _rank_batch(cfg, shape, layout: Layout, ms: MeshShape, make: _Maker):
     specs = input_specs(cfg, shape)
-    with sharding_env(ms, fsdp=layout.name == "zero3"):
+    with _env(layout, ms):
         pspecs = batch_pspecs(cfg, specs)
     return {k: make.like(v, local_shape(v.shape, pspecs[k], ms),
                          vocab=cfg.vocab_size if v.dtype == torch.int32
@@ -448,25 +453,62 @@ def _rank_batch(cfg, shape, layout: Layout, ms: MeshShape, make: _Maker):
             for k, v in specs.items()}
 
 
-def _rank_cache(cfg, shape, pcfg, layout: Layout, b: int, make: _Maker):
-    """The decode cache of ``b`` rows, the KV-head slice of it under
-    tensor parallelism."""
+def _rank_cache(cfg, shape, pcfg, layout: Layout, ms: MeshShape, b: int,
+                make: _Maker):
+    """The decode cache: under the rule set this rank's block of the
+    global batch's cache (``cache_pspecs``); else ``b`` rows, the
+    KV-head slice of them under the engine's tensor parallelism."""
     enc_len = enc_dec_split(cfg, shape)[0] if cfg.family == "encdec" else 0
     kvd = torch.float8_e4m3fn if pcfg.kv_cache_dtype.startswith("float8") \
         else None
     m = layout.model if layout.name == "tensor_parallel" else 1
+    if layout.name == "rules":
+        b = shape.global_batch
+        with _env(layout, ms):
+            specs = dict(tree_leaves(T.cache_pspecs(cfg, b, shape.seq_len,
+                                                    enc_len)))
 
-    def one(pair):
+    def one(path, pair):
         out = []
-        for t in pair:
-            s = list(t.shape)
+        for t, sp in zip(pair, specs[path] if layout.name == "rules"
+                         else ((),) * len(pair)):
+            s = list(local_shape(t.shape, sp, ms))
             if m > 1:
                 s[3] //= m                   # (layers, b, S, kv heads, hd)
             out.append(make.zeros(s, t.dtype))
         return tuple(out)
 
-    return tree_map(one, T.cache_spec(cfg, b, shape.seq_len, enc_len,
-                                      kv_dtype=kvd))
+    spec = T.cache_spec(cfg, b, shape.seq_len, enc_len, kv_dtype=kvd)
+    return tree_unflatten(spec, {p: one(p, pair)
+                                 for p, pair in tree_leaves(spec)})
+
+
+def rank_arguments(cfg: ModelConfig, shape: ShapeConfig, *, multi_pod: bool,
+                   device: DeviceLike = "meta") -> Dict[str, Any]:
+    """A serving cell's rank-0 arguments in its layout at the production
+    world, built without a process group or a step: ``layout``,
+    ``params``, ``cache``, ``batch`` and ``lengths`` (the blocks
+    :func:`trace_cell` hands the step)."""
+    if shape.kind == "train":
+        raise ValueError("rank_arguments builds a serving cell's arguments")
+    layout = plan_layout(shape, production_world(multi_pod),
+                         multi_pod=multi_pod)
+    return _serving_args(cfg, shape, parallel_for(cfg, multi_pod), layout,
+                         MeshShape(layout.mesh),
+                         _Maker(resolve_device(device), seed=0))
+
+
+def _serving_args(cfg, shape, pcfg, layout: Layout, ms: MeshShape,
+                  make: _Maker) -> Dict[str, Any]:
+    batch = _rank_batch(cfg, shape, layout, ms, make)
+    b_local = batch["tokens"].shape[0]
+    params = _rank_params(T.model_defs(cfg), layout, ms, torch.bfloat16, make)
+    cache = _rank_cache(cfg, shape, pcfg, layout, ms, b_local, make)
+    S = shape.seq_len
+    if cfg.family == "encdec" and shape.kind == "prefill":
+        S = batch["tokens"].shape[1]
+    return {"layout": layout, "params": params, "cache": cache,
+            "batch": batch, "lengths": make.full((b_local,), S, torch.int32)}
 
 
 def _largest_divisor(n: int, at_most: int) -> int:
@@ -495,7 +537,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, *, multi_pod: bool,
     pcfg = parallel_for(cfg, multi_pod, **over)
     defs = T.model_defs(cfg)
     n_params = param_count(defs)
-    layout = plan_layout(cfg, shape, world, model)
+    layout = plan_layout(shape, world, model, multi_pod)
     ms = MeshShape(layout.mesh)
     info = {"arch": cfg.name, "shape": shape.name,
             "mesh": mesh_tag(multi_pod), "chips": world, "params": n_params,
@@ -553,8 +595,12 @@ def _trace(cfg, shape, pcfg, layout: Layout, ms: MeshShape, dev,
     make = _Maker(dev, seed=0)
     mesh = Mesh(layout.mesh)
     defs = T.model_defs(cfg)
-    batch = _rank_batch(cfg, shape, layout, ms, make)
-    b_local = batch["tokens"].shape[0]
+    if shape.kind == "train":
+        batch = _rank_batch(cfg, shape, layout, ms, make)
+        b_local = batch["tokens"].shape[0]
+    else:
+        a = _serving_args(cfg, shape, pcfg, layout, ms, make)
+        batch = a["batch"]
     rec["batch_local"] = {k: list(v.shape) for k, v in batch.items()}
 
     if shape.kind == "train":
@@ -575,19 +621,22 @@ def _trace(cfg, shape, pcfg, layout: Layout, ms: MeshShape, dev,
             with sharding_env(mesh, fsdp=True):
                 return step(*args)
     else:
-        params = _rank_params(defs, layout, ms, torch.bfloat16, make)
-        cache = _rank_cache(cfg, shape, pcfg, layout, b_local, make)
-        S = shape.seq_len
-        if cfg.family == "encdec" and shape.kind == "prefill":
-            S = batch["tokens"].shape[1]
-        lengths = make.full((b_local,), S, torch.int32)
+        params, cache, lengths = a["params"], a["cache"], a["lengths"]
+        del a
         tp = _TP(mesh, False) if layout.name == "tensor_parallel" else None
+        rules = None
+        if layout.name == "rules":
+            enc = enc_dec_split(cfg, shape)[0] \
+                if cfg.family == "encdec" else 0
+            rules = T.rule_layout(cfg, mesh, global_batch=shape.global_batch,
+                                  max_len=shape.seq_len, enc_len=enc)
         if shape.kind == "prefill":
-            step = ts.make_prefill_step(cfg, pcfg, tp=tp)
+            step = ts.make_prefill_step(cfg, pcfg, tp=tp, rules=rules)
             args = (params, batch, cache, lengths)
         else:
-            step = ts.make_decode_step(cfg, pcfg, tp=tp)
+            step = ts.make_decode_step(cfg, pcfg, tp=tp, rules=rules)
             args = (params, batch, cache, shape.seq_len - 1, lengths)
+
         def run():
             return step(*args)
     rec["memory"]["argument_bytes"] = _nbytes(args)

@@ -11,7 +11,11 @@ that axis's subgroup.
   ``shape`` is a dict in JAX's axis order (``{"data": 2, "model": 2}``),
   ranks are laid out row-major over it as ``jax.make_mesh`` lays out
   devices, there is one subgroup per axis, and ``index(axis)`` is this
-  rank's coordinate (JAX's ``axis_index``).  Its collectives
+  rank's coordinate (JAX's ``axis_index``).  An axis may also be a
+  tuple of axes in mesh order (``("pod", "data")``, the multi-pod
+  mesh's batch axes), one subgroup over their product, the coordinate
+  row-major over them as JAX splits a dim over several axes.  Its
+  collectives
   (:meth:`Mesh.all_reduce`, :meth:`Mesh.all_to_all_single`,
   :meth:`Mesh.all_gather`, :meth:`Mesh.reduce_scatter`) run over that
   subgroup, count their bytes and calls by kind
@@ -41,7 +45,8 @@ import tempfile
 import time
 import traceback
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -57,6 +62,18 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
+
+
+#: a mesh axis, or a tuple of them in mesh order
+Axis = Union[str, Tuple[str, ...]]
+
+
+def _names(axis: Axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _key(axes: Tuple[str, ...]) -> Axis:
+    return axes[0] if len(axes) == 1 else axes
 
 
 class Mesh:
@@ -90,14 +107,24 @@ class Mesh:
         self._bytes: Dict[str, int] = {k: 0 for k in COLLECTIVES}
         self._calls: Dict[str, int] = {k: 0 for k in COLLECTIVES}
         self._groups = {}
-        for ai, axis in enumerate(names):
+        # one subgroup per axis, and one over the axes before ``model``
+        # together where there are two (the multi-pod batch axes)
+        spans = [(a,) for a in names]
+        lead = tuple(a for a in names if a != "model")
+        if len(lead) > 1:
+            spans.append(lead)
+        for axes in spans:
+            dims = [names.index(a) for a in axes]
+            n = int(np.prod([sizes[d] for d in dims]))
             # new_group is collective: every rank makes every group, in
-            # the same order, and keeps the one it belongs to
-            lines = np.moveaxis(grid, ai, -1).reshape(-1, sizes[ai])
-            for ranks in lines:
+            # the same order, and keeps the one it belongs to; the axes
+            # last, row-major, as JAX orders a dim split over them
+            lines = np.moveaxis(grid, dims,
+                                range(grid.ndim - len(dims), grid.ndim))
+            for ranks in lines.reshape(-1, n):
                 g = dist.new_group([int(r) for r in ranks])
                 if rank in ranks:
-                    self._groups[axis] = g
+                    self._groups[_key(axes)] = g
 
     def __enter__(self) -> "Mesh":
         return self
@@ -105,14 +132,24 @@ class Mesh:
     def __exit__(self, *exc) -> None:
         return None
 
-    def index(self, axis: str) -> int:
-        """This rank's coordinate along ``axis`` (JAX's ``axis_index``)."""
-        return self._coords[axis]
+    def index(self, axis: Axis) -> int:
+        """This rank's coordinate along ``axis`` (JAX's ``axis_index``),
+        row-major over a tuple of axes."""
+        idx = 0
+        for a in _names(axis):
+            idx = idx * self.shape[a] + self._coords[a]
+        return idx
+
+    def size(self, axis: Axis) -> int:
+        return int(np.prod([self.shape[a] for a in _names(axis)]))
+
+    def _group(self, axis: Axis):
+        return self._groups[_key(_names(axis))]
 
     # -- collectives over one axis ------------------------------------- #
 
-    def _count(self, kind: str, out: torch.Tensor, axis: str) -> None:
-        if self.shape[axis] == 1:
+    def _count(self, kind: str, out: torch.Tensor, axis: Axis) -> None:
+        if self.size(axis) == 1:
             return
         self._bytes[kind] += out.numel() * out.element_size()
         self._calls[kind] += 1
@@ -129,36 +166,36 @@ class Mesh:
         for k in COLLECTIVES:
             self._bytes[k] = self._calls[k] = 0
 
-    def all_reduce(self, x: torch.Tensor, axis: str,
+    def all_reduce(self, x: torch.Tensor, axis: Axis,
                    op: str = "sum") -> torch.Tensor:
         """Reduce ``x`` in place over ``axis`` (``sum``, ``min`` or
         ``max``) and return it."""
         rop = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(x, rop, group=self._groups[axis])
+        dist.all_reduce(x, rop, group=self._group(axis))
         self._count("all-reduce", x, axis)
         return x
 
-    def all_to_all_single(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_to_all_single(self, x: torch.Tensor, axis: Axis) -> torch.Tensor:
         """Split dim 0 of ``x`` into ``size(axis)`` equal blocks; block
         ``j`` goes to coordinate ``j``, and block ``i`` of the result
         came from coordinate ``i``."""
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=self._groups[axis])
+        dist.all_to_all_single(out, x.contiguous(), group=self._group(axis))
         self._count("all-to-all", out, axis)
         return out
 
-    def all_gather(self, x: torch.Tensor, axis: str,
+    def all_gather(self, x: torch.Tensor, axis: Axis,
                    dim: Optional[int] = None) -> torch.Tensor:
         """Every coordinate's ``x`` in coordinate order: stacked,
         ``(size(axis),) + x.shape``, or with ``dim`` concatenated along
         that dim (the full tensor whose blocks the coordinates hold, as
         :func:`~repro_torch.distributed.sharding.local_slice` cuts
         it)."""
-        n = self.shape[axis]
+        n = self.size(axis)
         out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
         _ALL_GATHER(out, x.reshape(-1).contiguous(),
-                    group=self._groups[axis])
+                    group=self._group(axis))
         self._count("all-gather", out, axis)
         out = out.view((n,) + tuple(x.shape))
         if dim is None:
@@ -167,16 +204,16 @@ class Mesh:
         shape[dim] *= n
         return out.movedim(0, dim).reshape(shape)
 
-    def reduce_scatter(self, x: torch.Tensor, axis: str,
+    def reduce_scatter(self, x: torch.Tensor, axis: Axis,
                        dim: int = 0) -> torch.Tensor:
         """The sum of every coordinate's ``x`` over ``axis``, this
         coordinate's block of it along ``dim`` (``x.shape[dim]`` must
         divide by ``size(axis)``)."""
-        n = self.shape[axis]
+        n = self.size(axis)
         full = x.movedim(dim, 0).contiguous()
         out = torch.empty((full.shape[0] // n,) + tuple(full.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        _REDUCE_SCATTER(out, full, group=self._groups[axis])
+        _REDUCE_SCATTER(out, full, group=self._group(axis))
         self._count("reduce-scatter", out, axis)
         return out.movedim(0, dim).contiguous()
 

@@ -239,15 +239,15 @@ def naive_attention(q, k, v, *, causal, lengths=None, q_offset=0,
     qf = q.float().reshape(b, sq, kvh, g, dh)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
     kpos = torch.arange(sk, device=dev)
-    valid = torch.ones((b, 1, 1, 1, sk), dtype=torch.bool, device=dev)
+    masked = torch.zeros((b, 1, 1, 1, sk), dtype=torch.bool, device=dev)
     if lengths is not None:
-        valid = kpos[None, None, None, None, :] < \
+        masked = kpos[None, None, None, None, :] >= \
             lengths.long()[:, None, None, None, None]
     if causal:
         qpos = q_offset + torch.arange(sq, device=dev)
-        valid = valid & (kpos[None, None, None, None, :]
-                         <= qpos[None, None, None, :, None])
-    s = torch.where(valid, s, torch.tensor(_NEG_INF, device=dev))
+        masked = masked | (kpos[None, None, None, None, :]
+                           > qpos[None, None, None, :, None])
+    s = s.masked_fill(masked, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, dh).to(q.dtype)
@@ -264,13 +264,50 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scale = sm_scale if sm_scale is not None else dh ** -0.5
     qf = (q.float() * scale).reshape(b, kvh, g, dh)
     s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
-    valid = torch.arange(S, device=q.device)[None, None, None, :] < \
-        lengths.long()[:, None, None, None]
-    s = torch.where(valid, s, torch.tensor(_NEG_INF, device=q.device))
+    s = s.masked_fill(_past(lengths, 0, S)[:, None, None, :], _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     out = torch.einsum("bkgs,bskd->bkgd", p / p.sum(dim=-1, keepdim=True),
                        v_cache.float())
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def _past(lengths: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """(b, n) True where cache position ``lo + j`` is at or past a row's
+    length (masked)."""
+    pos = lo + torch.arange(n, device=lengths.device)
+    return pos[None, :] >= lengths.long()[:, None]
+
+
+def _merged_softmax(s: torch.Tensor, v: torch.Tensor, eq_pv: str, rules
+                    ) -> torch.Tensor:
+    """Softmax-weighted sum over cache positions split over ``model``:
+    ``s`` the (float32, masked) scores of this rank's positions (last
+    dim), ``v`` their values.  The max is all-reduced first, then each
+    rank's ``sum(p)`` and ``p @ v`` in one sum over ``model``, divided:
+    JAX's ``p / l`` form (``decode_attention``, whose ``m`` and ``l``
+    GSPMD all-reduces over the sequence shards), summed in another
+    order."""
+    m = rules.pmax(s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m)
+    o = torch.einsum(eq_pv, p, v.float())
+    ol = rules.psum(torch.cat([o, p.sum(dim=-1, keepdim=True)], dim=-1))
+    return ol[..., :-1] / ol[..., -1:]
+
+
+def split_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor, lo: int,
+                           rules) -> torch.Tensor:
+    """:func:`decode_attention` over a cache whose positions are split
+    over ``model``: ``q`` (b, 1, h, dh) every head, ``k``/``v`` (b, n,
+    kvh, dh) this rank's positions ``[lo, lo + n)``; returns every
+    head's output."""
+    b, _, h, dh = q.shape
+    _, n, kvh, _ = k.shape
+    qf = (q.float() * dh ** -0.5).reshape(b, kvh, h // kvh, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
+    s = s.masked_fill(_past(lengths, lo, n)[:, None, None, :], _NEG_INF)
+    out = _merged_softmax(s, v, "bkgs,bskd->bkgd", rules)
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
@@ -290,6 +327,26 @@ def _attend(q, k, v, pcfg: ParallelConfig, *, causal, lengths=None,
                              q_offset=q_offset)
 
 
+def _qkv(cfg: ModelConfig, p, x, positions, *, mode, memory, is_cross,
+         use_rope):
+    """The projections: q from ``x``; k and v from ``memory`` (cross) or
+    ``x``, none for a cross decode (they are its cache); q and a self
+    attention's k rotated by ``positions`` (a decode's: the write
+    position)."""
+    q = torch.einsum("bsd,dhk->bshk", x, cast(p["wq"]))
+    k = v = None
+    if not (is_cross and mode == "decode"):
+        kv_src = memory if is_cross else x
+        k = torch.einsum("bsd,dhk->bshk", kv_src, cast(p["wk"]))
+        v = torch.einsum("bsd,dhk->bshk", kv_src, cast(p["wv"]))
+    if use_rope and not is_cross:
+        sin, cos = rope_sincos(positions, cfg.resolved_head_dim,
+                               cfg.rope_theta)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    return q, k, v
+
+
 def _write_kv(cache, k, v, pos):
     """Write (k, v) (b, s, ...) into the (max_len) cache buffers at
     sequence position ``pos``, in place; returns the cache."""
@@ -307,27 +364,25 @@ def gqa_attention(cfg: ModelConfig, pcfg: ParallelConfig,
                   write_pos: Optional[int] = None,
                   lengths: Optional[torch.Tensor] = None,
                   memory: Optional[torch.Tensor] = None,
-                  is_cross: bool = False, use_rope: bool = True):
+                  is_cross: bool = False, use_rope: bool = True,
+                  rules=None):
     """Returns (out, new_cache).  mode: "train" | "prefill" | "decode".
     ``is_cross``: k/v from ``memory`` at train/prefill (a prefill returns
     them as the new cache), from the cache at decode.  Self-attention
-    prefill/decode writes k/v into ``cache`` in place."""
-    hd = cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, cast(p["wq"]))
+    prefill/decode writes k/v into ``cache`` in place.  ``rules``: the
+    rule set's serving layout (:func:`_gqa_rules`)."""
+    if rules is not None:
+        return _gqa_rules(cfg, pcfg, p, x, positions, mode=mode,
+                          causal=causal, cache=cache, write_pos=write_pos,
+                          lengths=lengths, memory=memory, is_cross=is_cross,
+                          use_rope=use_rope, rules=rules)
+    q, k, v = _qkv(cfg, p, x, positions, mode=mode, memory=memory,
+                   is_cross=is_cross, use_rope=use_rope)
+    new_cache = None
     if is_cross and mode == "decode":
         if cache is None:
             raise ValueError("cross-attention decode needs the memory cache")
-        k, v = cache
-        new_cache = cache
-    else:
-        kv_src = memory if is_cross else x
-        k = torch.einsum("bsd,dhk->bshk", kv_src, cast(p["wk"]))
-        v = torch.einsum("bsd,dhk->bshk", kv_src, cast(p["wv"]))
-        new_cache = None
-    if use_rope and not is_cross:
-        sin, cos = rope_sincos(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)     # decode: positions = write position
+        k, v = new_cache = cache
     if is_cross:
         if mode == "decode":
             mem_lengths = torch.full((x.shape[0],), k.shape[1],
@@ -352,6 +407,114 @@ def gqa_attention(cfg: ModelConfig, pcfg: ParallelConfig,
     return out, new_cache
 
 
+def _kv_for_heads(k, v, h_l: int, g: int, first: int):
+    """The KV heads (whole, (b, s, kvh, hd)) that query heads
+    ``[first, first + h_l)`` read (head ``i`` reads KV head ``i // g``),
+    laid out for them: a run of whole groups, one KV head, or one per
+    query head where a block cuts its groups unevenly."""
+    if h_l % g == 0 and first % g == 0:
+        return k[:, :, first // g:(first + h_l) // g], \
+            v[:, :, first // g:(first + h_l) // g]
+    if first // g == (first + h_l - 1) // g:
+        j = first // g
+        return k[:, :, j:j + 1], v[:, :, j:j + 1]
+    idx = torch.div(first + torch.arange(h_l, device=k.device), g,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _write_block(cache, k, v, lo: int, start: int, s: int):
+    """Write into this rank's cache block, positions ``[lo, lo + n)``,
+    those of (k, v) it holds: (k, v) start at global position
+    ``start``, and positions from ``s`` on do not exist; in place."""
+    k_cache, v_cache = cache
+    a = max(lo, start)
+    e = min(lo + k_cache.shape[1], start + k.shape[1], s)
+    if e > a:
+        for dst, src in ((k_cache, k), (v_cache, v)):
+            dst[:, a - lo:e - lo] = src[:, a - start:e - start].to(dst.dtype)
+    return k_cache, v_cache
+
+
+def _write_token(cache, k, v, pos: int, lo: int):
+    """Write one token's (k, v) (b, 1, ...) at global position ``pos``
+    if this rank's block ``[lo, lo + n)`` holds it; in place."""
+    k_cache, v_cache = cache
+    if lo <= pos < lo + k_cache.shape[1]:
+        k_cache[:, pos - lo] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, pos - lo] = v[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def _gqa_rules(cfg: ModelConfig, pcfg: ParallelConfig, p, x, positions, *,
+               mode, causal, cache, write_pos, lengths, memory, is_cross,
+               use_rope, rules):
+    """:func:`gqa_attention` in the rule set's serving layout, on this
+    rank's blocks: ``wq``/``wo`` over its heads where the head count
+    divides ``model`` (else whole), ``wk``/``wv`` over its KV heads
+    where theirs does, each on its own.  Heads whose KV heads are whole
+    read them from the whole projections; ``wo``'s partial sums are
+    summed over ``model`` only where heads are split.
+
+    The cache holds this rank's block of positions, ``[lo, lo + n)``,
+    for every KV head (the sequence over ``model``; the whole sequence
+    where its length does not divide).  A prefill writes its positions
+    of the new k/v, exchanged over ``model`` first where KV heads are
+    split (:meth:`RuleLayout.seq_block`); a decode writes the new token
+    on the rank whose block holds ``write_pos``, gathers the query's
+    heads, attends over its own positions and merges the partial
+    softmax across ``model`` (:func:`split_decode_attention`), keeping
+    its heads for ``wo``.  Cross attention's memory cache is split
+    likewise on the memory's length."""
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    h_l, kvh_l = p["wq"].shape[1], p["wk"].shape[1]
+    first = rules.index * h_l if h_l < H else 0
+    q, k, v = _qkv(cfg, p, x, positions, mode=mode, memory=memory,
+                   is_cross=is_cross, use_rope=use_rope)
+    full = rules.enc_len if is_cross else rules.max_len
+    lo, n = rules.block(full)
+    new_cache = None
+    if mode == "decode":
+        if cache is None or (write_pos is None and not is_cross):
+            raise ValueError("decode needs the cache and write_pos")
+        if is_cross:
+            lens = torch.full((x.shape[0],), full, dtype=torch.int32,
+                              device=x.device)
+            new_cache = cache
+        else:
+            lens = lengths
+            new_cache = _write_token(cache, rules.whole(k, 2, KVH),
+                                     rules.whole(v, 2, KVH), write_pos, lo)
+        kc, vc = new_cache
+        if n < full:
+            out = split_decode_attention(rules.whole(q, 2, H), kc, vc, lens,
+                                         lo, rules)[:, :, first:first + h_l]
+        else:
+            kk, vv = _kv_for_heads(kc, vc, h_l, H // KVH, first)
+            out = decode_attention(q, kk, vv, lens)
+    else:
+        kk, vv = k, v
+        if kvh_l == KVH and h_l < H:
+            kk, vv = _kv_for_heads(k, v, h_l, H // KVH, first)
+        out = _attend(q, kk, vv, pcfg, causal=causal and not is_cross,
+                      lengths=None if is_cross else lengths)
+        if mode == "prefill" and cache is not None:
+            s_len, start = k.shape[1], 0
+            if kvh_l < KVH:       # every KV head of this rank's positions
+                k, v = rules.seq_block(k, full), rules.seq_block(v, full)
+                start = lo
+            if is_cross:          # the memory's block, a new tensor
+                if start != lo:
+                    k, v = k[:, lo:lo + n], v[:, lo:lo + n]
+                new_cache = (k.to(cache[0].dtype), v.to(cache[1].dtype))
+            else:
+                new_cache = _write_block(cache, k, v, lo, start, s_len)
+    out = torch.einsum("bshk,hkd->bsd", out, cast(p["wo"]))
+    if h_l < H:
+        out = rules.psum(out)
+    return out, new_cache
+
+
 # --------------------------------------------------------------------- #
 # MLA layer (DeepSeek-V2)
 # --------------------------------------------------------------------- #
@@ -371,10 +534,19 @@ def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
                   positions: torch.Tensor, *, mode: str,
                   cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                   write_pos: Optional[int] = None,
-                  lengths: Optional[torch.Tensor] = None):
+                  lengths: Optional[torch.Tensor] = None, rules=None):
     """MLA: cache = (c_kv (b, S, r), k_rope (b, S, rope_dim)), written in
     place.  Decode runs absorbed (queries pulled into the latent space);
-    train and prefill expand the latent to per-head k/v."""
+    train and prefill expand the latent to per-head k/v.
+
+    ``rules`` (the rule set's serving layout): ``wq``, ``wk_b``,
+    ``wv_b`` and ``wo`` hold this rank's heads where they divide
+    ``model``, the latent projections are whole, and the cache holds
+    this rank's block of positions (every rank computes the whole
+    latent, so a prefill writes its positions with no exchange).  The
+    absorbed decode gathers the latent queries' heads, attends over its
+    positions, merges across ``model`` and keeps its heads for
+    ``wv_b``/``wo``, whose partial sums are summed over ``model``."""
     m = cfg.mla
     q = _mla_q(cfg, p, x)                           # (b, s, h, nope+rope)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
@@ -386,8 +558,27 @@ def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
     q_rope = apply_rope(q_rope, sin, cos)
     k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    H, h_l = cfg.num_heads, p["wk_b"].shape[1]
+    first = rules.index * h_l if rules is not None and h_l < H else 0
+    lo, n = rules.block(rules.max_len) if rules is not None else (0, None)
 
-    if mode == "decode":
+    if mode == "decode" and rules is not None and n < rules.max_len:
+        if cache is None or write_pos is None:
+            raise ValueError("decode needs the cache and write_pos")
+        ckv_cache, krope_cache = _write_token(cache, c_kv, k_rope,
+                                              write_pos, lo)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, cast(p["wk_b"]))
+        q_lat, q_rope = rules.whole(q_lat, 2, H), rules.whole(q_rope, 2, H)
+        s = (torch.einsum("bshr,bSr->bhS", q_lat.float(), ckv_cache.float())
+             + torch.einsum("bshk,bSk->bhS", q_rope.float(),
+                            krope_cache.float())) * scale
+        s = s.masked_fill(_past(lengths, lo, n)[:, None], _NEG_INF)
+        ctx = _merged_softmax(s, ckv_cache, "bhS,bSr->bhr", rules)
+        out = torch.einsum("bhr,rhv->bhv", ctx[:, first:first + h_l],
+                           cast(p["wv_b"]).float())
+        out = out[:, None].to(x.dtype)               # (b, 1, h_l, v)
+        new_cache = (ckv_cache, krope_cache)
+    elif mode == "decode":
         if cache is None or write_pos is None:
             raise ValueError("decode needs the cache and write_pos")
         ckv_cache, krope_cache = _write_kv(cache, c_kv, k_rope, write_pos)
@@ -395,10 +586,8 @@ def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
         s = (torch.einsum("bshr,bSr->bhS", q_lat.float(), ckv_cache.float())
              + torch.einsum("bshk,bSk->bhS", q_rope.float(),
                             krope_cache.float())) * scale
-        S = ckv_cache.shape[1]
-        valid = torch.arange(S, device=x.device)[None, None, :] < \
-            lengths.long()[:, None, None]
-        s = torch.where(valid, s, torch.tensor(_NEG_INF, device=x.device))
+        s = s.masked_fill(_past(lengths, 0, ckv_cache.shape[1])[:, None],
+                          _NEG_INF)
         pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
         ctx = torch.einsum("bhS,bSr->bhr", pr / pr.sum(dim=-1, keepdim=True),
                            ckv_cache.float())
@@ -417,6 +606,9 @@ def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
         out = out[..., :m.v_head_dim]
         new_cache = None
         if mode == "prefill" and cache is not None:
-            new_cache = _write_kv(cache, c_kv, k_rope, 0)
+            new_cache = _write_kv(cache, c_kv, k_rope, 0) if rules is None \
+                else _write_block(cache, c_kv, k_rope, lo, 0, x.shape[1])
     y = torch.einsum("bshv,hvd->bsd", out, cast(p["wo"]))
+    if rules is not None and h_l < H:
+        y = rules.psum(y)
     return y, new_cache

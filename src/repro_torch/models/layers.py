@@ -93,8 +93,11 @@ def mlp_defs(d: int, ff: int, activation: str) -> Dict[str, ParamDef]:
 
 
 def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
-        activation: str) -> torch.Tensor:
-    """x: (b, s, d) -> (b, s, d)."""
+        activation: str, rules=None, d_ff: int = 0) -> torch.Tensor:
+    """x: (b, s, d) -> (b, s, d).  With ``rules`` (a
+    ``sharding.RuleLayout``) the weights may be this rank's block of a
+    ``d_ff`` hidden split over ``model``: the down projection's partial
+    sums are then summed over it (a hidden left whole is not)."""
     up = x @ cast(p["up"])
     if activation in ("swiglu", "geglu"):
         gate = x @ cast(p["gate"])
@@ -102,7 +105,10 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
         h = act * up
     else:
         h = gelu(up)
-    return h @ cast(p["down"])
+    out = h @ cast(p["down"])
+    if rules is not None and p["down"].shape[0] < d_ff:
+        out = rules.psum(out)
+    return out
 
 
 # ----------------------------- Embedding ------------------------------ #
@@ -118,15 +124,32 @@ def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def embed(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
-          cfg: ModelConfig) -> torch.Tensor:
-    x = cast(p["tok"][tokens.long()])
+          cfg: ModelConfig, rules=None) -> torch.Tensor:
+    """Token embedding.  With ``rules`` the table may be this rank's
+    block of vocab rows ``[index * V_l, (index + 1) * V_l)``: the rank
+    holding a token gives its row, the others exact zeros, summed over
+    ``model`` (bit for bit the whole table's lookup)."""
+    table = p["tok"]
+    if rules is not None and table.shape[0] < cfg.vocab_size:
+        vloc = table.shape[0]
+        local = tokens.long() - rules.index * vloc
+        ok = (local >= 0) & (local < vloc)
+        x = cast(table[local.clamp(0, vloc - 1)])
+        x = rules.psum(x.masked_fill(~ok[..., None], 0))
+    else:
+        x = cast(table[tokens.long()])
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
 def logits_out(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-               fp32: bool = True) -> torch.Tensor:
+               fp32: bool = True, rules=None) -> torch.Tensor:
+    """Logits over the output table; with ``rules`` a table split over
+    ``model`` by vocab gives this rank's columns, gathered whole."""
     table = p.get("out", p["tok"])
     out = x @ cast(table).t()
-    return out.float() if fp32 else out
+    out = out.float() if fp32 else out
+    if rules is not None and table.shape[0] < cfg.vocab_size:
+        out = rules.gather(out, -1)
+    return out

@@ -155,9 +155,13 @@ def _local_moe(x, router_w, w_gate, w_up, w_down, *, top_k: int,
 
 
 def _dense_moe(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               x: torch.Tensor, rules=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every token through every expert (exact, no capacity drops).
-    Returns (out in x's dtype, the Switch-style aux loss)."""
+    Returns (out in x's dtype, the Switch-style aux loss).  With
+    ``rules`` the expert weights may be this rank's block of experts or
+    of their hidden dim over ``model``; the partial sums are then summed
+    over it."""
     m = cfg.moe
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
@@ -168,17 +172,62 @@ def _dense_moe(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     aux = (me * ce).sum() * m.num_experts / m.top_k
 
     w_gate = cast(p["w_gate"])
+    e_l = w_gate.shape[0]
     h = _expert_ffn(w_gate, cast(p["w_up"]), cast(p["w_down"]),
-                    xf.to(w_gate.dtype).expand(m.num_experts, -1, -1),
+                    xf.to(w_gate.dtype).expand(e_l, -1, -1),
                     cfg.activation)                            # (E,t,d)
     gate = (onehot * top_p[..., None]).sum(dim=1)              # (t,E)
+    if e_l < m.num_experts:
+        gate = gate.narrow(1, rules.index * e_l, e_l)
     out = torch.einsum("te,etd->td", gate, h.float())
+    if rules is not None and (e_l < m.num_experts
+                              or w_gate.shape[2] < m.expert_d_ff):
+        out = rules.psum(out)
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _capacity(cfg: ModelConfig, pcfg: ParallelConfig, tokens: int) -> int:
+    """An expert's slots, as the JAX package sizes them from the step's
+    global token count."""
+    m = cfg.moe
+    cf = pcfg.moe_capacity_factor or m.capacity_factor
+    cap = int(math.ceil(tokens * m.top_k / m.num_experts * cf))
+    return max(8, min(cap, tokens))
+
+
+def _psum_dtype(pcfg: ParallelConfig) -> torch.dtype:
+    return torch.bfloat16 if pcfg.moe_psum_dtype == "bfloat16" \
+        else torch.float32
+
+
+def _rules_moe(cfg: ModelConfig, pcfg: ParallelConfig,
+               p: Dict[str, torch.Tensor], x: torch.Tensor, rules
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts in the rule set's serving layout: the JAX
+    ``moe_layer`` under a mesh.  ``p``'s expert weights are this rank's
+    block (its experts where their count divides ``model``); ``x`` this
+    rank's batch block, the same on every ``model`` rank.  Where the
+    experts divide ``model`` and ``moe_impl`` is ``shard_map`` this is
+    the expert-parallel body with the capacity sized from the global
+    token count (``x``'s tokens times the batch blocks, one where the
+    batch is whole); else the dense form."""
+    m = cfg.moe
+    if pcfg.moe_impl == "dense" or m.num_experts % rules.model:
+        return _dense_moe(cfg, p, x, rules)
+    b, s, _ = x.shape
+    return _local_moe(
+        x, p["router"].float(), cast(p["w_gate"]), cast(p["w_up"]),
+        cast(p["w_down"]), top_k=m.top_k, num_experts=m.num_experts,
+        capacity=_capacity(cfg, pcfg, b * s * rules.batch_shards),
+        activation=cfg.activation,
+        model_axis="model" if rules.model > 1 else None,
+        psum_dtype=_psum_dtype(pcfg), mesh=rules.mesh)
 
 
 def moe_layer(cfg: ModelConfig, pcfg: ParallelConfig,
               p: Dict[str, torch.Tensor],
-              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              x: torch.Tensor, rules=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss): the routed experts densely or expert
     parallel (see the module docstring), the shared experts on every
     token.
@@ -187,25 +236,24 @@ def moe_layer(cfg: ModelConfig, pcfg: ParallelConfig,
     split of the global batch, replicated over ``model``), so the
     capacity is sized, as the JAX package sizes it, from the global
     token count (the local one times the batch axes' extent).  The
-    expert weights are full: each rank takes its own experts."""
+    expert weights are full: each rank takes its own experts.
+
+    ``rules`` (the rule set's serving layout, :func:`_rules_moe`): the
+    weights are this rank's blocks, the shared experts' hidden dim over
+    ``model`` where it divides (their partial sums summed over it)."""
     m = cfg.moe
     e = env()
     mesh = e.mesh
-    if (pcfg.moe_impl == "dense" or mesh is None
+    if rules is not None:
+        out, aux = _rules_moe(cfg, pcfg, p, x, rules)
+    elif (pcfg.moe_impl == "dense" or mesh is None
             or m.num_experts % mesh.shape["model"] != 0):
         out, aux = _dense_moe(cfg, p, x)
     else:
         b, s, _ = x.shape
-        msize = mesh.shape["model"]
         bsize = math.prod(mesh.shape[a] for a in e.batch_axes
                           if a in mesh.shape)
-        tokens = b * s * bsize
-        cf = pcfg.moe_capacity_factor or m.capacity_factor
-        cap = int(math.ceil(tokens * m.top_k / m.num_experts * cf))
-        cap = max(8, min(cap, tokens))
-        psum_dtype = (torch.bfloat16 if pcfg.moe_psum_dtype == "bfloat16"
-                      else torch.float32)
-        e_local = m.num_experts // msize
+        e_local = m.num_experts // mesh.shape["model"]
         idx = mesh.index("model")
 
         def mine(w):
@@ -214,10 +262,15 @@ def moe_layer(cfg: ModelConfig, pcfg: ParallelConfig,
         out, aux = _local_moe(
             x, p["router"].float(), mine(p["w_gate"]), mine(p["w_up"]),
             mine(p["w_down"]), top_k=m.top_k, num_experts=m.num_experts,
-            capacity=cap, activation=cfg.activation, model_axis="model",
-            psum_dtype=psum_dtype, mesh=mesh)
-    if cfg.moe.num_shared_experts:
+            capacity=_capacity(cfg, pcfg, b * s * bsize),
+            activation=cfg.activation, model_axis="model",
+            psum_dtype=_psum_dtype(pcfg), mesh=mesh)
+    if m.num_shared_experts:
         g = x @ cast(p["shared_gate"])
         u = x @ cast(p["shared_up"])
-        out = out + (_act(g, cfg.activation) * u) @ cast(p["shared_down"])
+        sh = (_act(g, cfg.activation) * u) @ cast(p["shared_down"])
+        sff = m.expert_d_ff * m.num_shared_experts
+        if rules is not None and p["shared_down"].shape[0] < sff:
+            sh = rules.psum(sh)
+        out = out + sh
     return out, aux

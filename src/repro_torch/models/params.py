@@ -181,6 +181,25 @@ def param_specs_for_mesh(defs: Any, mesh) -> Any:
         return param_specs(defs)
 
 
+def rule_specs(defs: Any, mesh) -> Any:
+    """:func:`param_specs` under ``sharding_env(mesh, fsdp=True)`` (the
+    batch axes ``("pod", "data")`` on a mesh with a pod axis): the JAX
+    rule set's serving layout, tensor parallel over ``model`` with the
+    divisibility fallback and FSDP over the batch axes, as the JAX
+    dryrun lays out its prefill and decode steps' parameters."""
+    with sharding_env(mesh, multi_pod="pod" in mesh.shape, fsdp=True):
+        return param_specs(defs)
+
+
+def rule_params(params: Any, defs: Any, mesh) -> Any:
+    """This rank's blocks of whole ``params`` (e.g. from
+    :func:`from_jax_params`) under :func:`rule_specs`, each a tensor of
+    its own: the block ``jax.device_put`` gives the device at this
+    rank's coordinates."""
+    return _cut(params, defs, mesh, dict(tree_leaves(rule_specs(defs,
+                                                                mesh))))
+
+
 def shard_params(params: Any, defs: Any, mesh) -> Any:
     """This rank's blocks of ``params`` under
     :func:`param_specs_for_mesh`, each a tensor of its own, as
@@ -188,7 +207,11 @@ def shard_params(params: Any, defs: Any, mesh) -> Any:
     coordinates.  ``params`` may come from :func:`from_jax_params`; a
     leaf already at its block's shape (from ``init_params(mesh=)``) is
     kept as it is."""
-    specs = dict(tree_leaves(param_specs_for_mesh(defs, mesh)))
+    return _cut(params, defs, mesh,
+                dict(tree_leaves(param_specs_for_mesh(defs, mesh))))
+
+
+def _cut(params: Any, defs: Any, mesh, specs: Dict[str, Any]) -> Any:
     shapes = {path: tuple(d.shape) for path, d in tree_leaves(defs)}
 
     def cut(path: str, t: torch.Tensor) -> torch.Tensor:

@@ -143,24 +143,50 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int, init=None):
 
 
 def _ssm_tail(cfg: ModelConfig, p: Dict[str, torch.Tensor], x, yh, xh, z,
-              d_in: int) -> torch.Tensor:
-    """The skip term, the gated RMSNorm and the output projection."""
+              d_in: int, rules=None) -> torch.Tensor:
+    """The skip term, the gated RMSNorm over all ``d_in`` channels and
+    the output projection.  With ``rules`` and a rank's block of heads
+    (its channels of ``out_norm``/``out_proj``), the sum of squares and
+    the projection's partial sums are summed over ``model``; with every
+    head, ``out_norm`` and ``out_proj`` are taken whole."""
     yh = yh.to(x.dtype) + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    yflat = yh.reshape(*yh.shape[:2], d_in)
-    gate = silu(z.float()).to(yflat.dtype)
-    yflat = rmsnorm(yflat * gate, p["out_norm"], cfg.norm_eps)
-    return yflat @ cast(p["out_proj"])
+    yflat = yh.reshape(*yh.shape[:2], -1)
+    yflat = yflat * silu(z.float()).to(yflat.dtype)
+    if rules is None or yflat.shape[-1] == d_in:
+        norm, proj = p["out_norm"], cast(p["out_proj"])
+        if rules is not None:
+            norm, proj = rules.whole(norm, 0, d_in), rules.whole(proj, 0, d_in)
+        return rmsnorm(yflat, norm, cfg.norm_eps) @ proj
+    ss = rules.psum(yflat.float().square().sum(dim=-1, keepdim=True))
+    inv = torch.rsqrt(ss / d_in + cfg.norm_eps).to(yflat.dtype)
+    yflat = yflat * inv * p["out_norm"].to(yflat.dtype)
+    return rules.psum(yflat @ cast(p["out_proj"]))
+
+
+def _ssd_step(xh, dt, A, B, C, state):
+    """One token's SSD recurrence (s == 1): returns (y (b, 1, h, p) in
+    float32, the new state)."""
+    dA = torch.exp(dt[:, 0] * A[None, :])                      # (b,h)
+    dBx = (B[:, 0].float()[:, None, None, :]
+           * (dt[:, 0][:, :, None] * xh[:, 0].float())[..., None])
+    new_state = state * dA[:, :, None, None] + dBx
+    y = torch.einsum("bn,bhpn->bhp", C[:, 0].float(), new_state)
+    return y[:, None], new_state
 
 
 def ssm_layer(cfg: ModelConfig, pcfg: ParallelConfig,
               p: Dict[str, torch.Tensor], x: torch.Tensor, *, mode: str,
-              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              rules=None):
     """Mamba-2 mixer.  Returns (out, new_cache).
 
     ``mode``: "decode" (one token against ``cache``), "prefill" (returns
     the final cache) or "train" (no cache).  cache = (conv_state (b, W-1,
-    ch), ssm_state (b, h, p, n))."""
+    ch), ssm_state (b, h, p, n)).  ``rules``: the rule set's serving
+    layout (:func:`_ssm_rules`)."""
     del pcfg     # the JAX package reads its scan-unroll settings here
+    if rules is not None:
+        return _ssm_rules(cfg, p, x, mode=mode, cache=cache, rules=rules)
     s_cfg = cfg.ssm
     y = x @ cast(p["in_proj"])
     z, xbc, dt, d_in, nheads = _split_in_proj(cfg, y)
@@ -176,13 +202,7 @@ def ssm_layer(cfg: ModelConfig, pcfg: ParallelConfig,
                                           p["conv_b"], conv_state)
         xx, B, C = torch.split(xbc_conv, split, dim=-1)
         xh = xx.reshape(*xx.shape[:2], nheads, s_cfg.head_dim)
-        # single-step recurrence (s == 1)
-        dA = torch.exp(dt[:, 0] * A[None, :])                  # (b,h)
-        dBx = (B[:, 0].float()[:, None, None, :]
-               * (dt[:, 0][:, :, None] * xh[:, 0].float())[..., None])
-        new_state = ssm_state * dA[:, :, None, None] + dBx
-        yh = torch.einsum("bn,bhpn->bhp", C[:, 0].float(), new_state)
-        yh = yh[:, None]                                       # (b,1,h,p)
+        yh, new_state = _ssd_step(xh, dt, A, B, C, ssm_state)
         new_cache = (new_conv.to(conv_state.dtype),
                      new_state.to(ssm_state.dtype))
     else:
@@ -194,6 +214,66 @@ def ssm_layer(cfg: ModelConfig, pcfg: ParallelConfig,
         new_cache = (new_conv, final) if mode == "prefill" else None
 
     return _ssm_tail(cfg, p, x, yh, xh, z, d_in), new_cache
+
+
+def _ssm_rules(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+               x: torch.Tensor, *, mode: str, cache, rules):
+    """:func:`ssm_layer` on this rank's blocks in the rule set's serving
+    layout.  ``in_proj``'s packed columns ``[z, x, B, C, dt]``,
+    ``conv_w``/``conv_b`` (over ``[x, B, C]``), ``out_norm`` and
+    ``out_proj`` are cut contiguously over ``model`` where their dims
+    divide it (the ``ff`` rule), ``a_log``/``dt_bias``/``d_skip`` by
+    heads, and the cache's SSM state by heads (``cache_pspecs`` puts
+    ``model`` on dim 2 of a 5-D leaf) while its conv state is whole over
+    ``model``.  A rank's ``in_proj`` columns do not line up with the
+    components, so its product is gathered whole over ``model`` and cut
+    again: each rank runs the conv over its heads' x channels and the
+    shared B and C, the SSD over its heads (the SSM state's block), and
+    the gated norm over its channels with the sum of squares summed
+    over ``model``; ``out_proj``'s partial sums are summed over it.  The
+    conv state, whole, is written alike by every ``model`` rank."""
+    s_cfg = cfg.ssm
+    d_in = s_cfg.expand * cfg.d_model
+    nheads, P, N = d_in // s_cfg.head_dim, s_cfg.head_dim, s_cfg.state_dim
+    ch = d_in + 2 * N
+    W = s_cfg.conv_width
+    y = rules.whole(x @ cast(p["in_proj"]), -1, 2 * d_in + 2 * N + nheads)
+    z, xbc, dt = torch.split(y, [d_in, ch, nheads], dim=-1)
+    h_l = p["a_log"].shape[0]
+    h0 = rules.index * h_l if h_l < nheads else 0
+    c0, c1 = h0 * P, (h0 + h_l) * P
+    conv_w = rules.whole(cast(p["conv_w"]), 1, ch)
+    conv_b = rules.whole(p["conv_b"], 0, ch)
+    if mode == "decode" and cache is None:
+        raise ValueError("decode needs the (conv, ssm) cache")
+    conv_state = cache[0] if mode == "decode" else None
+    # the whole conv window for the next call, the same on every rank
+    pad = (conv_state.to(xbc.dtype) if conv_state is not None else
+           xbc.new_zeros((xbc.shape[0], W - 1, ch)))
+    new_conv = torch.cat([pad, xbc], dim=1)[:, xbc.shape[1]:]
+    if h_l < nheads:        # this rank's heads' x channels, and B, C
+        sel = torch.cat([torch.arange(c0, c1, device=x.device),
+                         torch.arange(d_in, ch, device=x.device)])
+        xbc, conv_w, conv_b = (xbc.index_select(-1, sel),
+                               conv_w.index_select(1, sel),
+                               conv_b.index_select(0, sel))
+        pad = pad.index_select(-1, sel)
+        z = z[..., c0:c1]
+    xbc_conv, _ = _causal_conv(xbc, conv_w, conv_b,
+                               pad if conv_state is not None else None)
+    dt = _softplus(dt[..., h0:h0 + h_l].float()
+                   + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["a_log"].float())
+    xx, B, C = torch.split(xbc_conv, [h_l * P, N, N], dim=-1)
+    xh = xx.reshape(*xx.shape[:2], h_l, P)
+    if mode == "decode":
+        yh, new_state = _ssd_step(xh, dt, A, B, C, cache[1])
+        new_cache = (new_conv.to(conv_state.dtype),
+                     new_state.to(cache[1].dtype))
+    else:
+        yh, final = _ssd_chunked(xh, dt, A, B, C, s_cfg.chunk_size)
+        new_cache = (new_conv, final) if mode == "prefill" else None
+    return _ssm_tail(cfg, p, x, yh, xh, z, d_in, rules), new_cache
 
 
 def ssm_layer_paged(cfg: ModelConfig, pcfg: ParallelConfig,

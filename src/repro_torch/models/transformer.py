@@ -39,8 +39,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import (current_layout, gather_params,
-                                              resolve_spec)
+from repro_torch.distributed.sharding import (RuleLayout, current_layout,
+                                              gather_params, gathering,
+                                              resolve_spec, sharding_env)
 from . import attention as attn_mod
 from . import layers as _layers
 from . import moe as moe_mod
@@ -48,7 +49,7 @@ from . import ssm as ssm_mod
 from .attention import attn_defs
 from .layers import (cast, embed, embed_defs, logits_out, mlp, mlp_defs,
                      rmsnorm, rmsnorm_def)
-from .params import ParamDef, stacked, tree_leaves, tree_map
+from .params import ParamDef, rule_specs, stacked, tree_leaves, tree_map
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -217,19 +218,37 @@ def cache_pspecs(cfg: ModelConfig, batch: int, max_len: int,
                     cache_spec(cfg, batch, max_len, enc_len))
 
 
+def rule_layout(cfg: ModelConfig, mesh, *, global_batch: int, max_len: int,
+                enc_len: int = 0) -> RuleLayout:
+    """This rank's share of the JAX rule set's serving layout of a step
+    over ``global_batch`` rows and a cache of ``max_len`` positions (and
+    ``enc_len`` memory positions) on ``mesh`` (``{"data", "model"}`` or
+    ``{"pod", "data", "model"}``), as the JAX dryrun lays out its
+    prefill and decode cells: ``forward(rules=...)``'s argument.  Whole
+    parameters are cut to this layout by ``params.rule_params``."""
+    with sharding_env(mesh, multi_pod="pod" in mesh.shape, fsdp=True):
+        return RuleLayout(
+            mesh, dict(tree_leaves(rule_specs(model_defs(cfg), mesh))),
+            cache_pspecs(cfg, global_batch, max_len, enc_len),
+            global_batch=global_batch, max_len=max_len, enc_len=enc_len)
+
+
 # --------------------------------------------------------------------- #
 # Sub-layer dispatch
 # --------------------------------------------------------------------- #
 
 
 def _run_sublayer(cfg, pcfg, kind, p, x, positions, *, mode, cache,
-                  write_pos, lengths, memory, causal, tp=None):
+                  write_pos, lengths, memory, causal, tp=None, rules=None):
     """One pre-normed sublayer; returns (x, new cache, aux).  With ``tp``
     (the serving engine's tensor-parallel collectives) ``p`` holds this
     rank's slices: the attention's heads and KV heads (its cache the
     rank's KV-head slice) and the MLP's hidden units, whose row-parallel
     outputs (``wo``, the down projection) are summed over the model
-    axis, as in the engine's fused steps."""
+    axis, as in the engine's fused steps.  With ``rules`` (the rule
+    set's serving layout, every kind) ``p`` holds this rank's ``model``
+    blocks, FSDP-gathered, and each kind sums over ``model`` what it
+    split (``attention``, ``moe``, ``ssm``, ``layers.mlp``)."""
     if tp is not None and kind not in ("attn", "mlp"):
         raise NotImplementedError(f"sublayer kind {kind!r} under a mesh: "
                                   "the engine serves dense layers there")
@@ -238,23 +257,24 @@ def _run_sublayer(cfg, pcfg, kind, p, x, positions, *, mode, cache,
     if kind == "mla":
         out, new_cache = attn_mod.mla_attention(
             cfg, pcfg, p["attn"], h, positions, mode=mode, cache=cache,
-            write_pos=write_pos, lengths=lengths)
+            write_pos=write_pos, lengths=lengths, rules=rules)
     elif kind == "attn":
         out, new_cache = attn_mod.gqa_attention(
             cfg, pcfg, p["attn"], h, positions, mode=mode, causal=causal,
-            cache=cache, write_pos=write_pos, lengths=lengths)
+            cache=cache, write_pos=write_pos, lengths=lengths, rules=rules)
     elif kind == "cross":
         out, new_cache = attn_mod.gqa_attention(
             cfg, pcfg, p["attn"], h, positions, mode=mode, causal=False,
             cache=cache, write_pos=write_pos, lengths=None, memory=memory,
-            is_cross=True)
+            is_cross=True, rules=rules)
     elif kind == "mamba":
         out, new_cache = ssm_mod.ssm_layer(cfg, pcfg, p["ssm"], h, mode=mode,
-                                           cache=cache)
+                                           cache=cache, rules=rules)
     elif kind == "mlp":
-        out, new_cache = mlp(p["mlp"], h, cfg.activation), None
+        out = mlp(p["mlp"], h, cfg.activation, rules=rules, d_ff=cfg.d_ff)
+        new_cache = None
     elif kind == "moe":
-        out, aux = moe_mod.moe_layer(cfg, pcfg, p["moe"], h)
+        out, aux = moe_mod.moe_layer(cfg, pcfg, p["moe"], h, rules=rules)
         new_cache = None
     else:
         raise ValueError(kind)
@@ -275,7 +295,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
                write_pos, lengths, memory, causal, gname="group0",
-               tp=None):
+               tp=None, rules=None):
     """One stacked layer group (``params[gname]``), a Python loop over
     its layers.  Each layer's cache is a view of the stacked ``gcache``;
     a sublayer that returns new cache tensors (an SSM's final state, a
@@ -285,9 +305,10 @@ def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
     inputs, "dots" also its products without batch dims, "none"
     everything.  Under a ZeRO-3 layout (``sharding.gathering``) the body
     first gathers its layer's leaves, so a recompute gathers them again
-    and only one layer is ever whole.  ``tp``: see
-    :func:`_run_sublayer`.  Returns (x, gcache or None, the summed aux
-    loss)."""
+    and only one layer is ever whole (the rule set's serving layout
+    gathers its FSDP slices so, over the batch axes).  ``tp``,
+    ``rules``: see :func:`_run_sublayer`.  Returns (x, gcache or None,
+    the summed aux loss)."""
     leaf = gparams
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
@@ -321,7 +342,7 @@ def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
                 x, nc, aux = _run_sublayer(
                     cfg, pcfg, k, p, x, positions, mode=mode,
                     cache=view, write_pos=write_pos, lengths=lengths,
-                    memory=memory, causal=causal, tp=tp)
+                    memory=memory, causal=causal, tp=tp, rules=rules)
                 if view is not None and nc is not None:
                     for dst, src in zip(view, nc):
                         if src.data_ptr() != dst.data_ptr():
@@ -348,16 +369,17 @@ def _run_group(cfg, pcfg, kinds, gparams, x, positions, *, mode, gcache,
 
 
 def _input_embed(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-                 tp=None):
+                 tp=None, rules=None):
     """Token (and stub-frontend patch) embedding, vocab-parallel with
-    ``tp``; returns (x, positions)."""
+    ``tp`` (and with ``rules`` where the vocab divides ``model``);
+    returns (x, positions)."""
     if tp is not None:
         x = tp.embed(params["embed"], batch["tokens"], cfg)
     else:
         # whole, in its own dtype: the lookup's backward sums a token's
         # rows in the table's dtype
         tok = gather_params(params["embed"]["tok"], "embed/tok")
-        x = embed({"tok": tok}, batch["tokens"], cfg)
+        x = embed({"tok": tok}, batch["tokens"], cfg, rules=rules)
     if cfg.num_patch_tokens and "patch_embeds" in batch \
             and cfg.family != "encdec":
         if tp is not None:
@@ -376,7 +398,7 @@ def _input_embed(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     return x, positions
 
 
-def _encoder(cfg, pcfg, params, batch):
+def _encoder(cfg, pcfg, params, batch, rules=None):
     proj = gather_params(params["frame_proj"], "frame_proj")
     frames = cast(torch.einsum("bse,ed->bsd", batch["frames"].float(),
                                cast(proj).float()))
@@ -385,27 +407,31 @@ def _encoder(cfg, pcfg, params, batch):
     _, kinds = layer_groups(cfg)[0]
     h, _, _ = _run_group(cfg, pcfg, kinds, params["group0"], frames, pos,
                          mode="train", gcache=None, write_pos=None,
-                         lengths=None, memory=None, causal=False)
+                         lengths=None, memory=None, causal=False,
+                         rules=rules)
     return rmsnorm(h, gather_params(params["enc_final_norm"],
                                     "enc_final_norm"), cfg.norm_eps)
 
 
 def _logits(cfg: ModelConfig, pcfg: ParallelConfig, params,
-            x: torch.Tensor, tp=None) -> torch.Tensor:
+            x: torch.Tensor, tp=None, rules=None) -> torch.Tensor:
     """Output logits over the output table (the tied token table where
-    there is none), vocab-parallel with ``tp``."""
+    there is none), vocab-parallel with ``tp`` (and with ``rules`` where
+    the vocab divides ``model``)."""
     if tp is not None:
         return tp.logits(params["embed"], x, cfg, fp32=pcfg.logits_fp32)
     key = "out" if "out" in params["embed"] else "tok"
     table = gather_params(params["embed"][key], f"embed/{key}")
-    return logits_out({"tok": table}, x, cfg, fp32=pcfg.logits_fp32)
+    return logits_out({"tok": table}, x, cfg, fp32=pcfg.logits_fp32,
+                      rules=rules)
 
 
 def forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
             batch: Dict[str, torch.Tensor], *, mode: str,
             cache: Optional[Dict[str, Any]] = None,
             write_pos: Optional[int] = None,
-            lengths: Optional[torch.Tensor] = None, tp=None):
+            lengths: Optional[torch.Tensor] = None, tp=None,
+            rules: Optional[RuleLayout] = None):
     """The unified forward.
 
     train:    returns (logits, aux)
@@ -423,11 +449,30 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
     layers only) the weights stay sliced, heads and KV heads local (the
     cache holds the rank's KV-head slice), the row-parallel outputs
     summed and the embedding and logits vocab-parallel, as the engine's
-    fused steps run them."""
+    fused steps run them.
+
+    With ``rules`` (:func:`rule_layout`, every family) ``params``,
+    ``batch``, ``lengths`` and ``cache`` are this rank's blocks under the
+    JAX rule set's serving layout (``params.rule_params``,
+    ``RuleLayout.cut_batch``, ``cut_cache``); the forward gathers each
+    layer's FSDP slices over the batch axes where they are used,
+    computes the function the whole forward computes for its batch
+    block, and returns its batch block's logits, whole over the vocab,
+    with its cache block written in place."""
+    if rules is None:
+        return _forward(cfg, pcfg, params, batch, mode=mode, cache=cache,
+                        write_pos=write_pos, lengths=lengths, tp=tp)
+    with gathering(rules.fsdp):
+        return _forward(cfg, pcfg, params, batch, mode=mode, cache=cache,
+                        write_pos=write_pos, lengths=lengths, rules=rules)
+
+
+def _forward(cfg, pcfg, params, batch, *, mode, cache, write_pos, lengths,
+             tp=None, rules=None):
     memory = None
     if cfg.family == "encdec" and mode != "decode":
-        memory = _encoder(cfg, pcfg, params, batch)
-    x, positions = _input_embed(cfg, params, batch, tp)
+        memory = _encoder(cfg, pcfg, params, batch, rules)
+    x, positions = _input_embed(cfg, params, batch, tp, rules)
     if mode == "decode" and lengths is not None:
         # lengths count the context including the token decoded, whose
         # position is therefore lengths - 1
@@ -442,7 +487,8 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
         x, ngc, aux = _run_group(
             cfg, pcfg, kinds, params[gname], x, positions, mode=mode,
             gcache=(cache or {}).get(gname), write_pos=write_pos,
-            lengths=lengths, memory=memory, causal=True, gname=gname, tp=tp)
+            lengths=lengths, memory=memory, causal=True, gname=gname, tp=tp,
+            rules=rules)
         if ngc is not None:
             new_cache[gname] = ngc
         aux_total = aux_total + aux
@@ -452,7 +498,8 @@ def forward(cfg: ModelConfig, pcfg: ParallelConfig, params,
     if mode == "features":
         return x, aux_total
     if mode == "train":
-        return _logits(cfg, pcfg, params, x, tp), aux_total
+        return _logits(cfg, pcfg, params, x, tp, rules), aux_total
     if mode == "prefill":
-        return _logits(cfg, pcfg, params, x[:, -1:], tp), new_cache, aux_total
-    return _logits(cfg, pcfg, params, x, tp), new_cache
+        return (_logits(cfg, pcfg, params, x[:, -1:], tp, rules), new_cache,
+                aux_total)
+    return _logits(cfg, pcfg, params, x, tp, rules), new_cache

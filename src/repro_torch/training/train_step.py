@@ -268,26 +268,29 @@ def make_eval_step(cfg: ModelConfig, pcfg: ParallelConfig):
 # ----------------------- serve steps (dry-run units) -------------------- #
 
 
-def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, tp=None):
-    """``tp``: the serving engine's tensor-parallel collectives (see
-    ``transformer.forward``); ``params`` and ``cache`` are then this
-    rank's slices."""
+def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, tp=None,
+                      rules=None):
+    """``tp``: the serving engine's tensor-parallel collectives;
+    ``rules``: the rule set's serving layout (``transformer.rule_layout``;
+    see ``transformer.forward``); ``params``, ``batch``, ``cache`` and
+    ``lengths`` are then this rank's blocks."""
     @torch.no_grad()
     def prefill_step(params, batch, cache, lengths):
         logits, new_cache, _ = T.forward(cfg, pcfg, params, batch,
                                          mode="prefill", cache=cache,
-                                         lengths=lengths, tp=tp)
+                                         lengths=lengths, tp=tp, rules=rules)
         return logits, new_cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, tp=None):
-    """``tp``: as :func:`make_prefill_step`."""
+def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, tp=None,
+                     rules=None):
+    """``tp``, ``rules``: as :func:`make_prefill_step`."""
     @torch.no_grad()
     def decode_step(params, batch, cache, write_pos, lengths):
         return T.forward(cfg, pcfg, params, batch, mode="decode",
                          cache=cache, write_pos=write_pos, lengths=lengths,
-                         tp=tp)
+                         tp=tp, rules=rules)
 
     return decode_step

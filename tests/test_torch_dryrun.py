@@ -40,7 +40,7 @@ from repro_torch.launch.mesh import process_group  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import (param_count, param_specs,  # noqa: E402
                                        tree_leaves)
-from repro_torch.roofline import hw  # noqa: E402
+from repro_torch.roofline import analysis as ra, hw  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
@@ -207,13 +207,15 @@ def test_ranks_sum_to_one_rank_flops(kind):
 
 
 def test_decode_collectives_are_the_layout_sums():
-    """minitron-8b decode_32k at 16x16: {"data": 32, "model": 8}, each
-    rank 4 rows; per layer an all-reduce of the attention output and one
-    of the MLP output, (4, 1, d_model) bf16 each, plus the embedding's
-    sum (bf16) and the vocab-parallel logits' (float32)."""
+    """minitron-8b decode_32k at 16x16 on the engine's tensor-parallel
+    step (``model=8`` forces it; the sweep lays serving cells out by the
+    rule set): {"data": 32, "model": 8}, each rank 4 rows; per layer an
+    all-reduce of the attention output and one of the MLP output, (4,
+    1, d_model) bf16 each, plus the embedding's sum (bf16) and the
+    vocab-parallel logits' (float32)."""
     cfg = ARCHS["minitron-8b"]
     rec = D.trace_cell(cfg, SHAPES["decode_32k"], multi_pod=False,
-                       device="meta")
+                       device="meta", model=8)
     assert (rec["layout"], rec["rank_mesh"]) == \
         ("tensor_parallel", {"data": 32, "model": 8})
     b, L = 4, cfg.num_layers
@@ -294,17 +296,22 @@ def test_cli_writes_the_record_and_imports_no_jax(tmp_path):
     assert not dist.is_initialized()
     rec = json.loads((tmp_path / "gemma-2b__decode_32k__16x16.json")
                      .read_text())
-    # gemma's one KV head splits over no model axis: a replica a rank
+    # the rule set's layout on the JAX dryrun's mesh: gemma's 8 heads
+    # and one KV head stay whole over model, the batch and the FSDP
+    # slices split over data, the cache's sequence over model
     assert (rec["layout"], rec["rank_mesh"]) == \
-        ("replica", {"data": 256, "model": 1})
-    assert rec["batch_local"] == {"tokens": [128, 1]}
+        ("rules", {"data": 16, "model": 16})
+    assert rec["batch_local"] == {"tokens": [8, 1]}
     assert rec["memory"]["hbm_bytes"] == hw.HBM_BYTES
     assert rec["memory"]["fits_hbm_analytic"] is True
     r = rec["roofline"]
     assert r["t_memory_s"] == rec["traced"]["bytes"] / hw.HBM_BW
     assert r["t_compute_s"] == rec["traced"]["flops"] / hw.PEAK_FLOPS_BF16
-    assert r["collective_bytes_per_chip"] == 0.0
-    assert r["bottleneck"] == "memory"
+    assert r["collective_bytes_per_chip"] == \
+        ra.collective_bytes_total(rec["collectives"]) > 0
+    assert r["bottleneck"] == max(
+        ("compute", "memory", "collective"),
+        key=lambda k: r[f"t_{k}_s"])
     # importing the module loads neither JAX nor its package
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("XLA_FLAGS", None)

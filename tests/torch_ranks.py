@@ -389,3 +389,58 @@ def collectives(rank: int, world: int) -> Dict:
     out["scatter"] = mesh.reduce_scatter(full, "data", 1)
     out["bytes"] = mesh.collective_bytes()
     return out
+
+
+def rule_forward(rank: int, world: int, cases: Dict) -> Dict:
+    """Each case's ``forward`` in the rule set's serving layout on this
+    rank's blocks (``transformer.rule_layout``): a prefill, then a
+    decode step per entry of ``case["decode"]``, computing and caching
+    in float32.  Returns per case the rank's mesh coordinates, its batch
+    block's logits and its cache blocks by path."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import rule_params, tree_leaves
+    L.COMPUTE_DTYPE = torch.float32
+    T.CACHE_DTYPE = torch.float32
+    meshes: Dict = {}
+    out = {}
+    for name, c in cases.items():
+        key = tuple(c["mesh"].items())
+        if key not in meshes:
+            meshes[key] = Mesh(c["mesh"])
+        mesh = meshes[key]
+        cfg, B, n = c["cfg"], c["batch"], c["prompt_len"]
+        rules = T.rule_layout(cfg, mesh, global_batch=B,
+                              max_len=c["max_len"], enc_len=c["enc_len"])
+        params = rule_params(from_jax_params(c["params"], "cpu"),
+                             T.model_defs(cfg), mesh)
+        cache = rules.cut_cache(T.init_cache(cfg, B, c["max_len"],
+                                             c["enc_len"], device="cpu"))
+
+        def rows(**kw):
+            return rules.cut_batch({k: torch.as_tensor(v)
+                                    for k, v in kw.items()})
+
+        def lens(m):
+            return np.full((B,), m, np.int32)
+
+        b = rows(**c["prefill"], lengths=lens(n))
+        lg, cache, _ = T.forward(cfg, c["pcfg"], params,
+                                 {k: v for k, v in b.items()
+                                  if k != "lengths"}, mode="prefill",
+                                 cache=cache, lengths=b["lengths"],
+                                 rules=rules)
+        got = {"coords": {a: mesh.index(a) for a in c["mesh"]},
+               "prefill": lg.numpy(), "decode": []}
+        for t, tok in enumerate(c["decode"]):
+            b = rows(tokens=tok, lengths=lens(n + t + 1))
+            lg, cache = T.forward(cfg, c["pcfg"], params,
+                                  {"tokens": b["tokens"]}, mode="decode",
+                                  cache=cache, write_pos=n + t,
+                                  lengths=b["lengths"], rules=rules)
+            got["decode"].append(lg.numpy())
+        got["cache"] = {p: [t.numpy() for t in pair]
+                        for p, pair in tree_leaves(cache)}
+        out[name] = got
+    return out
