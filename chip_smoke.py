@@ -201,18 +201,30 @@ exits nonzero:
     21(b)'s replicated run and its peak GB reserved a rank beside
     21(b)'s; (b) the deepest depth a two-rank probe at one and two
     layers allows, ``ZERO_STEPS`` steps; each rank's collective bytes by
-    kind (``Mesh.collective_bytes``); then ``repro_torch.examples.serve_rowclone`` in a subprocess on the
-    card.  The ``total`` line gives the whole run's seconds, phase 19's,
-    phases 20-21's, phase 22's and phase 23's;
-23. the dry run (``repro_torch.launch.dryrun.trace_cell``, last): four
+    kind (``Mesh.collective_bytes``);
+24. the JAX rule set's 2-D training layout (after phase 22, on its
+    reference): gemma-2b at full width over four gloo ranks at
+    ``{"data": 2, "model": 2}`` (its 8 heads, 16 384-wide MLP and
+    256 000-token vocab split over ``model``, its one KV head whole, FSDP
+    over ``data``), phase 22(a)'s depth, weights and global batch,
+    ``RULE_TRAIN_STEPS`` steps: losses and grad norms against 22(a)'s
+    ZeRO-3 run within ``RULE_TRAIN_*_RTOL``, the ranks equal, each
+    rank's peak GB reserved beside 22(a)'s and its collective bytes by
+    kind; then ``repro_torch.examples.serve_rowclone`` in a subprocess
+    on the card.  The ``total`` line gives the whole run's seconds,
+    phase 19's, phases 20-21's, phase 22's, phase 24's and phase 23's;
+23. the dry run (``repro_torch.launch.dryrun.trace_cell``, last): five
     cells traced on the card as rank 0 of their production world under a
     fake process group, with real tensors at the rank's shapes —
-    gemma-2b ``train_4k`` at ``{"data": 256, "model": 1}`` (ZeRO-3),
-    minitron-8b ``decode_32k`` at ``{"data": 32, "model": 8}`` (the
-    engine's tensor-parallel step, forced), and granite-3-8b and
-    llama4-scout-17b-a16e ``decode_32k`` in the JAX rule set's serving
-    layout at ``{"data": 16, "model": 16}`` (granite's vocab and KV
-    heads whole over ``model``, llama4's experts over it) — each with
+    gemma-2b ``train_4k`` at ``{"data": 256, "model": 1}`` (ZeRO-3,
+    forced) and in the JAX rule set's 2-D layout at ``{"data": 16,
+    "model": 16}`` (its 8 heads whole over ``model``, its MLP and vocab
+    split, 16 sequences a rank), minitron-8b ``decode_32k`` at
+    ``{"data": 32, "model": 8}`` (the engine's tensor-parallel step,
+    forced), and granite-3-8b and llama4-scout-17b-a16e ``decode_32k``
+    in the rule set's serving layout at ``{"data": 16, "model": 16}``
+    (granite's vocab and KV heads whole over ``model``, llama4's experts
+    over it) — each with
     its argument GB and its peak allocated and reserved bytes above
     what the process held when the trace began (printed as the
     baseline) beside the record's argument bytes, ``analytic_memory`` and the card's
@@ -4067,6 +4079,21 @@ ZERO_STEPS = 2
 # what a ZeRO-3 rank holds a parameter beyond activations: float32
 # weights, AdamW's m and v and the gradient, each a slice of two
 ZERO_STATE_BYTES = 16 / 2
+# phase 24: gemma-2b in the rule set's 2-D layout against phase 22(a)'s
+# ZeRO-3 run, the same weights and batches, bf16 compute: the
+# row-parallel products (attention's wo, the MLP's down projection) sum
+# two bf16 partials where ZeRO-3 rounds one whole product, and the LM
+# head merges its log-sum-exp over two vocab blocks.  On the CPU at
+# width 256, 4 layers, 4 x 256 tokens (3 AdamW steps, eps 1e-8) the two
+# layouts' losses part by 2.5e-5 and their grad norms by 3.7e-4
+# relative; at full width the sums are longer and every step after the
+# first also carries AdamW's sign flips (DP_LOSS_RTOL's reason), so the
+# losses are held at DP_LOSS_RTOL and the grad norms at 1e-2 in every
+# step both runs took
+RULE_TRAIN_MESH = {"data": 2, "model": 2}
+RULE_TRAIN_STEPS = 3
+RULE_TRAIN_LOSS_RTOL = DP_LOSS_RTOL
+RULE_TRAIN_GNORM_RTOL = 1e-2
 
 
 def _recorder_class():
@@ -4975,10 +5002,133 @@ def zero_training(dev, card, dp: dict) -> dict:
     return out
 
 
-# (arch, shape, the model axis forced onto the engine's tensor-parallel
-# step, or None for the layout the sweep plans: ZeRO-3 for training, the
-# rule set's serving layout otherwise)
-DRYRUN_CELLS = (("gemma-2b", "train_4k", None),
+def _rule_train_rank(rank: int, world: int, cfg, steps: int, device: str
+                     ) -> dict:
+    """One rank of phase 24: gemma-2b at full width cut to ``cfg``'s
+    depth in the rule set's 2-D layout on ``RULE_TRAIN_MESH``: its blocks
+    drawn leaf by leaf from phase 21(b)'s seed (the whole leaf drawn,
+    this rank's block kept: phase 22's weights), ``steps`` steps of
+    phase 21(b)'s batches on its block (rows over ``data``, the same on
+    both ``model`` ranks); its losses, grad norms, step ms, the float64
+    sum of its parameter blocks each divided by the ranks holding a
+    copy of it (the ranks' sums add up to the whole parameters'), its
+    peak bytes over the steps and its collective bytes by kind."""
+    from repro_torch.distributed.sharding import sharding_env
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.train_step import make_train_step
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = Mesh(RULE_TRAIN_MESH)
+    t = time.perf_counter()
+    with sharding_env(mesh, fsdp=True):
+        pcfg, ocfg, params, batches = _dp_gemma(cfg, dev, steps, mesh=mesh)
+    rules = T.rule_layout(cfg, mesh)
+    init, step = make_train_step(cfg, pcfg, ocfg, rules=rules)
+    state = init(params)
+    del params
+    init_s = time.perf_counter() - t
+    layout = step.layout
+    copies = {p: world // layout.size(layout.axes(p))
+              for p in layout.specs}
+    _free_card()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh.reset_collectives()
+    out = {"losses": [], "grad_norms": [], "checksums": [], "step_ms": []}
+    for b in batches:
+        mine = rules.cut_batch(_on(b, dev))
+        synchronize(dev)
+        t = time.perf_counter()
+        state, m = step(state, mine)
+        synchronize(dev)
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["checksums"].append(sum(
+            float(t_.sum(dtype=torch.float64)) / copies[k]
+            for k, t_ in tree_leaves(state["params"])))
+    out["collective_bytes"] = mesh.collective_bytes()
+    out["coords"] = {a: mesh.index(a) for a in RULE_TRAIN_MESH}
+    out["init_seconds"] = init_s
+    out["peak_gb"] = _peak_gb(dev)
+    out["peak_reserved_gb"] = (torch.cuda.max_memory_reserved(dev) / 1e9
+                               if dev.type == "cuda" else None)
+    return out
+
+
+def rule_training(dev, card, zero: dict) -> dict:
+    """Phase 24: gemma-2b at full width in the JAX rule set's 2-D
+    training layout (``make_train_step(rules=transformer.rule_layout(
+    cfg, mesh))``) on four gloo ranks at ``RULE_TRAIN_MESH``: its 8 heads
+    and 16 384-wide MLP split over ``model``, its one KV head whole, its
+    256 000-token vocab split; FSDP over ``data``.  Phase 22(a)'s depth,
+    weights and global batch (4 x DP_SEQ), ``RULE_TRAIN_STEPS`` steps:
+    the losses and grad norms against 22(a)'s ZeRO-3 run at
+    ``RULE_TRAIN_*_RTOL``, every rank's equal, the parameter checksum
+    (every block once) finite; each rank's peak GB reserved beside
+    22(a)'s and its collective bytes by kind.  Four ranks time-share
+    the card and reduce through the host (gloo): the step ms are not a
+    speed of the layout."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import run_ranks
+
+    ref = zero["at_phase21_depth"]
+    cfg = dataclasses.replace(ARCHS["gemma-2b"], num_layers=ref["layers"])
+    t0 = time.perf_counter()
+    world = int(np.prod(list(RULE_TRAIN_MESH.values())))
+    ranks = run_ranks(_rule_train_rank, world, backend="gloo",
+                      args=(cfg, RULE_TRAIN_STEPS, str(dev)), timeout=600.0)
+    r0 = ranks[0]
+    n = min(len(ref["losses"]), RULE_TRAIN_STEPS)
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a[:n], b[:n])]
+
+    held = {"loss_rel_diff": rel(r0["losses"], ref["losses"]),
+            "grad_norm_rel_diff": rel(r0["grad_norms"], ref["grad_norms"]),
+            "zero3_losses": ref["losses"][:n],
+            "zero3_grad_norms": ref["grad_norms"][:n],
+            "zero3_peak_reserved_gb": ref["peak_reserved_gb"],
+            "loss_rtol": RULE_TRAIN_LOSS_RTOL,
+            "grad_norm_rtol": RULE_TRAIN_GNORM_RTOL}
+    ranks_equal = all(r[k] == r0[k] for r in ranks
+                      for k in ("losses", "grad_norms"))
+    checksum = [sum(c) for c in zip(*(r["checksums"] for r in ranks))]
+    ok = (ranks_equal and all(np.isfinite(checksum))
+          and all(np.isfinite(r0["losses"]))
+          and max(held["loss_rel_diff"]) <= RULE_TRAIN_LOSS_RTOL
+          and max(held["grad_norm_rel_diff"]) <= RULE_TRAIN_GNORM_RTOL)
+    out = {"phase": "rule_training", "nvidia_smi": card,
+           "arch": cfg.name, "layers": cfg.num_layers,
+           "layout": "rules: TP over model x FSDP over data",
+           "mesh": RULE_TRAIN_MESH, "backend": "gloo",
+           "ranks_on_one_card": world, "batch": [4, DP_SEQ],
+           "steps": RULE_TRAIN_STEPS, "losses": r0["losses"],
+           "grad_norms": r0["grad_norms"], "checksums": checksum,
+           "ranks_equal": ranks_equal, "held": held,
+           "step_ms": r0["step_ms"],
+           "init_seconds": [r["init_seconds"] for r in ranks],
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "peak_reserved_gb": [r["peak_reserved_gb"] for r in ranks],
+           "collective_bytes": {json.dumps(r["coords"]): r["collective_bytes"]
+                                for r in ranks},
+           "seconds": time.perf_counter() - t0,
+           "note": ("four ranks time-share one card and reduce through "
+                    "host collectives (gloo): not a speed of the layout")}
+    _free_card()
+    if not ok:
+        raise AssertionError(f"rule_training: {json.dumps(out, default=str)}")
+    return out
+
+
+# (arch, shape, the model axis set by hand, or None for the layout the
+# sweep plans: the rule set's on JAX's mesh): a train cell at model 1 is
+# ZeRO-3, a serving cell at 8 the engine's tensor-parallel step
+DRYRUN_CELLS = (("gemma-2b", "train_4k", 1),
+                ("gemma-2b", "train_4k", None),
                 ("minitron-8b", "decode_32k", 8),
                 ("granite-3-8b", "decode_32k", None),
                 ("llama4-scout-17b-a16e", "decode_32k", None))
@@ -5219,8 +5369,12 @@ def main() -> int:
     emit(dp)
     dist_s = time.perf_counter() - t20
     t22 = time.perf_counter()
-    emit(zero_training(dev, card, dp))
+    zero = zero_training(dev, card, dp)
+    emit(zero)
     zero_s = time.perf_counter() - t22
+    t24 = time.perf_counter()
+    emit(rule_training(dev, card, zero))
+    rule_s = time.perf_counter() - t24
     emit(serve_rowclone_example(dev))
     _free_card()
     t23 = time.perf_counter()
@@ -5246,7 +5400,8 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t0,
           "training_seconds": train_s, "distributed_seconds": dist_s,
-          "zero_seconds": zero_s, "dryrun_seconds": dryrun_s,
+          "zero_seconds": zero_s, "rule_training_seconds": rule_s,
+          "dryrun_seconds": dryrun_s,
           "nvidia_smi": card})
     print(card, flush=True)
     emit({"kernels": kernels})

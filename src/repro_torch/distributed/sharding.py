@@ -23,14 +23,19 @@ under :func:`gathering` gathers each leaf where it is used (the
 layers' inside their remat body, so the recompute gathers again), its
 gradient reduce-scattered back to the slice.
 
-The JAX dryrun's serving steps run the whole rule set at once: tensor
+The JAX dryrun's steps run the whole rule set at once: tensor
 parallelism over ``model`` (with the divisibility fallback), FSDP over
 the batch axes (``("pod", "data")`` on the multi-pod mesh), the batch
 over the batch axes and the decode cache's sequence over ``model``.
 :class:`RuleLayout` is a rank's share of that: its FSDP gather (a
-:class:`ZeroLayout` over the batch axes, no backward needed) and the
-model axis's collectives the layers call where a dim they contract is
-split (``transformer.forward(rules=)``).
+:class:`ZeroLayout` over the batch axes, whose backward reduce-scatters
+a training step's gradients) and the model axis's collectives the
+layers call where a dim they contract is split
+(``transformer.forward(rules=)``), each with the backward GSPMD gives it
+(:meth:`RuleLayout.psum`, :meth:`RuleLayout.enter`,
+:meth:`RuleLayout.gather`).  :class:`StateShards` names where every leaf
+of a training state lives, for the optimizer, the clip and the
+checkpoint.
 """
 
 from __future__ import annotations
@@ -196,22 +201,6 @@ def shard(x: torch.Tensor, *laxes: Optional[str]) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 
 
-def fsdp_dim(spec: Spec, axis: str) -> Optional[int]:
-    """The dim a parameter spec splits over ``axis`` (the FSDP hint's
-    dim), or None for a replicated leaf.  A spec that names another
-    mesh axis is refused: the train step splits the data axis only."""
-    dim = None
-    for i, entry in enumerate(spec):
-        axes = _dim_axes(entry)
-        if not axes:
-            continue
-        if axes != (axis,):
-            raise ValueError(f"spec {spec}: a training layout splits the "
-                             f"{axis!r} axis only")
-        dim = i
-    return dim
-
-
 def batch_dim(spec: Spec, batch_axes: Tuple[str, ...]) -> Optional[int]:
     """The dim a parameter spec splits over the batch axes (the FSDP
     hint's dim), whatever it splits over ``model``, or None."""
@@ -257,10 +246,8 @@ class ZeroLayout:
     the parameter tree) to its dim or None.
 
     :meth:`gather` hands the forward a leaf's full tensor (an autograd
-    gather whose backward reduce-scatters the gradient); :meth:`full`
-    and :meth:`local` move whole leaves between the layouts (the
-    checkpoint's one-device layout and a rank's slice);
-    :meth:`psum` sums over the axis.  ``count`` and ``total`` (0-d
+    gather whose backward reduce-scatters the gradient); :meth:`psum`
+    sums over the axis.  ``count`` and ``total`` (0-d
     float32 tensors, this rank's token count and the axis's) weight the
     gradient sum; :meth:`weigh` sets them before a backward."""
 
@@ -271,10 +258,6 @@ class ZeroLayout:
         self.dims = dict(dims)
         self.count: Optional[torch.Tensor] = None
         self.total: Optional[torch.Tensor] = None
-
-    @property
-    def world(self) -> int:
-        return _axes_size(self.mesh, _dim_axes(self.axis))
 
     def weigh(self, count: torch.Tensor,
               total: Optional[torch.Tensor]) -> None:
@@ -303,16 +286,6 @@ class ZeroLayout:
         dim = self.dims[prefix]
         return self.gather(tree, None if dim is None else dim - lead, dtype)
 
-    def full(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """The whole leaf from every rank's slice (no autograd)."""
-        return x if dim is None else self.mesh.all_gather(x, self.axis, dim)
-
-    def local(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """This rank's slice of the whole leaf ``x`` (a view)."""
-        if dim is None:
-            return x
-        size = x.shape[dim] // self.world
-        return x.narrow(dim, self.mesh.index(self.axis) * size, size)
 
 
 def current_layout() -> Optional[ZeroLayout]:
@@ -345,46 +318,134 @@ def gather_params(tree, prefix: str, lead: int = 0,
 
 
 class StateShards:
-    """A ZeRO-3 training state's leaves by their '/'-joined path in the
-    state tree (``dims``: path -> split dim or None): the whole leaf
-    from every rank's slice (:meth:`whole`, a collective every rank
-    joins) and this rank's slice of a whole leaf (:meth:`part`), so a
-    checkpoint keeps the one-device layout."""
+    """Where every leaf of a training state lives: ``specs`` maps a
+    leaf's '/'-joined path to its spec (per dim: None, a mesh axis, or a
+    tuple of axes), the block :func:`local_slice` cuts.  ZeRO-3 names
+    one data-axis dim a leaf; the rule set's layout a ``model`` dim
+    and a dim over the batch axes.
 
-    def __init__(self, layout: ZeroLayout,
-                 dims: Dict[str, Optional[int]]) -> None:
-        self.layout = layout
-        self.dims = dict(dims)
+    The optimizer and the clip read which axes split a leaf (or one of
+    its dims, :meth:`axes`) and sum over them (:meth:`psum`); a
+    checkpoint reads the whole leaf from every rank's block
+    (:meth:`whole`, a collective every rank joins) and cuts this rank's
+    block of a whole one (:meth:`part`), so it keeps the one-device
+    layout."""
+
+    def __init__(self, mesh, specs: Dict[str, Spec]) -> None:
+        self.mesh = mesh
+        self.specs = {p: tuple(s) for p, s in specs.items()}
 
     @property
     def rank(self) -> int:
-        return self.layout.mesh.rank
+        return self.mesh.rank
+
+    @property
+    def dims(self) -> Dict[str, Optional[int]]:
+        """Each leaf's first split dim, or None for a whole leaf."""
+        return {p: next((i for i, e in enumerate(s) if _dim_axes(e)), None)
+                for p, s in self.specs.items()}
+
+    def axes(self, path: str, dim: Optional[int] = None
+             ) -> Tuple[str, ...]:
+        """The mesh axes that split dim ``dim`` of the leaf (every dim
+        when None), in its spec's order."""
+        spec = self.specs[path]
+        if dim is not None:
+            return _dim_axes(spec[dim]) if spec else ()
+        return tuple(a for e in spec for a in _dim_axes(e))
+
+    def size(self, axes: Tuple[str, ...]) -> int:
+        return _axes_size(self.mesh, tuple(axes))
+
+    def psum(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """``x`` summed in place over ``axes``: the batch axes together,
+        then ``model``."""
+        lead = tuple(a for a in axes if a != "model")
+        if lead:
+            self.mesh.all_reduce(x, lead)
+        if "model" in axes:
+            self.mesh.all_reduce(x, "model")
+        return x
 
     def whole(self, path: str, x: torch.Tensor) -> torch.Tensor:
-        return self.layout.full(x, self.dims[path])
+        for dim, entry in enumerate(self.specs[path]):
+            if _dim_axes(entry):
+                x = self.mesh.all_gather(x, _dim_axes(entry), dim)
+        return x
 
     def part(self, path: str, x: torch.Tensor) -> torch.Tensor:
-        return self.layout.local(x, self.dims[path]).clone()
+        return local_slice(x, self.specs[path], self.mesh).clone()
 
     def whole_shape(self, path: str, shape) -> Tuple[int, ...]:
-        out = list(shape)
-        dim = self.dims[path]
-        if dim is not None:
-            out[dim] *= self.layout.world
-        return tuple(out)
+        spec = self.specs[path] + (None,) * (len(shape) - len(
+            self.specs[path]))
+        return tuple(int(n) * _axes_size(self.mesh, _dim_axes(e))
+                     for n, e in zip(shape, spec))
 
 
 # --------------------------------------------------------------------- #
-# The rule set's serving layout (the JAX dryrun's prefill/decode steps)
+# The rule set's layout (the JAX dryrun's train, prefill and decode steps)
 # --------------------------------------------------------------------- #
+
+
+class _Psum(torch.autograd.Function):
+    """A rank's partial result summed over ``model`` (out of place): the
+    sum is replicated, and each partial's cotangent is the sum's, so the
+    backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """A replicated tensor entering a rank's own computation (a product
+    with its block of a split weight, or its heads taken out of a whole
+    tensor): the identity, whose backward sums the ranks' partial
+    cotangents over ``model``, so the tensor's gradient is whole on
+    every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.mesh.all_reduce(g, "model"), None
+
+
+class _GatherModel(torch.autograd.Function):
+    """A tensor split along ``dim`` over ``model`` gathered whole (a
+    replicated result, whose cotangent is whole on every rank): the
+    backward keeps this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.n, ctx.index = dim, x.shape[dim], mesh.index("model")
+        return mesh.all_gather(x, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 class RuleLayout:
-    """One rank's share of the JAX rule set's serving layout on a
-    ``(pod x) data x model`` mesh (``transformer.rule_layout`` builds
-    it): parameters under ``param_specs`` (a dict by leaf path) with the
-    FSDP hint, the batch over the batch axes where it divides them
-    (``batch_shards`` blocks, else whole), the decode cache under
+    """One rank's share of the JAX rule set's layout on a ``(pod x) data
+    x model`` mesh (``transformer.rule_layout`` builds it): parameters
+    under ``param_specs`` (a dict by leaf path) with the FSDP hint, the
+    batch over the batch axes where it divides them (``batch_shards``
+    blocks, else whole), and for a serving step the decode cache under
     ``cache_specs`` (``cache_pspecs``: its sequence over ``model`` where
     the length divides it).
 
@@ -397,11 +458,24 @@ class RuleLayout:
     axis's collectives below where a split dim is contracted or a whole
     one is needed: a path computed whole on every model rank (a dim the
     fallback leaves whole) is never summed over ``model``.
-    ``max_len`` and ``enc_len`` are the cache's full sequence lengths."""
+    ``max_len`` and ``enc_len`` are the cache's full sequence lengths
+    (0 for a train step, which has no cache).
 
-    def __init__(self, mesh, param_specs: Dict[str, Spec], cache_specs, *,
-                 global_batch: int, max_len: int, enc_len: int = 0) -> None:
+    Under autograd (a train step) every model rank holds the same batch
+    block, so the loss is the same on each, and a replicated tensor's
+    gradient must come out whole on each: :meth:`psum` (a partial made
+    replicated) passes its cotangent through, :meth:`enter` (a
+    replicated tensor used by a rank's own computation) sums its
+    cotangent over ``model``, and :meth:`gather` keeps this rank's block
+    of it.  A leaf whole over ``model`` that only replicated paths use
+    needs no sum; one whose output feeds a rank's own computation is
+    entered."""
+
+    def __init__(self, mesh, param_specs: Dict[str, Spec], cache_specs=None,
+                 *, global_batch: Optional[int] = None, max_len: int = 0,
+                 enc_len: int = 0) -> None:
         self.mesh = mesh
+        self.param_specs = dict(param_specs)
         self.batch_axes: Tuple[str, ...] = tuple(
             a for a in ("pod", "data") if a in mesh.shape)
         self.fsdp = ZeroLayout(
@@ -411,8 +485,10 @@ class RuleLayout:
         self.model = int(mesh.shape.get("model", 1))
         self.index = mesh.index("model") if self.model > 1 else 0
         nb = _axes_size(mesh, self.batch_axes)
-        #: the batch blocks the global batch is cut into (1: whole)
-        self.batch_shards = nb if nb > 1 and global_batch % nb == 0 else 1
+        #: the batch blocks the global batch is cut into (1: whole; a
+        #: train step's batch, ``global_batch`` None, is cut)
+        self.batch_shards = nb if nb > 1 and (
+            global_batch is None or global_batch % nb == 0) else 1
         self.max_len, self.enc_len = max_len, enc_len
 
     # -- a rank's blocks of whole inputs --------------------------------- #
@@ -440,8 +516,20 @@ class RuleLayout:
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over ``model`` of a partial result (a split dim
-        contracted)."""
-        return self.mesh.all_reduce(x, "model") if self.model > 1 else x
+        contracted); in place unless autograd records ``x``."""
+        if self.model == 1:
+            return x
+        if _records(x):
+            return _Psum.apply(x, self.mesh)
+        return self.mesh.all_reduce(x, "model")
+
+    def enter(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """``x``, replicated over ``model``, as the input of this rank's
+        own computation: the identity, whose backward sums the
+        cotangent over ``model`` (nothing without autograd)."""
+        if self.model == 1 or x is None or not _records(x):
+            return x
+        return _Enter.apply(x, self.mesh)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce(x, "model", op="max") \
@@ -450,8 +538,11 @@ class RuleLayout:
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The whole of a tensor split along ``dim`` over ``model``."""
         dim = dim % x.dim()
-        return self.mesh.all_gather(x, "model", dim) if self.model > 1 \
-            else x
+        if self.model == 1:
+            return x
+        if _records(x):
+            return _GatherModel.apply(x, self.mesh, dim)
+        return self.mesh.all_gather(x, "model", dim)
 
     def whole(self, x: torch.Tensor, dim: int, full: int) -> torch.Tensor:
         """``x`` whole along ``dim``: gathered over ``model`` if it is a

@@ -36,25 +36,28 @@ number is one rank's.
 
 The layouts (the record names its ``layout`` and ``rank_mesh``):
 
-* train, ``zero3``: ZeRO-3 over one data axis, ``{"data": world,
-  "model": 1}`` under ``sharding_env(mesh, fsdp=True)``, as the JAX
-  launcher trains (a model axis would replicate the whole step: the
-  port's ``ZeroLayout`` splits the data axis only).  The microbatch
+* every cell, ``rules``: the JAX dryrun's own layout on its mesh,
+  ``{"data": 16, "model": 16}`` or ``{"pod": 2, "data": 16, "model":
+  16}``: every parameter, optimizer moment, cache leaf and batch input
+  is the block JAX's ``param_specs`` (FSDP hint on), ``cache_pspecs``
+  and ``batch_pspecs`` give the device at the rank's coordinates, for
+  every family: tensor parallelism over ``model`` where a dim divides
+  it, FSDP slices gathered over the batch axes a layer at a time, MoE
+  in the expert-parallel body.  A serving step is
+  ``forward(rules=transformer.rule_layout(...))``, the cache's sequence
+  over ``model`` with decode attention merged across it; a train step
+  is ``make_train_step(rules=)``, whose model-axis collectives carry
+  their backward, its gradients reduce-scattered over the batch axes
+  (a multi-pod rank holds 8 of the 256 sequences).  The microbatch
   count is cut to a divisor of the rank's batch.
-* prefill and decode, ``rules``: the JAX dryrun's own layout on its
-  mesh, ``{"data": 16, "model": 16}`` or ``{"pod": 2, "data": 16,
-  "model": 16}``: every parameter, cache leaf and batch input is the
-  block JAX's ``param_specs`` (FSDP hint on), ``cache_pspecs`` and
-  ``batch_pspecs`` give the device at the rank's coordinates, and the
-  step is ``forward(rules=transformer.rule_layout(...))`` for every
-  family: tensor parallelism over ``model`` where a dim divides it,
-  FSDP slices gathered over the batch axes a layer at a time, the
-  cache's sequence over ``model`` with decode attention merged across
-  it, MoE in the expert-parallel body.
-* ``trace_cell(model=m)`` forces the serving engine's tensor-parallel
-  step instead, ``tensor_parallel`` on ``{"data": world // m, "model":
-  m}`` (``forward(tp=_TP)``, dense layers only, the cache the rank's
-  KV-head slice), or ``replica`` at m = 1 (whole weights a rank).
+* ``trace_cell(model=m)`` reshapes that: a train cell at m = 1 takes
+  ``zero3``, ZeRO-3 over one data axis, ``{"data": world, "model":
+  1}`` under ``sharding_env(mesh, fsdp=True)``, as the JAX launcher
+  trains, and at m > 1 ``rules`` on ``{"data": world // m, "model":
+  m}``; a serving cell takes the serving engine's tensor-parallel step,
+  ``tensor_parallel`` on ``{"data": world // m, "model": m}``
+  (``forward(tp=_TP)``, dense layers only, the cache the rank's KV-head
+  slice), or ``replica`` at m = 1 (whole weights a rank).
 
 A batch that does not divide the batch axes (``long_500k``'s one row)
 stays whole on every rank, as ``resolve_spec`` leaves it, and so does
@@ -119,6 +122,7 @@ from repro_torch.roofline import analysis as ra
 from repro_torch.roofline import hw
 from repro_torch.serving.engine import _TP
 from repro_torch.training import train_step as ts
+from repro_torch.training.optimizer import make_optimizer
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__),
                             "../../../experiments/dryrun_torch")
@@ -259,19 +263,20 @@ class Layout:
 
 def plan_layout(shape: ShapeConfig, world: int, model: Optional[int] = None,
                 multi_pod: bool = False) -> Layout:
-    """The cell's layout at ``world`` ranks.  A serving cell takes the
-    rule set's layout on the JAX dryrun's mesh (the production mesh at
-    its world; elsewhere ``{"data": world // m, "model": m}``, m the
-    largest of 16, 8, 4, 2, 1 dividing ``world``); ``model`` forces the
-    engine's tensor-parallel step on that model axis instead (a
-    training step refuses any but 1)."""
-    if shape.kind == "train":
-        m, name = model or 1, "zero3"
-    elif model is None:
+    """The cell's layout at ``world`` ranks.  Every cell takes the rule
+    set's layout on the JAX dryrun's mesh (the production mesh at its
+    world; elsewhere ``{"data": world // m, "model": m}``, m the largest
+    of 16, 8, 4, 2, 1 dividing ``world``).  ``model`` sets the model
+    axis instead: a train cell takes ZeRO-3 at 1 and the rule set's
+    layout above it, a serving cell the engine's tensor-parallel step
+    (a replica at 1)."""
+    if model is None:
         if world == production_world(multi_pod):
             return Layout("rules", production_mesh_shape(multi_pod).shape)
         m = next(k for k in (16, 8, 4, 2, 1) if world % k == 0)
         return Layout("rules", {"data": world // m, "model": m})
+    if shape.kind == "train":
+        m, name = model, ("rules" if model > 1 else "zero3")
     else:
         m, name = model, ("tensor_parallel" if model > 1 else "replica")
     if world % m:
@@ -485,17 +490,25 @@ def _rank_cache(cfg, shape, pcfg, layout: Layout, ms: MeshShape, b: int,
 
 def rank_arguments(cfg: ModelConfig, shape: ShapeConfig, *, multi_pod: bool,
                    device: DeviceLike = "meta") -> Dict[str, Any]:
-    """A serving cell's rank-0 arguments in its layout at the production
-    world, built without a process group or a step: ``layout``,
-    ``params``, ``cache``, ``batch`` and ``lengths`` (the blocks
-    :func:`trace_cell` hands the step)."""
-    if shape.kind == "train":
-        raise ValueError("rank_arguments builds a serving cell's arguments")
+    """A cell's rank-0 arguments in its layout at the production world,
+    built without a process group or a step: ``layout`` and ``batch``,
+    and a train cell's ``state`` (parameters in ``param_dtype`` and
+    AdamW's moments in ``opt_state_dtype``, as ``init_state`` makes
+    them) or a serving cell's ``params``, ``cache`` and ``lengths`` (the
+    blocks :func:`trace_cell` hands the step)."""
     layout = plan_layout(shape, production_world(multi_pod),
                          multi_pod=multi_pod)
-    return _serving_args(cfg, shape, parallel_for(cfg, multi_pod), layout,
-                         MeshShape(layout.mesh),
-                         _Maker(resolve_device(device), seed=0))
+    pcfg, ms = parallel_for(cfg, multi_pod), MeshShape(layout.mesh)
+    make = _Maker(resolve_device(device), seed=0)
+    if shape.kind != "train":
+        return _serving_args(cfg, shape, pcfg, layout, ms, make)
+    params = _rank_params(T.model_defs(cfg), layout, ms,
+                          _dtype(pcfg.param_dtype), make)
+    opt_init, _ = make_optimizer(OptimizerConfig(),
+                                 _dtype(pcfg.opt_state_dtype))
+    return {"layout": layout,
+            "state": {"params": params, "opt": opt_init(params)},
+            "batch": _rank_batch(cfg, shape, layout, ms, make)}
 
 
 def _serving_args(cfg, shape, pcfg, layout: Layout, ms: MeshShape,
@@ -607,18 +620,20 @@ def _trace(cfg, shape, pcfg, layout: Layout, ms: MeshShape, dev,
         mb = _largest_divisor(b_local, pcfg.microbatches)
         pcfg = dataclasses.replace(pcfg, microbatches=mb)
         rec["microbatches"] = mb
-        with sharding_env(mesh, fsdp=True):
+        rules = T.rule_layout(cfg, mesh) if layout.name == "rules" else None
+        with sharding_env(mesh, multi_pod="pod" in ms.shape, fsdp=True):
             params = _rank_params(defs, layout, ms,
                                   _dtype(pcfg.param_dtype), make)
             init_state, step = ts.make_train_step(
                 cfg, pcfg, OptimizerConfig(),
-                state_dtype=_dtype(pcfg.opt_state_dtype), mesh=mesh)
+                state_dtype=_dtype(pcfg.opt_state_dtype), mesh=mesh,
+                rules=rules)
             state = init_state(params)
             del params
         args = (state, batch)
 
-        def run():          # the ZeRO-3 step reads the env as it runs
-            with sharding_env(mesh, fsdp=True):
+        def run():          # ZeRO-3's step reads the env as it runs
+            with sharding_env(mesh, multi_pod="pod" in ms.shape, fsdp=True):
                 return step(*args)
     else:
         params, cache, lengths = a["params"], a["cache"], a["lengths"]

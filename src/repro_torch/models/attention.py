@@ -465,10 +465,20 @@ def _gqa_rules(cfg: ModelConfig, pcfg: ParallelConfig, p, x, positions, *,
     heads, attends over its own positions and merges the partial
     softmax across ``model`` (:func:`split_decode_attention`), keeping
     its heads for ``wo``.  Cross attention's memory cache is split
-    likewise on the memory's length."""
+    likewise on the memory's length.
+
+    Under autograd (train, features; no cache) with heads split, ``x``
+    (and a cross attention's memory) enters the rank's heads, and so do
+    whole ``wk``/``wv`` whose KV heads the rank's heads take a part of,
+    so their gradients are summed over ``model``; with heads whole the
+    layer is computed whole on every model rank and sums nothing."""
     H, KVH = cfg.num_heads, cfg.num_kv_heads
     h_l, kvh_l = p["wq"].shape[1], p["wk"].shape[1]
     first = rules.index * h_l if h_l < H else 0
+    if h_l < H:
+        x, memory = rules.enter(x), rules.enter(memory)
+        if kvh_l == KVH:
+            p = dict(p, wk=rules.enter(p["wk"]), wv=rules.enter(p["wv"]))
     q, k, v = _qkv(cfg, p, x, positions, mode=mode, memory=memory,
                    is_cross=is_cross, use_rope=use_rope)
     full = rules.enc_len if is_cross else rules.max_len
@@ -520,13 +530,15 @@ def _gqa_rules(cfg: ModelConfig, pcfg: ParallelConfig, p, x, positions, *,
 # --------------------------------------------------------------------- #
 
 
-def _mla_q(cfg: ModelConfig, p, x):
+def _mla_q(cfg: ModelConfig, p, x, enter=lambda t: t):
+    """The queries; ``enter`` takes the replicated input of the
+    per-head product (``RuleLayout.enter`` where heads are split)."""
     m = cfg.mla
     if m.q_lora_rank:
         cq = x @ cast(p["wq_a"])
         cq = rmsnorm(cq, p["q_norm"], cfg.norm_eps)
-        return torch.einsum("bsr,rhk->bshk", cq, cast(p["wq"]))
-    return torch.einsum("bsd,dhk->bshk", x, cast(p["wq"]))
+        return torch.einsum("bsr,rhk->bshk", enter(cq), cast(p["wq"]))
+    return torch.einsum("bsd,dhk->bshk", enter(x), cast(p["wq"]))
 
 
 def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
@@ -546,9 +558,15 @@ def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
     latent, so a prefill writes its positions with no exchange).  The
     absorbed decode gathers the latent queries' heads, attends over its
     positions, merges across ``model`` and keeps its heads for
-    ``wv_b``/``wo``, whose partial sums are summed over ``model``."""
+    ``wv_b``/``wo``, whose partial sums are summed over ``model``.
+    Under autograd with heads split, the whole latents (the queries',
+    ``c_kv`` and ``k_rope``) enter the rank's heads, their gradients
+    summed over ``model``."""
     m = cfg.mla
-    q = _mla_q(cfg, p, x)                           # (b, s, h, nope+rope)
+    H, h_l = cfg.num_heads, p["wk_b"].shape[1]
+    split = rules is not None and h_l < H
+    enter = rules.enter if split else (lambda t: t)
+    q = _mla_q(cfg, p, x, enter)                    # (b, s, h, nope+rope)
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     ckv_full = x @ cast(p["wkv_a"])
     c_kv, k_rope = (ckv_full[..., :m.kv_lora_rank],
@@ -558,8 +576,7 @@ def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
     q_rope = apply_rope(q_rope, sin, cos)
     k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
-    H, h_l = cfg.num_heads, p["wk_b"].shape[1]
-    first = rules.index * h_l if rules is not None and h_l < H else 0
+    first = rules.index * h_l if split else 0
     lo, n = rules.block(rules.max_len) if rules is not None else (0, None)
 
     if mode == "decode" and rules is not None and n < rules.max_len:
@@ -595,9 +612,10 @@ def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
         out = out[:, None].to(x.dtype)               # (b, 1, h, v)
         new_cache = (ckv_cache, krope_cache)
     else:
-        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, cast(p["wk_b"]))
-        vv = torch.einsum("bsr,rhv->bshv", c_kv, cast(p["wv_b"]))
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        c_kv_h, k_rope_h = enter(c_kv), enter(k_rope)
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv_h, cast(p["wk_b"]))
+        vv = torch.einsum("bsr,rhv->bshv", c_kv_h, cast(p["wv_b"]))
+        k = torch.cat([k_nope, k_rope_h[:, :, None, :].expand(
             *k_nope.shape[:3], m.rope_head_dim)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         # v padded to the qk head dim for the shared helper, then cut
@@ -609,6 +627,4 @@ def mla_attention(cfg: ModelConfig, pcfg: ParallelConfig,
             new_cache = _write_kv(cache, c_kv, k_rope, 0) if rules is None \
                 else _write_block(cache, c_kv, k_rope, lo, 0, x.shape[1])
     y = torch.einsum("bshv,hvd->bsd", out, cast(p["wo"]))
-    if rules is not None and h_l < H:
-        y = rules.psum(y)
-    return y, new_cache
+    return (rules.psum(y) if split else y), new_cache

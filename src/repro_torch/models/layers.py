@@ -96,8 +96,13 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
         activation: str, rules=None, d_ff: int = 0) -> torch.Tensor:
     """x: (b, s, d) -> (b, s, d).  With ``rules`` (a
     ``sharding.RuleLayout``) the weights may be this rank's block of a
-    ``d_ff`` hidden split over ``model``: the down projection's partial
-    sums are then summed over it (a hidden left whole is not)."""
+    ``d_ff`` hidden split over ``model``: ``x`` then enters the rank's
+    block (its gradient summed over ``model``) and the down
+    projection's partial sums are summed over it (a hidden left whole
+    is not)."""
+    split = rules is not None and p["down"].shape[0] < d_ff
+    if split:
+        x = rules.enter(x)
     up = x @ cast(p["up"])
     if activation in ("swiglu", "geglu"):
         gate = x @ cast(p["gate"])
@@ -106,9 +111,7 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         h = gelu(up)
     out = h @ cast(p["down"])
-    if rules is not None and p["down"].shape[0] < d_ff:
-        out = rules.psum(out)
-    return out
+    return rules.psum(out) if split else out
 
 
 # ----------------------------- Embedding ------------------------------ #
@@ -146,10 +149,12 @@ def embed(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
 def logits_out(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                fp32: bool = True, rules=None) -> torch.Tensor:
     """Logits over the output table; with ``rules`` a table split over
-    ``model`` by vocab gives this rank's columns, gathered whole."""
+    ``model`` by vocab gives this rank's columns (``x`` entering the
+    rank's block), gathered whole."""
     table = p.get("out", p["tok"])
+    split = rules is not None and table.shape[0] < cfg.vocab_size
+    if split:
+        x = rules.enter(x)
     out = x @ cast(table).t()
     out = out.float() if fp32 else out
-    if rules is not None and table.shape[0] < cfg.vocab_size:
-        out = rules.gather(out, -1)
-    return out
+    return rules.gather(out, -1) if split else out

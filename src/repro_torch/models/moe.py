@@ -85,18 +85,28 @@ def _local_moe(x, router_w, w_gate, w_up, w_down, *, top_k: int,
                num_experts: int, capacity: int, activation: str,
                model_axis: Optional[str] = None,
                psum_dtype: torch.dtype = torch.float32,
-               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+               mesh=None, rules=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank's MoE body (the JAX ``_local_moe``; with ``model_axis``
     its ``shard_map`` body over ``mesh``).
 
     x: (b, s, d), this rank's tokens; the expert weights are this
     rank's slices (E_local, ...), experts ``[index * E_local, (index +
     1) * E_local)``.  Returns (output summed over ``model_axis`` in x's
-    dtype, the aux load-balance loss of these tokens)."""
+    dtype, the aux load-balance loss of these tokens).
+
+    ``rules`` (a ``sharding.RuleLayout``, in place of ``model_axis`` and
+    ``mesh``) sums over its ``model`` axis with the backward a train
+    step needs: the tokens and their router weights, replicated, enter
+    the rank's experts (their gradients summed over ``model``), and the
+    combine's sum passes its cotangent through; the router and the aux
+    loss stay replicated."""
     b, s, d = x.shape
     t = b * s
     e_local = w_gate.shape[0]
-    shard_idx = mesh.index(model_axis) if model_axis is not None else 0
+    if rules is not None:
+        shard_idx = rules.index
+    else:
+        shard_idx = mesh.index(model_axis) if model_axis is not None else 0
     e_lo = shard_idx * e_local
 
     xf = x.reshape(t, d)
@@ -131,6 +141,8 @@ def _local_moe(x, router_w, w_gate, w_up, w_down, *, top_k: int,
                         reduce="amax")
     buf = buf.view(e_local, capacity)
 
+    if rules is not None:
+        xf, top_p = rules.enter(xf), rules.enter(top_p)
     src = (buf - 1).clamp(min=0)
     filled = (buf > 0)[..., None]
     gathered = torch.where(filled, xf[src], torch.zeros((), dtype=xf.dtype,
@@ -149,7 +161,9 @@ def _local_moe(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     out.index_add_(0, src.reshape(-1),
                    (h.float() * weight[..., None] * filled).reshape(-1, d))
 
-    if model_axis is not None:
+    if rules is not None:
+        out = rules.psum(out.to(psum_dtype))
+    elif model_axis is not None:
         out = mesh.all_reduce(out.to(psum_dtype), model_axis)
     return out.reshape(b, s, d).to(x.dtype), aux
 
@@ -160,8 +174,8 @@ def _dense_moe(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     """Every token through every expert (exact, no capacity drops).
     Returns (out in x's dtype, the Switch-style aux loss).  With
     ``rules`` the expert weights may be this rank's block of experts or
-    of their hidden dim over ``model``; the partial sums are then summed
-    over it."""
+    of their hidden dim over ``model``; the tokens and the gate then
+    enter the rank's block and the partial sums are summed over it."""
     m = cfg.moe
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
@@ -173,15 +187,18 @@ def _dense_moe(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
     w_gate = cast(p["w_gate"])
     e_l = w_gate.shape[0]
+    gate = (onehot * top_p[..., None]).sum(dim=1)              # (t,E)
+    split = rules is not None and (e_l < m.num_experts
+                                   or w_gate.shape[2] < m.expert_d_ff)
+    if split:
+        xf, gate = rules.enter(xf), rules.enter(gate)
     h = _expert_ffn(w_gate, cast(p["w_up"]), cast(p["w_down"]),
                     xf.to(w_gate.dtype).expand(e_l, -1, -1),
                     cfg.activation)                            # (E,t,d)
-    gate = (onehot * top_p[..., None]).sum(dim=1)              # (t,E)
     if e_l < m.num_experts:
         gate = gate.narrow(1, rules.index * e_l, e_l)
     out = torch.einsum("te,etd->td", gate, h.float())
-    if rules is not None and (e_l < m.num_experts
-                              or w_gate.shape[2] < m.expert_d_ff):
+    if split:
         out = rules.psum(out)
     return out.reshape(b, s, d).to(x.dtype), aux
 
@@ -203,7 +220,7 @@ def _psum_dtype(pcfg: ParallelConfig) -> torch.dtype:
 def _rules_moe(cfg: ModelConfig, pcfg: ParallelConfig,
                p: Dict[str, torch.Tensor], x: torch.Tensor, rules
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The routed experts in the rule set's serving layout: the JAX
+    """The routed experts in the rule set's layout: the JAX
     ``moe_layer`` under a mesh.  ``p``'s expert weights are this rank's
     block (its experts where their count divides ``model``); ``x`` this
     rank's batch block, the same on every ``model`` rank.  Where the
@@ -219,9 +236,8 @@ def _rules_moe(cfg: ModelConfig, pcfg: ParallelConfig,
         x, p["router"].float(), cast(p["w_gate"]), cast(p["w_up"]),
         cast(p["w_down"]), top_k=m.top_k, num_experts=m.num_experts,
         capacity=_capacity(cfg, pcfg, b * s * rules.batch_shards),
-        activation=cfg.activation,
-        model_axis="model" if rules.model > 1 else None,
-        psum_dtype=_psum_dtype(pcfg), mesh=rules.mesh)
+        activation=cfg.activation, psum_dtype=_psum_dtype(pcfg),
+        rules=rules)
 
 
 def moe_layer(cfg: ModelConfig, pcfg: ParallelConfig,
@@ -238,9 +254,10 @@ def moe_layer(cfg: ModelConfig, pcfg: ParallelConfig,
     token count (the local one times the batch axes' extent).  The
     expert weights are full: each rank takes its own experts.
 
-    ``rules`` (the rule set's serving layout, :func:`_rules_moe`): the
-    weights are this rank's blocks, the shared experts' hidden dim over
-    ``model`` where it divides (their partial sums summed over it)."""
+    ``rules`` (the rule set's layout, :func:`_rules_moe`): the weights
+    are this rank's blocks, the shared experts' hidden dim over
+    ``model`` where it divides (``x`` entering their block, their
+    partial sums summed over it)."""
     m = cfg.moe
     e = env()
     mesh = e.mesh
@@ -266,11 +283,11 @@ def moe_layer(cfg: ModelConfig, pcfg: ParallelConfig,
             activation=cfg.activation, model_axis="model",
             psum_dtype=_psum_dtype(pcfg), mesh=mesh)
     if m.num_shared_experts:
-        g = x @ cast(p["shared_gate"])
-        u = x @ cast(p["shared_up"])
-        sh = (_act(g, cfg.activation) * u) @ cast(p["shared_down"])
         sff = m.expert_d_ff * m.num_shared_experts
-        if rules is not None and p["shared_down"].shape[0] < sff:
-            sh = rules.psum(sh)
-        out = out + sh
+        split = rules is not None and p["shared_down"].shape[0] < sff
+        xs = rules.enter(x) if split else x
+        g = xs @ cast(p["shared_gate"])
+        u = xs @ cast(p["shared_up"])
+        sh = (_act(g, cfg.activation) * u) @ cast(p["shared_down"])
+        out = out + (rules.psum(sh) if split else sh)
     return out, aux

@@ -184,20 +184,24 @@ def param_specs_for_mesh(defs: Any, mesh) -> Any:
 def rule_specs(defs: Any, mesh) -> Any:
     """:func:`param_specs` under ``sharding_env(mesh, fsdp=True)`` (the
     batch axes ``("pod", "data")`` on a mesh with a pod axis): the JAX
-    rule set's serving layout, tensor parallel over ``model`` with the
+    rule set's layout, tensor parallel over ``model`` with the
     divisibility fallback and FSDP over the batch axes, as the JAX
-    dryrun lays out its prefill and decode steps' parameters."""
+    dryrun lays out every cell's parameters (and a train cell's
+    optimizer moments)."""
     with sharding_env(mesh, multi_pod="pod" in mesh.shape, fsdp=True):
         return param_specs(defs)
 
 
-def rule_params(params: Any, defs: Any, mesh) -> Any:
+def rule_params(params: Any, defs: Any, mesh,
+                dtype: Optional[torch.dtype] = None) -> Any:
     """This rank's blocks of whole ``params`` (e.g. from
     :func:`from_jax_params`) under :func:`rule_specs`, each a tensor of
     its own: the block ``jax.device_put`` gives the device at this
-    rank's coordinates."""
-    return _cut(params, defs, mesh, dict(tree_leaves(rule_specs(defs,
-                                                                mesh))))
+    rank's coordinates; in ``dtype`` when given (a training state's
+    ``param_dtype``)."""
+    out = _cut(params, defs, mesh, dict(tree_leaves(rule_specs(defs,
+                                                               mesh))))
+    return out if dtype is None else tree_map(lambda t: t.to(dtype), out)
 
 
 def shard_params(params: Any, defs: Any, mesh) -> Any:

@@ -147,8 +147,9 @@ def _ssm_tail(cfg: ModelConfig, p: Dict[str, torch.Tensor], x, yh, xh, z,
     """The skip term, the gated RMSNorm over all ``d_in`` channels and
     the output projection.  With ``rules`` and a rank's block of heads
     (its channels of ``out_norm``/``out_proj``), the sum of squares and
-    the projection's partial sums are summed over ``model``; with every
-    head, ``out_norm`` and ``out_proj`` are taken whole."""
+    the projection's partial sums are summed over ``model`` (the sum of
+    squares entering the rank's channels again); with every head,
+    ``out_norm`` and ``out_proj`` are taken whole."""
     yh = yh.to(x.dtype) + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
     yflat = yh.reshape(*yh.shape[:2], -1)
     yflat = yflat * silu(z.float()).to(yflat.dtype)
@@ -157,7 +158,9 @@ def _ssm_tail(cfg: ModelConfig, p: Dict[str, torch.Tensor], x, yh, xh, z,
         if rules is not None:
             norm, proj = rules.whole(norm, 0, d_in), rules.whole(proj, 0, d_in)
         return rmsnorm(yflat, norm, cfg.norm_eps) @ proj
-    ss = rules.psum(yflat.float().square().sum(dim=-1, keepdim=True))
+    # the sum is replicated, and each rank's channels then use it
+    ss = rules.enter(rules.psum(
+        yflat.float().square().sum(dim=-1, keepdim=True)))
     inv = torch.rsqrt(ss / d_in + cfg.norm_eps).to(yflat.dtype)
     yflat = yflat * inv * p["out_norm"].to(yflat.dtype)
     return rules.psum(yflat @ cast(p["out_proj"]))
@@ -231,19 +234,28 @@ def _ssm_rules(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     shared B and C, the SSD over its heads (the SSM state's block), and
     the gated norm over its channels with the sum of squares summed
     over ``model``; ``out_proj``'s partial sums are summed over it.  The
-    conv state, whole, is written alike by every ``model`` rank."""
+    conv state, whole, is written alike by every ``model`` rank.  Under
+    autograd ``x`` enters ``in_proj``'s column block, and with heads
+    split the gathered product and the whole conv weights enter the
+    rank's heads (their gradients summed over ``model``, the gather's
+    backward keeping the rank's block)."""
     s_cfg = cfg.ssm
     d_in = s_cfg.expand * cfg.d_model
     nheads, P, N = d_in // s_cfg.head_dim, s_cfg.head_dim, s_cfg.state_dim
     ch = d_in + 2 * N
     W = s_cfg.conv_width
-    y = rules.whole(x @ cast(p["in_proj"]), -1, 2 * d_in + 2 * N + nheads)
-    z, xbc, dt = torch.split(y, [d_in, ch, nheads], dim=-1)
     h_l = p["a_log"].shape[0]
-    h0 = rules.index * h_l if h_l < nheads else 0
+    split = h_l < nheads
+    enter = rules.enter if split else (lambda t: t)
+    width = 2 * d_in + 2 * N + nheads
+    if p["in_proj"].shape[1] < width:      # x enters the rank's columns
+        x = rules.enter(x)
+    y = enter(rules.whole(x @ cast(p["in_proj"]), -1, width))
+    z, xbc, dt = torch.split(y, [d_in, ch, nheads], dim=-1)
+    h0 = rules.index * h_l if split else 0
     c0, c1 = h0 * P, (h0 + h_l) * P
-    conv_w = rules.whole(cast(p["conv_w"]), 1, ch)
-    conv_b = rules.whole(p["conv_b"], 0, ch)
+    conv_w = enter(rules.whole(cast(p["conv_w"]), 1, ch))
+    conv_b = enter(rules.whole(p["conv_b"], 0, ch))
     if mode == "decode" and cache is None:
         raise ValueError("decode needs the (conv, ssm) cache")
     conv_state = cache[0] if mode == "decode" else None
@@ -251,7 +263,7 @@ def _ssm_rules(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     pad = (conv_state.to(xbc.dtype) if conv_state is not None else
            xbc.new_zeros((xbc.shape[0], W - 1, ch)))
     new_conv = torch.cat([pad, xbc], dim=1)[:, xbc.shape[1]:]
-    if h_l < nheads:        # this rank's heads' x channels, and B, C
+    if split:               # this rank's heads' x channels, and B, C
         sel = torch.cat([torch.arange(c0, c1, device=x.device),
                          torch.arange(d_in, ch, device=x.device)])
         xbc, conv_w, conv_b = (xbc.index_select(-1, sel),

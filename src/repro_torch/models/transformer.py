@@ -218,19 +218,24 @@ def cache_pspecs(cfg: ModelConfig, batch: int, max_len: int,
                     cache_spec(cfg, batch, max_len, enc_len))
 
 
-def rule_layout(cfg: ModelConfig, mesh, *, global_batch: int, max_len: int,
+def rule_layout(cfg: ModelConfig, mesh, *,
+                global_batch: Optional[int] = None, max_len: int = 0,
                 enc_len: int = 0) -> RuleLayout:
-    """This rank's share of the JAX rule set's serving layout of a step
-    over ``global_batch`` rows and a cache of ``max_len`` positions (and
-    ``enc_len`` memory positions) on ``mesh`` (``{"data", "model"}`` or
-    ``{"pod", "data", "model"}``), as the JAX dryrun lays out its
-    prefill and decode cells: ``forward(rules=...)``'s argument.  Whole
-    parameters are cut to this layout by ``params.rule_params``."""
+    """This rank's share of the JAX rule set's layout on ``mesh``
+    (``{"data", "model"}`` or ``{"pod", "data", "model"}``), as the JAX
+    dryrun lays out its cells: ``forward(rules=...)``'s argument.  A
+    serving step over ``global_batch`` rows with a cache of ``max_len``
+    positions (and ``enc_len`` memory positions) also lays out that
+    cache; a train step (``max_len`` 0) has none, and its batch is cut
+    over the batch axes (``global_batch`` None).  Whole parameters are
+    cut to this layout by ``params.rule_params``."""
     with sharding_env(mesh, multi_pod="pod" in mesh.shape, fsdp=True):
+        cache = cache_pspecs(cfg, global_batch, max_len, enc_len) \
+            if max_len else None
         return RuleLayout(
             mesh, dict(tree_leaves(rule_specs(model_defs(cfg), mesh))),
-            cache_pspecs(cfg, global_batch, max_len, enc_len),
-            global_batch=global_batch, max_len=max_len, enc_len=enc_len)
+            cache, global_batch=global_batch, max_len=max_len,
+            enc_len=enc_len)
 
 
 # --------------------------------------------------------------------- #

@@ -44,18 +44,23 @@ def lr_schedule(ocfg: OptimizerConfig
 
 def global_norm(tree: Any, layout=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the
-    leaves summed in the reference's order (sorted keys).  Under a
-    ZeRO-3 ``layout`` (``distributed.sharding.ZeroLayout``) the split
-    leaves' squares are summed over its axis first, the whole leaves'
+    leaves summed in the reference's order (sorted keys).  With a
+    sharded state's ``layout`` (``distributed.sharding.StateShards``:
+    ZeRO-3's, or the rule set's 2-D layout) each leaf's squares are
+    summed over exactly the axes that split it, so a whole leaf is
     counted once."""
     if layout is None:
         return torch.sqrt(sum(x.float().square().sum()
                               for _, x in tree_leaves(tree)))
-    split = [x.float().square().sum() for p, x in tree_leaves(tree)
-             if layout.dims[p] is not None]
-    whole = [x.float().square().sum() for p, x in tree_leaves(tree)
-             if layout.dims[p] is None]
-    total = layout.psum(torch.stack(split).sum()) if split else 0.0
+    groups: Dict[Tuple[str, ...], list] = {}
+    whole = []
+    for p, x in tree_leaves(tree):
+        axes = layout.axes(p)
+        (groups.setdefault(axes, []) if axes else whole).append(
+            x.float().square().sum())
+    total = 0.0
+    for axes, sums in groups.items():
+        total = total + layout.psum(torch.stack(sums).sum(), axes)
     return torch.sqrt(total + sum(whole))
 
 
@@ -149,35 +154,41 @@ def _fac_of(fac: Any, path: str) -> Dict[str, torch.Tensor]:
 def adafactor_update(params: Any, grads: Any, opt: Dict[str, Any],
                      ocfg: OptimizerConfig, layout=None):
     """One Adafactor step (update clipping d = 1); ``params`` and ``opt``
-    are updated in place and returned as (params, opt).  Under a ZeRO-3
-    ``layout`` each leaf is this rank's slice of its split dim: a mean
-    over that dim (a factored moment's, the update's RMS) sums over the
-    layout's axis, and the factors keep the dims that are not reduced
+    are updated in place and returned as (params, opt).  With a sharded
+    state's ``layout`` (``distributed.sharding.StateShards``) each leaf
+    is this rank's block: a mean over a dim (a factored moment's, the
+    update's RMS over every dim) sums over every axis that splits that
+    dim, and the factors keep the dims that are not reduced
     (``train_step.state_shards`` names them)."""
     step = opt["step"] + 1
     lr = lr_schedule(ocfg)(step)
     beta2 = 1.0 - step.float() ** -0.8
     eps = 1e-30
 
-    def mean(x, dim, split, keepdim=False):
-        """``x.mean(dim)``, over every rank's slice when ``split``."""
-        if not split:
+    def mean(x, dim, axes, keepdim=False):
+        """``x.mean(dim)``, over every rank's block of the dims ``axes``
+        split."""
+        if not axes:
             return x.mean(dim=dim, keepdim=keepdim)
-        total = layout.psum(x.sum(dim=dim, keepdim=keepdim))
+        total = layout.psum(x.sum(dim=dim, keepdim=keepdim), axes)
         n = x.numel() if dim is None else x.shape[dim]
-        return total / (n * layout.world)
+        return total / (n * layout.size(axes))
+
+    def axes(path, dim=None):
+        return () if layout is None else layout.axes(path, dim)
 
     for (path, p), (_, g) in zip(tree_leaves(params), tree_leaves(grads)):
         s = _fac_of(opt["fac"], path)
-        d = None if layout is None else layout.dims[path]
         g32 = g.float()
         g2 = g32 * g32 + eps
         if p.ndim >= 2:
-            last = p.ndim - 1
-            vr = beta2 * s["vr"] + (1 - beta2) * mean(g2, -1, d == last)
-            vc = beta2 * s["vc"] + (1 - beta2) * mean(g2, -2, d == last - 1)
+            vr = beta2 * s["vr"] + (1 - beta2) * mean(g2, -1,
+                                                      axes(path, -1))
+            vc = beta2 * s["vc"] + (1 - beta2) * mean(g2, -2,
+                                                      axes(path, -2))
             rms = (vr[..., None] * vc[..., None, :]) / (
-                mean(vr, -1, d == last - 1, keepdim=True)[..., None] + eps)
+                mean(vr, -1, axes(path, -2), keepdim=True)[..., None]
+                + eps)
             update = g32 / (torch.sqrt(rms) + 1e-8)
             s["vr"], s["vc"] = vr, vc
         else:
@@ -185,7 +196,7 @@ def adafactor_update(params: Any, grads: Any, opt: Dict[str, Any],
             update = g32 / (torch.sqrt(v) + 1e-8)
             s["v"] = v
         denom = torch.clamp(torch.sqrt(mean(update * update, None,
-                                            d is not None)), min=1.0)
+                                            axes(path))), min=1.0)
         p32 = p.float()
         _write(p, p32 - lr * update / denom - lr * ocfg.weight_decay * p32)
     opt["step"] = step
@@ -195,7 +206,7 @@ def adafactor_update(params: Any, grads: Any, opt: Dict[str, Any],
 def make_optimizer(ocfg: OptimizerConfig,
                    state_dtype: torch.dtype = torch.float32, layout=None):
     """(init(params), update(params, grads, opt)) for ``ocfg.name``, on
-    a ZeRO-3 ``layout``'s slices where one is given (AdamW is
+    a sharded state's blocks where a ``layout`` is given (AdamW is
     elementwise and needs nothing of it)."""
     if ocfg.name == "adamw":
         return (lambda p: adamw_init(p, state_dtype),

@@ -19,18 +19,35 @@ package chooses it, by the active ``sharding_env``:
 * replicated (no ``sharding_env``, or ``fsdp=False``): parameters and
   optimizer state whole on every rank, the gradients summed by one
   ``all_reduce``;
-* ZeRO-3 (``sharding_env(mesh, fsdp=True)``, the JAX launcher's
-  layout): each leaf of the parameters and of the optimizer state is
-  this rank's slice of the dim the FSDP hint splits
-  (``param_specs``), the others whole.  The forward gathers each leaf
-  where it is used (``sharding.gathering``; a layer's inside its remat
-  body), and the gather's backward reduce-scatters the gradient in
-  float32, each rank's times its token count and the sum divided by
-  the total, which one small ``all_reduce`` gives before the forward;
-  the whole leaves' gradients and the loss terms take the replicated
-  path's ``all_reduce``.  The clip's norm sums the slices' squares over
-  the axis; AdamW runs on the slices as it is; Adafactor sums its
-  factored means over the axis where they reduce the split dim.
+* ZeRO-3 (``sharding_env(mesh, fsdp=True)`` on a mesh with one data
+  axis and no model axis, the JAX launcher's layout): each leaf of the
+  parameters and of the optimizer state is this rank's slice of the dim
+  the FSDP hint splits (``param_specs``), the others whole.  The
+  forward gathers each leaf where it is used (``sharding.gathering``; a
+  layer's inside its remat body), and the gather's backward
+  reduce-scatters the gradient in float32, each rank's times its token
+  count and the sum divided by the total, which one small
+  ``all_reduce`` gives before the forward; the whole leaves' gradients
+  and the loss terms take the replicated path's ``all_reduce``.  The
+  clip's norm sums the slices' squares over the axis; AdamW runs on the
+  slices as it is; Adafactor sums its factored means over the axis
+  where they reduce the split dim;
+* the rule set's 2-D layout (``sharding_env(mesh, fsdp=True)`` on a
+  mesh with a ``model`` axis or a pod axis, or ``rules=``: what
+  ``jax.jit(step, in_shardings=...)`` runs in the JAX dryrun): every
+  leaf of the parameters and of the optimizer state is the block
+  ``param_specs`` gives this rank, tensor parallel over ``model`` (with
+  the divisibility fallback) and FSDP over the batch axes, and the batch
+  is split over the batch axes.  The forward is
+  ``transformer.forward(rules=)``, whose model-axis collectives carry
+  their backward (``sharding.RuleLayout``), and the loss's LM head runs
+  over the rank's vocab block where the vocab is split
+  (``lm_head.vocab_xent``).  The FSDP leaves' gradients are
+  reduce-scattered over the batch axes as ZeRO-3's are, the other
+  leaves' and the loss terms summed over the batch axes, never over
+  ``model`` (every model rank holds the same batch block).  The clip and
+  Adafactor sum over exactly the axes that split a leaf
+  (``sharding.StateShards``).
 """
 
 from __future__ import annotations
@@ -41,11 +58,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig, \
     ParallelConfig
-from repro_torch.distributed.sharding import (StateShards, ZeroLayout, env,
-                                              fsdp_dim, gather_params,
-                                              gathering)
+from repro_torch.distributed.sharding import (RuleLayout, StateShards,
+                                              ZeroLayout, batch_dim, env,
+                                              gather_params, gathering)
 from repro_torch.models import transformer as T
-from repro_torch.models.lm_head import fused_xent
+from repro_torch.models.lm_head import fused_xent, vocab_xent
 from repro_torch.models.params import (param_specs, tree_leaves, tree_map,
                                        tree_unflatten)
 from .optimizer import clip_by_global_norm, make_optimizer
@@ -66,16 +83,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return nll.sum() / count, count
 
 
-def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig):
+def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig,
+                 rules: Optional[RuleLayout] = None):
     """loss_fn(params, batch) -> (total, metrics): the final features
     through ``fused_xent`` over the output table (the tied token table
-    where there is none), plus ``AUX_WEIGHT`` times the MoE aux loss."""
+    where there is none), plus ``AUX_WEIGHT`` times the MoE aux loss.
+    With ``rules`` the forward runs on this rank's blocks
+    (``transformer.forward(rules=)``) and a table split over ``model``
+    by vocab takes ``vocab_xent``."""
 
     def loss_fn(params, batch: Dict[str, torch.Tensor]):
-        feats, aux = T.forward(cfg, pcfg, params, batch, mode="features")
+        feats, aux = T.forward(cfg, pcfg, params, batch, mode="features",
+                               rules=rules)
         key = "out" if "out" in params["embed"] else "tok"
         table = gather_params(params["embed"][key], f"embed/{key}")
-        nll, count = fused_xent(feats, table, batch["labels"])
+        if rules is not None and table.shape[0] < cfg.vocab_size:
+            nll, count = vocab_xent(feats, table, batch["labels"], rules)
+        else:
+            nll, count = fused_xent(feats, table, batch["labels"])
         loss = nll / torch.clamp(count, min=1)
         total = loss + AUX_WEIGHT * aux
         return total, {"loss": loss, "aux": aux, "tokens": count.float()}
@@ -98,7 +123,7 @@ def _grads(loss_fn, params, batch):
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
-def _sync_grads(grads, metrics, mesh, axis: str):
+def _sync_grads(grads, metrics, mesh, axis):
     """The global batch's gradients and loss terms from every rank's
     (one float32 ``all_reduce``): each rank's gradients and loss
     weighted by its token count, summed and divided by the total; the
@@ -124,7 +149,7 @@ def _sync_grads(grads, metrics, mesh, axis: str):
         out.append(flat[off:off + g.numel()].view(g.shape).to(g.dtype))
         off += g.numel()
     metrics = dict(metrics, loss=flat[-3] / total,
-                   aux=flat[-2] / mesh.shape[axis], tokens=total)
+                   aux=flat[-2] / mesh.size(axis), tokens=total)
     return tree_unflatten(grads, dict(zip(paths, out))), metrics
 
 
@@ -132,39 +157,67 @@ def zero_layout(cfg: ModelConfig, mesh,
                 axis: str = "data") -> Optional[ZeroLayout]:
     """The ZeRO-3 layout of ``cfg``'s parameters over ``mesh``'s
     ``axis`` when a ``sharding_env`` with ``fsdp=True`` is active (the
-    JAX launcher's), else None (replicated)."""
+    JAX launcher's) on a mesh with neither a ``model`` axis nor a pod
+    axis, else None (replicated, or the rule set's 2-D layout)."""
     e = env()
-    if mesh is None or e.mesh is None or not e.fsdp:
+    if mesh is None or e.mesh is None or not e.fsdp or _two_d(mesh):
         return None
-    dims = {path: fsdp_dim(spec, axis) for path, spec in
+    dims = {path: batch_dim(spec, (axis,)) for path, spec in
             tree_leaves(param_specs(T.model_defs(cfg)))}
     return ZeroLayout(mesh, dims, axis)
 
 
-def state_shards(state, layout: ZeroLayout) -> StateShards:
+def _two_d(mesh) -> bool:
+    return mesh.shape.get("model", 1) > 1 or "pod" in mesh.shape
+
+
+def train_rule_layout(cfg: ModelConfig, mesh) -> Optional[RuleLayout]:
+    """The rule set's 2-D training layout of ``cfg`` on ``mesh`` when a
+    ``sharding_env`` with ``fsdp=True`` is active on a mesh with a
+    ``model`` axis or a pod axis, else None."""
+    e = env()
+    if mesh is None or e.mesh is None or not e.fsdp or not _two_d(mesh):
+        return None
+    return T.rule_layout(cfg, mesh)
+
+
+def state_layout(cfg: ModelConfig, mesh, zero: Optional[ZeroLayout],
+                 rules: Optional[RuleLayout]) -> Optional[StateShards]:
+    """Where each parameter (and each AdamW moment) lives: the 2-D
+    layout's specs, ZeRO-3's one data-axis dim, or None (whole)."""
+    if rules is not None:
+        return StateShards(mesh, rules.param_specs)
+    if zero is None:
+        return None
+    specs = {}
+    for path, d in tree_leaves(T.model_defs(cfg)):
+        dim = zero.dims[path]
+        specs[path] = tuple(zero.axis if i == dim else None
+                            for i in range(len(d.shape)))
+    return StateShards(mesh, specs)
+
+
+def state_shards(state, layout: StateShards) -> StateShards:
     """Each leaf of a training state (``{"params", "opt"}``) by its
-    split dim: a parameter's, AdamW's moments as their parameter,
-    Adafactor's factored moments where they keep the split dim (a row
-    or column mean over it is whole), the step count whole."""
-    dims = {}
+    spec: a parameter's (``layout``'s), AdamW's moments as their
+    parameter, Adafactor's factored moments the dims they keep (a row or
+    column mean over a split dim is whole over its axes), the step count
+    whole."""
+    specs = {}
     for path, t in tree_leaves(state):
         parts = path.split("/")
-        d = None
         if parts[0] == "params":
-            d = layout.dims["/".join(parts[1:])]
+            sp = layout.specs["/".join(parts[1:])]
         elif parts[1] in ("m", "v"):
-            d = layout.dims["/".join(parts[2:])]
+            sp = layout.specs["/".join(parts[2:])]
         elif parts[1] == "fac":
-            pd = layout.dims["/".join(parts[2:-1])]
-            nd = t.ndim + (parts[-1] != "v")    # the parameter's rank
-            if pd is None or parts[-1] == "v":
-                d = pd
-            elif parts[-1] == "vr":
-                d = pd if pd < nd - 1 else None
-            else:                               # vc: dims [:-2] + [-1:]
-                d = {nd - 1: nd - 2, nd - 2: None}.get(pd, pd)
-        dims[path] = d
-    return StateShards(layout, dims)
+            pspec = layout.specs["/".join(parts[2:-1])]
+            sp = {"v": pspec, "vr": pspec[:-1],
+                  "vc": pspec[:-2] + pspec[-1:]}[parts[-1]]
+        else:
+            sp = ()
+        specs[path] = sp
+    return StateShards(layout.mesh, specs)
 
 
 def _token_count(labels: torch.Tensor, microbatches: int) -> torch.Tensor:
@@ -177,16 +230,29 @@ def _token_count(labels: torch.Tensor, microbatches: int) -> torch.Tensor:
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                     ocfg: OptimizerConfig,
                     state_dtype: torch.dtype = torch.float32, mesh=None,
-                    data_axis: str = "data"):
+                    data_axis: str = "data",
+                    rules: Optional[RuleLayout] = None):
     """(init_state(params), train_step(state, batch) -> (state,
     metrics)); metrics are 0-d tensors: loss, aux, tokens, grad_norm.
     With ``mesh`` the step is data parallel over ``data_axis`` (see the
     module docstring): ``batch`` is this rank's block.  Under
-    ``sharding_env(mesh, fsdp=True)`` the state is the ZeRO-3 layout's
-    (``train_step.layout``, else None): ``init_state`` cuts whole
-    parameters to this rank's slices (slices are kept as they are)."""
-    loss_fn = make_loss_fn(cfg, pcfg)
-    layout = zero_layout(cfg, mesh, data_axis)
+    ``sharding_env(mesh, fsdp=True)`` the state is the ZeRO-3 layout's,
+    or on a mesh with a ``model`` or pod axis the rule set's 2-D
+    layout's; ``rules`` (``transformer.rule_layout(cfg, mesh)``) asks
+    for the 2-D layout outright.  ``train_step.layout`` (a
+    ``StateShards``, else None) names where each parameter lives;
+    ``init_state`` cuts whole parameters to this rank's blocks (blocks
+    are kept as they are)."""
+    if rules is None:
+        rules = train_rule_layout(cfg, mesh)
+    if rules is not None:
+        mesh = rules.mesh
+    zero = zero_layout(cfg, mesh, data_axis) if rules is None else None
+    layout = state_layout(cfg, mesh, zero, rules)
+    # the FSDP gather and the axes the loss terms sum over
+    fsdp = zero if rules is None else rules.fsdp
+    sync_axis = data_axis if rules is None else rules.batch_axes
+    loss_fn = make_loss_fn(cfg, pcfg, rules)
     opt_init, opt_update = make_optimizer(ocfg, state_dtype, layout)
     shapes = {path: d.shape for path, d in tree_leaves(T.model_defs(cfg))}
 
@@ -195,7 +261,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
             def cut(path, t):
                 if tuple(t.shape) != tuple(shapes[path]):
                     return t
-                return layout.local(t, layout.dims[path]).clone()
+                return layout.part(path, t)
 
             params = tree_unflatten(params, {
                 path: cut(path, t) for path, t in tree_leaves(params)})
@@ -222,26 +288,26 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                      for k, v in metrics.items()}
         return g_acc, m_acc
 
-    def zero_grads(params, batch):
-        """The ZeRO-3 step's gradients: the split leaves' summed by the
-        gathers' backward, the whole leaves' and the loss terms by
-        ``_sync_grads``."""
+    def sharded_grads(params, batch):
+        """The sharded step's gradients: the FSDP leaves' summed over the
+        batch axes by the gathers' backward, the others' and the loss
+        terms by ``_sync_grads`` (ZeRO-3: over its data axis)."""
         count = _token_count(batch["labels"], pcfg.microbatches)
-        layout.weigh(count, layout.psum(count.clone()))
+        fsdp.weigh(count, fsdp.psum(count.clone()))
         try:
-            with gathering(layout):
+            with gathering(fsdp):
                 grads, metrics = grads_of(params, batch)
         finally:
-            layout.weigh(None, None)
+            fsdp.weigh(None, None)
         flat = dict(tree_leaves(grads))
-        whole = {p: g for p, g in flat.items() if layout.dims[p] is None}
-        whole, metrics = _sync_grads(whole, metrics, mesh, data_axis)
+        whole = {p: g for p, g in flat.items() if fsdp.dims[p] is None}
+        whole, metrics = _sync_grads(whole, metrics, mesh, sync_axis)
         flat.update(whole)
         return tree_unflatten(grads, flat), metrics
 
     def train_step(state, batch):
-        if layout is not None:
-            grads, metrics = zero_grads(state["params"], batch)
+        if fsdp is not None:
+            grads, metrics = sharded_grads(state["params"], batch)
         else:
             grads, metrics = grads_of(state["params"], batch)
             if mesh is not None:

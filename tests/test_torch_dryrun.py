@@ -10,12 +10,14 @@ package's, and its traces against what the layouts imply.
   subprocess: importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` (512
   host devices), which must not reach this worker's other files.
 * Traces (meta tensors, a fake process group): the ranks of a world
-  ``{"data": 2, "model": 2}`` sum to the one-rank trace's flops; the
+  ``{"data": 2, "model": 2}`` sum to the one-rank trace's flops (a
+  train step in the rule set's 2-D layout, the serving steps on the
+  engine's tensor-parallel step); the
   tensor-parallel decode cell's collective bytes are the layout's two
   sums a layer plus the embedding's and the logits'; the full-depth
   trace equals the JAX dryrun's affine rule from two reduced depths;
   the aten byte counter reads and writes each operand once.
-* A step the port cannot run in its layout is recorded with its error;
+* A train cell on a model axis is traced in the rule set's 2-D layout;
   a trace refuses a live default group and leaves none behind; the CLI
   writes the record; importing the module loads no JAX.
 """
@@ -186,22 +188,20 @@ SMALL = {"train": ShapeConfig("train_t", 64, 4, "train"),
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_ranks_sum_to_one_rank_flops(kind):
     """The per-rank traced flops of a world {"data": 2, "model": 2} (a
-    train step's layout takes one data axis of 4) sum to the world-1
+    train step in the rule set's 2-D layout, every dim of the model
+    split over ``model``, its backward included) sum to the world-1
     trace's for the same global batch, exactly."""
     shape = SMALL[kind]
     one = D.trace_cell(DENSE, shape, multi_pod=False, device="meta",
                        world=1)
     assert one["rank_mesh"] == {"data": 1, "model": 1}
-    model = None if kind == "train" else 2
     ranks = [D.trace_cell(DENSE, shape, multi_pod=False, device="meta",
-                          world=4, model=model, rank=r) for r in range(4)]
-    want = ({"data": 4, "model": 1} if kind == "train"
-            else {"data": 2, "model": 2})
+                          world=4, model=2, rank=r) for r in range(4)]
+    want = {"data": 2, "model": 2}
     assert {json.dumps(r["rank_mesh"]) for r in ranks} == {json.dumps(want)}
-    assert ranks[0]["layout"] == ("zero3" if kind == "train"
+    assert ranks[0]["layout"] == ("rules" if kind == "train"
                                   else "tensor_parallel")
-    assert ranks[0]["batch_local"]["tokens"][0] == (1 if kind == "train"
-                                                    else 2)
+    assert ranks[0]["batch_local"]["tokens"][0] == 2
     assert one["traced"]["flops"] > 0
     assert sum(r["traced"]["flops"] for r in ranks) == one["traced"]["flops"]
 
@@ -234,16 +234,19 @@ def test_decode_collectives_are_the_layout_sums():
 def test_full_depth_trace_equals_affine_extrapolation(family):
     """The JAX dryrun's affine rule in the layer count, from two reduced
     depths (``_cost_scaled_cfgs``), equals the full-depth trace: flops,
-    bytes and collective bytes by kind (a ZeRO-3 train step at world 4;
-    a hybrid prefill with Mamba, attention, MoE and MLP sublayers)."""
+    bytes and collective bytes by kind (a train step in the rule set's
+    2-D layout at {"data": 2, "model": 2}; a hybrid prefill with Mamba,
+    attention, MoE and MLP sublayers)."""
+    kw = {"world": 4}
     if family == "dense":
         cfg, shape = reduced(ARCHS["granite-3-8b"], num_layers=6), \
             SMALL["train"]
+        kw["model"] = 2
     else:
         cfg = reduced(ARCHS["jamba-1.5-large-398b"], num_layers=24)
         shape = SMALL["prefill"]
-    full = D.trace_cell(cfg, shape, multi_pod=False, device="meta", world=4)
-    ext = D.extrapolate(cfg, shape, world=4)
+    full = D.trace_cell(cfg, shape, multi_pod=False, device="meta", **kw)
+    ext = D.extrapolate(cfg, shape, **kw)
     assert ext["extrapolated_from"][-1] == (6 if family == "dense" else 3)
     assert ext["flops"] == full["traced"]["flops"]
     assert ext["bytes"] == full["traced"]["bytes"]
@@ -254,14 +257,17 @@ def test_full_depth_trace_equals_affine_extrapolation(family):
 
 
 def test_unsupported_cell_and_group_refusals():
-    """A train step on a model axis (the port's ZeRO-3 layout splits the
-    data axis only) is recorded with the port's error, not raised; a
-    trace under a live default group raises; a trace leaves no group."""
+    """A train step on a model axis is traced in the rule set's 2-D
+    layout (TP over ``model`` x FSDP over ``data``; ZeRO-3 splits one
+    data axis only), with no ``"unsupported"``; a trace under a live
+    default group raises; a trace leaves no group."""
     rec = D.trace_cell(DENSE, SMALL["train"], multi_pod=False,
                        device="meta", world=4, model=2)
-    assert "training layout splits the 'data' axis only" in \
-        rec["unsupported"]
-    assert "roofline" not in rec
+    assert "unsupported" not in rec
+    assert (rec["layout"], rec["rank_mesh"]) == \
+        ("rules", {"data": 2, "model": 2})
+    assert rec["roofline"]["flops_per_chip"] > 0
+    assert rec["collectives"]["reduce-scatter"] > 0
     assert not dist.is_initialized()
     with process_group("gloo"):
         with pytest.raises(RuntimeError, match="already initialised"):

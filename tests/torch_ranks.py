@@ -444,3 +444,63 @@ def rule_forward(rank: int, world: int, cases: Dict) -> Dict:
                         for p, pair in tree_leaves(cache)}
         out[name] = got
     return out
+
+
+def rule_train(rank: int, world: int, cases: Dict) -> Dict:
+    """Each case's ``make_train_step`` steps in the rule set's 2-D
+    layout (``rules=transformer.rule_layout(cfg, mesh)``) on this rank's
+    blocks of the whole parameters (``rule_params``, in the case's
+    ``param_dtype``) and of each global
+    batch of ``case["batches"]``, computing in float32.  Returns per case
+    the rank's mesh coordinates, the metrics by step, and every state
+    leaf's block and spec at the end.  With ``case["ckpt_dir"]`` every
+    rank then joins a checkpoint's save there and loads it back into a
+    fresh state (``reloaded``: equal to the saved one bit for bit)."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import rule_params, tree_leaves
+    from repro_torch.training.train_step import make_train_step, state_shards
+    L.COMPUTE_DTYPE = torch.float32
+    meshes: Dict = {}
+    out = {}
+    for name, c in cases.items():
+        key = tuple(c["mesh"].items())
+        if key not in meshes:
+            meshes[key] = Mesh(c["mesh"])
+        mesh = meshes[key]
+        cfg = c["cfg"]
+        rules = T.rule_layout(cfg, mesh)
+        params = rule_params(from_jax_params(c["params"], "cpu"),
+                             T.model_defs(cfg), mesh,
+                             dtype=getattr(torch, c["pcfg"].param_dtype))
+        init, step = make_train_step(cfg, c["pcfg"],
+                                     OptimizerConfig(**c["opt"]), rules=rules)
+        state = init(params)
+        metrics = []
+        for batch in c["batches"]:
+            mine = rules.cut_batch({k: torch.as_tensor(v)
+                                    for k, v in batch.items()})
+            state, m = step(state, mine)
+            metrics.append({k: float(v) for k, v in m.items()})
+        shards = state_shards(state, step.layout)
+        out[name] = {"coords": {a: mesh.index(a) for a in c["mesh"]},
+                     "metrics": metrics, "specs": shards.specs,
+                     "state": {p: t.numpy()
+                               for p, t in tree_leaves(state)}}
+        if c.get("ckpt_dir"):
+            # every rank joins the save (rank 0 writes the whole leaves),
+            # then loads its blocks back into a fresh state
+            ckpt = Checkpointer(c["ckpt_dir"])
+            ckpt.save(1, state, shards=shards)
+            ckpt.wait()
+            mesh.barrier()
+            fresh = init(rule_params(from_jax_params(c["params"], "cpu"),
+                                     T.model_defs(cfg), mesh))
+            loaded, _ = ckpt.load(fresh, shards=shards)
+            out[name]["reloaded"] = all(
+                torch.equal(a, b) for (_, a), (_, b) in
+                zip(tree_leaves(loaded), tree_leaves(state)))
+    return out
