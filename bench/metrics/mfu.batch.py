@@ -1,0 +1,12 @@
+"""The model's operations for the window's tokens (prefill chunks and
+decode rows, attention over the real lengths), over the window's
+seconds, as a share of the H100's dense bf16 peak."""
+
+from bench import counts
+
+
+def read(w):
+    if not w.calls:
+        return None
+    flops = sum(c.work(w.model)[0] for c in w.calls)
+    return 100.0 * flops / counts.PEAK_FLOPS / w.seconds
