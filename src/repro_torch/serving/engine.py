@@ -162,7 +162,6 @@ and multi-group layouts.
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -186,6 +185,7 @@ from repro_torch.models.layers import (apply_rope, cast, embed, logits_out,
 from repro_torch.models.params import shard_params, tree_leaves, tree_map
 from .graphs import StepCache
 from .kv_cache import PagedKVCache, PagedStateArena, _bucket_pow2
+from .spans import Tracer
 
 MASK32 = 0xFFFFFFFF
 Seed = Tuple[int, int]
@@ -339,11 +339,15 @@ class PagedEngine:
                       # each ends in its device-to-host token transfer,
                       # so they include the device work
                       "prefill_seconds": 0.0, "decode_seconds": 0.0}
+        # the host spans (serving/spans.py): every span's total lands in
+        # stats (prefill_seconds and decode_seconds among them)
+        self.tracer = Tracer(self.stats)
+        self.cache.tracer = self.tracer
         # decode tails already reserved this round
         self._reserved_tails: set = set()
         # every fused step, per shape bucket
         self._steps = StepCache(self.device, capture=cuda_graphs,
-                                stats=self.stats, arenas=self._arenas)
+                                tracer=self.tracer, arenas=self._arenas)
 
     def _check_mesh(self, cfg: ModelConfig, mesh) -> None:
         """The JAX engine's refusals of a mesh it cannot serve."""
@@ -410,24 +414,32 @@ class PagedEngine:
         in bucketed batches.  With nothing to admit, a K-block engine
         runs up to ``decode_block_rounds`` rounds per launch; ``rounds``
         advances by the rounds the block consumed."""
+        with self.tracer.run():
+            return self._rounds(max_rounds)
+
+    def _rounds(self, max_rounds: int) -> Dict[int, List[int]]:
         results: Dict[int, List[int]] = {}
         rounds = 0
+        span = self.tracer.span
         while ((self.queue or self._chunk_q or self.active)
                and rounds < max_rounds):
+            self.tracer.round += 1
             had_active = bool(self.active)
             decoded = False
             if self.queue or self._chunk_q:
                 if self.active:
                     # reserve the decode tails now and dispatch their
                     # coalesced CoW copies ahead of the prefill host work
-                    self._reserve_tails(sorted(self.active))
-                    self.cache.queue.flush_overlapped(self.cache.lib.flush)
-                t0 = time.perf_counter()
-                if self._chunked:
-                    prefill_toks, decoded = self._prefill_tick()
-                else:
-                    prefill_toks = self._prefill_round()
-                self.stats["prefill_seconds"] += time.perf_counter() - t0
+                    with span("engine.reserve"):
+                        self._reserve_tails(sorted(self.active))
+                        with span("pim.flush"):
+                            self.cache.queue.flush_overlapped(
+                                self.cache.lib.flush)
+                with span("engine.prefill"):
+                    if self._chunked:
+                        prefill_toks, decoded = self._prefill_tick()
+                    else:
+                        prefill_toks = self._prefill_round()
                 if (had_active and self.max_prefill_chunk is not None
                         and prefill_toks > self.max_prefill_chunk):
                     # decodes waited behind an over-budget prefill (never
@@ -438,34 +450,34 @@ class PagedEngine:
             elif self.active and self._blocked:
                 # pure decode, nothing to admit: one launch covers up to
                 # K rounds (never past the caller's round budget)
-                t0 = time.perf_counter()
-                rounds += self._decode_block(max_rounds - rounds)
-                self.stats["decode_seconds"] += time.perf_counter() - t0
+                with span("engine.decode"):
+                    rounds += self._decode_block(max_rounds - rounds)
                 self._finish_done(results)
                 continue
             if not decoded:
-                t0 = time.perf_counter()
-                self._decode_round()
-                self.stats["decode_seconds"] += time.perf_counter() - t0
+                with span("engine.decode"):
+                    self._decode_round()
             rounds += 1
             self._finish_done(results)
         return results
 
     def _finish_done(self, results: Dict[int, List[int]]) -> None:
-        # mirror the cache's prefix and state counters
-        for key in ("prefix_hits", "prefix_hit_tokens", "prefix_evictions",
-                    "state_pages", "state_forks", "prefix_declined_ssm"):
-            self.stats[key] = self.cache.stats[key]
-        for rid in list(self.active):
-            r = self.active[rid]
-            hit_eos = (r.eos_token_id is not None and r.out_tokens
-                       and r.out_tokens[-1] == r.eos_token_id)
-            if len(r.out_tokens) >= r.max_new_tokens or hit_eos:
-                r.done = True
-                results[rid] = r.out_tokens
-                self.cache.free(rid)
-                del self.active[rid]
-                self._reserved_tails.discard(rid)
+        with self.tracer.span("engine.finish"):
+            # mirror the cache's prefix and state counters
+            for key in ("prefix_hits", "prefix_hit_tokens",
+                        "prefix_evictions", "state_pages", "state_forks",
+                        "prefix_declined_ssm"):
+                self.stats[key] = self.cache.stats[key]
+            for rid in list(self.active):
+                r = self.active[rid]
+                hit_eos = (r.eos_token_id is not None and r.out_tokens
+                           and r.out_tokens[-1] == r.eos_token_id)
+                if len(r.out_tokens) >= r.max_new_tokens or hit_eos:
+                    r.done = True
+                    results[rid] = r.out_tokens
+                    self.cache.free(rid)
+                    del self.active[rid]
+                    self._reserved_tails.discard(rid)
 
     # ------------------------- token choice ---------------------------- #
 
@@ -489,8 +501,15 @@ class PagedEngine:
                 temps: Sequence[float]) -> torch.Tensor:
         """Advance the seed stream by one dispatch and choose."""
         self.rng_ctr += 1
-        return self._choose(logits, np.asarray(temps, np.float32),
-                            self._seed(self.rng_ctr))
+        with self.tracer.span("engine.choose"):
+            return self._choose(logits, np.asarray(temps, np.float32),
+                                self._seed(self.rng_ctr))
+
+    def _readback(self, tokens: torch.Tensor) -> np.ndarray:
+        """The tokens on the host: the one wait for the card a step ends
+        with."""
+        with self.tracer.wait():
+            return tokens.cpu().numpy()
 
     # --------------------------- prefill ------------------------------ #
 
@@ -508,9 +527,10 @@ class PagedEngine:
         # prefixes resolve across bucket groups; the radix cache matches
         # against prompts already committed (a batch cannot hit itself)
         for r in reqs:
-            self.cache.create(r.req_id, len(r.prompt),
-                              share_with=r.share_with,
-                              shared_len=r.shared_len, tokens=r.prompt)
+            with self.tracer.span("engine.admit", r.req_id):
+                self.cache.create(r.req_id, len(r.prompt),
+                                  share_with=r.share_with,
+                                  shared_len=r.shared_len, tokens=r.prompt)
         groups: Dict[int, List[Request]] = {}
         for r in reqs:
             groups.setdefault(_bucket_pow2(len(r.prompt)), []).append(r)
@@ -530,9 +550,11 @@ class PagedEngine:
         (one flush: one ``state_scatter`` launch, accounted as one
         ``eager_ssm_layer`` launch per Mamba layer), and the first token
         through :meth:`_choose`, one draw per request."""
-        seq = self.cache.create(req.req_id, len(req.prompt),
-                                share_with=req.share_with,
-                                shared_len=req.shared_len, tokens=req.prompt)
+        with self.tracer.span("engine.admit", req.req_id):
+            seq = self.cache.create(req.req_id, len(req.prompt),
+                                    share_with=req.share_with,
+                                    shared_len=req.shared_len,
+                                    tokens=req.prompt)
         start = seq.shared_prefix_pages * self.cache.page_size
         n = len(req.prompt)
         cfg = self.cfg
@@ -561,53 +583,61 @@ class PagedEngine:
             st.write([req.req_id], torch.stack([g[k][0] for k in mamba], 1),
                      torch.stack([g[k][1] for k in mamba], 1))
         tok = self._sample(logits[:, -1], [req.temperature])
-        req.out_tokens.append(int(tok.cpu()[0]))
+        req.out_tokens.append(int(self._readback(tok)[0]))
         self.active[req.req_id] = req
         self.stats["prefills"] += 1
         self.cache.commit_prefix(req.req_id, req.prompt)
 
     def _prefill_batch_fused(self, reqs: List[Request], sp: int) -> None:
         """One fused step for a same-length-bucket prefill batch."""
+        span = self.tracer.span
         B = len(reqs)
         Bp = _bucket_pow2(B)
         idx = _pad_index(B, Bp)                 # pad rows duplicate req 0
-        toks = np.zeros((Bp, sp), np.int32)
-        lens = np.zeros((Bp,), np.int32)
-        for row, i in enumerate(idx):
-            toks[row, :len(reqs[i].prompt)] = reqs[i].prompt
-            lens[row] = len(reqs[i].prompt)
-        # host-side arena plan: (page, slot) per prompt token to write,
-        # and its flat (row * sp + pos) index into the forward's K/V
-        plan = []
-        for i, r in enumerate(reqs):
-            seq = self.cache.seqs[r.req_id]
-            start = seq.shared_prefix_pages * self.cache.page_size
-            plan.append((i, seq, start, seq.length, 0))
-        scatter, kv_plan = self._scatter_plan(plan, sp, Bp)
-        # the step reads the arena (shared prefixes): land the backlog,
-        # eviction inits from create-time arena pressure included
-        self.cache.flush_pending()
-        writes = scatter is not None
-        step = self._steps.get(
-            "prefill_jit_traces", ("prefill", sp, Bp, writes),
-            self._prefill_body,
-            {"toks": ((Bp, sp), torch.int32), "lens": ((Bp,), torch.int32),
-             **self._plan_specs(Bp, sp, writes)})
-        step.load("toks", toks)
-        step.load("lens", lens)
-        self._load_plan(step, scatter, [reqs[i].req_id for i in idx], B)
-        logits = step()
-        self.cache.commit_fused_prefill(*kv_plan)
-        if self._has_ssm:
-            self.cache.state.record_fused_write([r.req_id for r in reqs])
+        with span("engine.operands"):
+            toks = np.zeros((Bp, sp), np.int32)
+            lens = np.zeros((Bp,), np.int32)
+            for row, i in enumerate(idx):
+                toks[row, :len(reqs[i].prompt)] = reqs[i].prompt
+                lens[row] = len(reqs[i].prompt)
+            # host-side arena plan: (page, slot) per prompt token to
+            # write, and its flat (row * sp + pos) index into the
+            # forward's K/V
+            plan = []
+            for i, r in enumerate(reqs):
+                seq = self.cache.seqs[r.req_id]
+                start = seq.shared_prefix_pages * self.cache.page_size
+                plan.append((i, seq, start, seq.length, 0))
+            scatter, kv_plan = self._scatter_plan(plan, sp, Bp)
+            # the step reads the arena (shared prefixes): land the
+            # backlog, eviction inits from create-time arena pressure
+            # included
+            self.cache.flush_pending()
+            writes = scatter is not None
+            step = self._steps.get(
+                "prefill_jit_traces", ("prefill", sp, Bp, writes),
+                self._prefill_body,
+                {"toks": ((Bp, sp), torch.int32),
+                 "lens": ((Bp,), torch.int32),
+                 **self._plan_specs(Bp, sp, writes)})
+            step.load("toks", toks)
+            step.load("lens", lens)
+            self._load_plan(step, scatter, [reqs[i].req_id for i in idx], B)
+        with self.tracer.launch():
+            logits = step()
+        with span("engine.commit"):
+            self.cache.commit_fused_prefill(*kv_plan)
+            if self._has_ssm:
+                self.cache.state.record_fused_write([r.req_id for r in reqs])
         tokens = self._sample(logits, [reqs[i].temperature for i in idx])
-        toks_np = tokens[:B].cpu().numpy()    # the batch's one transfer
-        for i, r in enumerate(reqs):
-            r.out_tokens.append(int(toks_np[i]))
-            self.active[r.req_id] = r
-            self.stats["prefills"] += 1
-            self.cache.commit_prefix(r.req_id, r.prompt)
-        self.stats["fused_prefill_dispatches"] += 1
+        toks_np = self._readback(tokens[:B])    # the batch's one transfer
+        with span("engine.commit"):
+            for i, r in enumerate(reqs):
+                r.out_tokens.append(int(toks_np[i]))
+                self.active[r.req_id] = r
+                self.stats["prefills"] += 1
+                self.cache.commit_prefix(r.req_id, r.prompt)
+            self.stats["fused_prefill_dispatches"] += 1
 
     def _scatter_plan(self, plan, sp: int, Bp: int):
         """Host operands of a batch's KV scatter.  ``plan`` holds one
@@ -679,7 +709,8 @@ class PagedEngine:
         prompts return to the front of the backlog.  Returns
         ``(prompt_tokens_processed, decoded)``."""
         self._admit_queue()
-        batch, sc = self._select_chunk_batch()
+        with self.tracer.span("engine.schedule"):
+            batch, sc = self._select_chunk_batch()
         if not batch:
             return 0, False
         toks = sum(clen for _, clen in batch)
@@ -689,7 +720,8 @@ class PagedEngine:
                    and st.req.max_new_tokens > 1}
             d_rids = sorted(set(self.active) | fin)
             if d_rids:
-                unfinished = self._mixed_round(batch, sc, d_rids)
+                with self.tracer.span("engine.mixed_round"):
+                    unfinished = self._mixed_round(batch, sc, d_rids)
                 self._chunk_q = unfinished + self._chunk_q
                 return toks, True
         unfinished = self._prefill_chunk_batch_fused(batch, sc)
@@ -740,19 +772,21 @@ class PagedEngine:
         chunk, gated until its source has committed the whole prompt."""
         reqs, self.queue = self.queue, []
         for r in reqs:
-            seq = self.cache.create(r.req_id, len(r.prompt),
-                                    share_with=r.share_with,
-                                    shared_len=r.shared_len,
-                                    tokens=r.prompt)
-            off = seq.shared_prefix_pages * self.cache.page_size
-            n = len(r.prompt)
-            if off >= n:
-                st = _ChunkPrefill(r, n - 1, dep=r.share_with, dep_len=n,
-                                   write=False)
-            else:
-                st = _ChunkPrefill(r, off, dep=r.share_with, dep_len=off)
-            self._chunk_q.append(st)
-            self._chunk_by_id[r.req_id] = st
+            with self.tracer.span("engine.admit", r.req_id):
+                seq = self.cache.create(r.req_id, len(r.prompt),
+                                        share_with=r.share_with,
+                                        shared_len=r.shared_len,
+                                        tokens=r.prompt)
+                off = seq.shared_prefix_pages * self.cache.page_size
+                n = len(r.prompt)
+                if off >= n:
+                    st = _ChunkPrefill(r, n - 1, dep=r.share_with,
+                                       dep_len=n, write=False)
+                else:
+                    st = _ChunkPrefill(r, off, dep=r.share_with,
+                                       dep_len=off)
+                self._chunk_q.append(st)
+                self._chunk_by_id[r.req_id] = st
 
     def _chunk_operands(self, batch: List[tuple], sc: int) -> dict:
         """A chunk batch's host operands and scatter plan (pad rows
@@ -805,7 +839,7 @@ class PagedEngine:
             st.off += clen
             if st.remaining <= 0:
                 if toks_np is None:         # the batch's one host transfer
-                    toks_np = tokens.cpu().numpy()
+                    toks_np = self._readback(tokens)
                 st.req.out_tokens.append(int(toks_np[i]))
                 self.active[st.req.req_id] = st.req
                 self.stats["prefills"] += 1
@@ -821,21 +855,26 @@ class PagedEngine:
         """One fused step for a same-bucket batch of prefill chunks:
         prefix-KV chunk forward over the committed arena pages, chunk KV
         scatter, token choice.  Returns the unfinished chunk states."""
-        # the step reads the arena (prefix gather): land the backlog
-        self.cache.flush_pending()
-        c = self._chunk_operands(batch, sc)
-        step = self._steps.get("prefill_jit_traces", ("chunk",) + c["key"],
-                               self._chunk_body, c["specs"])
-        self._load_chunk(step, c)
-        logits = step()
+        span = self.tracer.span
+        with span("engine.operands"):
+            # the step reads the arena (prefix gather): land the backlog
+            self.cache.flush_pending()
+            c = self._chunk_operands(batch, sc)
+            step = self._steps.get("prefill_jit_traces",
+                                   ("chunk",) + c["key"], self._chunk_body,
+                                   c["specs"])
+            self._load_chunk(step, c)
+        with self.tracer.launch():
+            logits = step()
         tokens = self._sample(logits, c["temps"])
-        self.cache.commit_fused_prefill(*c["kv_plan"])
-        if self._has_ssm:
-            self.cache.state.record_fused_write(
-                [st.req.req_id for st, _ in batch])
-        self.stats["prefill_chunks"] += len(batch)
-        self.stats["fused_prefill_dispatches"] += 1
-        return self._finish_chunks(batch, tokens)
+        with span("engine.commit"):
+            self.cache.commit_fused_prefill(*c["kv_plan"])
+            if self._has_ssm:
+                self.cache.state.record_fused_write(
+                    [st.req.req_id for st, _ in batch])
+            self.stats["prefill_chunks"] += len(batch)
+            self.stats["fused_prefill_dispatches"] += 1
+            return self._finish_chunks(batch, tokens)
 
     def _mixed_round(self, batch: List[tuple], sc: int,
                      d_rids: List[int]) -> List[_ChunkPrefill]:
@@ -851,6 +890,7 @@ class PagedEngine:
         separate dispatches would.  A finishing row whose first token is
         its EOS drops its decode token (the KV written past its length
         dies with its pages).  Returns the unfinished chunk states."""
+        span = self.tracer.span
         fin = {st.req.req_id: st.req for st, clen in batch
                if st.off + clen >= len(st.req.prompt)}
         reqmap = dict(self.active)
@@ -858,78 +898,85 @@ class PagedEngine:
         # reserve every decode row's tail before planning the chunk
         # scatter (a CoW retarget must be seen by the plan), and land the
         # copies before the step reads the arena
-        self._reserve_tails(d_rids)
-        self._reserved_tails.clear()
-        self.cache.flush_pending()
-        c = self._chunk_operands(batch, sc)
-        row_of = {st.req.req_id: i for i, (st, _) in enumerate(batch)}
-        B = len(d_rids)
-        Bp = _bucket_pow2(B)
-        prids = [d_rids[i] for i in _pad_index(B, Bp)]
-        seqs = [self.cache.seqs[r] for r in prids]
-        d_last = np.zeros((Bp,), np.int32)
-        d_from = np.full((Bp,), -1, np.int32)
-        d_temps = np.zeros((Bp,), np.float32)
-        for row, rid in enumerate(prids):
-            r = reqmap[rid]
-            d_temps[row] = r.temperature
-            if rid in fin:               # the token arrives on the device
-                d_from[row] = row_of[rid]
-            else:
-                d_last[row] = r.out_tokens[-1]
-        d_bt, d_lens = self.cache.block_table_host(prids)
-        W = d_bt.shape[1]
-        c_step, d_step = self._steps.get_many(
-            "mixed_jit_traces", c["key"] + (Bp, W),
-            [(self._chunk_body, c["specs"]),
-             (self._decode_body, self._specs(Bp, W, block=False))])
-        # every decode operand is loaded before the chunk half is
-        # enqueued: between the halves runs only the chunk's choice
-        d_step.load("bt", d_bt)
-        d_step.load("lens", d_lens)
-        d_step.load("pages", np.asarray([s.pages[-1] for s in seqs],
-                                        np.int32))
-        d_step.load("slots", np.asarray(
-            [s.length % self.cache.page_size for s in seqs], np.int32))
-        self._load_plan(d_step, None, prids, B)
-        d_from_t = self._tensor(d_from, torch.long)
-        d_last_t = self._tensor(d_last, torch.long)
-        self._load_chunk(c_step, c)
-        c_logits = c_step()
+        with span("engine.reserve"):
+            self._reserve_tails(d_rids)
+            self._reserved_tails.clear()
+            self.cache.flush_pending()
+        with span("engine.operands"):
+            c = self._chunk_operands(batch, sc)
+            row_of = {st.req.req_id: i for i, (st, _) in enumerate(batch)}
+            B = len(d_rids)
+            Bp = _bucket_pow2(B)
+            prids = [d_rids[i] for i in _pad_index(B, Bp)]
+            seqs = [self.cache.seqs[r] for r in prids]
+            d_last = np.zeros((Bp,), np.int32)
+            d_from = np.full((Bp,), -1, np.int32)
+            d_temps = np.zeros((Bp,), np.float32)
+            for row, rid in enumerate(prids):
+                r = reqmap[rid]
+                d_temps[row] = r.temperature
+                if rid in fin:           # the token arrives on the device
+                    d_from[row] = row_of[rid]
+                else:
+                    d_last[row] = r.out_tokens[-1]
+            d_bt, d_lens = self.cache.block_table_host(prids)
+            W = d_bt.shape[1]
+            c_step, d_step = self._steps.get_many(
+                "mixed_jit_traces", c["key"] + (Bp, W),
+                [(self._chunk_body, c["specs"]),
+                 (self._decode_body, self._specs(Bp, W, block=False))])
+            # every decode operand is loaded before the chunk half is
+            # enqueued: between the halves runs only the chunk's choice
+            d_step.load("bt", d_bt)
+            d_step.load("lens", d_lens)
+            d_step.load("pages", np.asarray([s.pages[-1] for s in seqs],
+                                            np.int32))
+            d_step.load("slots", np.asarray(
+                [s.length % self.cache.page_size for s in seqs], np.int32))
+            self._load_plan(d_step, None, prids, B)
+            d_from_t = self._tensor(d_from, torch.long)
+            d_last_t = self._tensor(d_last, torch.long)
+            self._load_chunk(c_step, c)
+        with self.tracer.launch():
+            c_logits = c_step()
         c_tokens = self._sample(c_logits, c["temps"])
-        last = torch.where(d_from_t >= 0, c_tokens[d_from_t.clamp(min=0)],
-                           d_last_t)
-        d_step.load("last", last[:, None])
+        with span("engine.choose"):
+            last = torch.where(d_from_t >= 0,
+                               c_tokens[d_from_t.clamp(min=0)], d_last_t)
+            d_step.load("last", last[:, None])
         # the chunk half's state scatter is enqueued before the decode
         # half gathers: a prompt finishing in this chunk decodes from its
         # own new state
-        d_logits = d_step()
+        with self.tracer.launch():
+            d_logits = d_step()
         d_tokens = self._sample(d_logits, d_temps)
-        self.cache.commit_fused_prefill(*c["kv_plan"], kind=None)
-        self.cache.commit_fused_round(d_rids, kind=None,
-                                      wrote_kv=self._has_attn)
-        if self._has_ssm:
-            # both halves' state writes: the chunk rows' prefill state
-            # and the decode rows' round state (one fused launch)
-            self.cache.state.record_fused_write(
-                [st.req.req_id for st, _ in batch])
-            self.cache.state.record_fused_write(d_rids)
-        # the whole round, chunk scatter included, was one launch
-        self.cache.queue.count_external("fused_mixed")
-        self.stats["prefill_chunks"] += len(batch)
-        self.stats["mixed_dispatches"] += 1
-        unfinished = self._finish_chunks(batch, c_tokens)
-        d_toks = d_tokens[:B].cpu().numpy()
-        emitted = 0
-        for i, rid in enumerate(d_rids):
-            r = reqmap[rid]
-            if (rid in fin and r.eos_token_id is not None
-                    and r.out_tokens[-1] == r.eos_token_id):
-                continue       # the first token was EOS: drop this one
-            r.out_tokens.append(int(d_toks[i]))
-            emitted += 1
-        self.stats["decode_rounds"] += 1
-        self.stats["tokens_out"] += emitted
+        with span("engine.commit"):
+            self.cache.commit_fused_prefill(*c["kv_plan"], kind=None)
+            self.cache.commit_fused_round(d_rids, kind=None,
+                                          wrote_kv=self._has_attn)
+            if self._has_ssm:
+                # both halves' state writes: the chunk rows' prefill
+                # state and the decode rows' round state (one fused
+                # launch)
+                self.cache.state.record_fused_write(
+                    [st.req.req_id for st, _ in batch])
+                self.cache.state.record_fused_write(d_rids)
+            # the whole round, chunk scatter included, was one launch
+            self.cache.queue.count_external("fused_mixed")
+            self.stats["prefill_chunks"] += len(batch)
+            self.stats["mixed_dispatches"] += 1
+            unfinished = self._finish_chunks(batch, c_tokens)
+            d_toks = self._readback(d_tokens[:B])
+            emitted = 0
+            for i, rid in enumerate(d_rids):
+                r = reqmap[rid]
+                if (rid in fin and r.eos_token_id is not None
+                        and r.out_tokens[-1] == r.eos_token_id):
+                    continue   # the first token was EOS: drop this one
+                r.out_tokens.append(int(d_toks[i]))
+                emitted += 1
+            self.stats["decode_rounds"] += 1
+            self.stats["tokens_out"] += emitted
         return unfinished
 
     # ---------------------------- decode ------------------------------ #
@@ -1020,48 +1067,55 @@ class PagedEngine:
         rids = sorted(self.active)
         # the round's CoW copies land in ONE batched launch per arena
         # before attention reads the arena
-        self._reserve_tails(rids)
-        self._reserved_tails.clear()
-        self.cache.flush_pending()
+        with self.tracer.span("engine.reserve"):
+            self._reserve_tails(rids)
+            self._reserved_tails.clear()
+            self.cache.flush_pending()
         if self.fused:
             toks = self._decode_round_fused(rids)
         else:
             toks = self._decode_round_eager(rids)
-        for i, r in enumerate(rids):
-            self.active[r].out_tokens.append(int(toks[i]))
-        self.stats["decode_rounds"] += 1
-        self.stats["tokens_out"] += len(rids)
+        with self.tracer.span("engine.commit"):
+            for i, r in enumerate(rids):
+                self.active[r].out_tokens.append(int(toks[i]))
+            self.stats["decode_rounds"] += 1
+            self.stats["tokens_out"] += len(rids)
 
     def _decode_round_fused(self, rids: List[int]) -> np.ndarray:
         """One fused step for the whole round (a replayed graph on the
         card); one host transfer."""
-        B = len(rids)
-        Bp = _bucket_pow2(B)
-        # pad rows duplicate sequence 0: wasted attention, and a scatter
-        # of the same values to the same slot
-        idx = _pad_index(B, Bp)
-        prids = [rids[i] for i in idx]
-        seqs = [self.cache.seqs[r] for r in prids]
-        bt, lens = self.cache.block_table_host(prids)
-        step = self._steps.get("jit_traces", (Bp, bt.shape[1]),
-                               self._decode_body,
-                               self._specs(Bp, bt.shape[1], block=False))
-        step.load("last", np.asarray(
-            [[self.active[r].out_tokens[-1]] for r in prids], np.int32))
-        step.load("bt", bt)
-        step.load("lens", lens)
-        step.load("pages", np.asarray([s.pages[-1] for s in seqs], np.int32))
-        step.load("slots", np.asarray(
-            [s.length % self.cache.page_size for s in seqs], np.int32))
-        self._load_plan(step, None, prids, B)
-        logits = step()
+        span = self.tracer.span
+        with span("engine.operands"):
+            B = len(rids)
+            Bp = _bucket_pow2(B)
+            # pad rows duplicate sequence 0: wasted attention, and a
+            # scatter of the same values to the same slot
+            idx = _pad_index(B, Bp)
+            prids = [rids[i] for i in idx]
+            seqs = [self.cache.seqs[r] for r in prids]
+            bt, lens = self.cache.block_table_host(prids)
+            step = self._steps.get("jit_traces", (Bp, bt.shape[1]),
+                                   self._decode_body,
+                                   self._specs(Bp, bt.shape[1], block=False))
+            step.load("last", np.asarray(
+                [[self.active[r].out_tokens[-1]] for r in prids], np.int32))
+            step.load("bt", bt)
+            step.load("lens", lens)
+            step.load("pages", np.asarray([s.pages[-1] for s in seqs],
+                                          np.int32))
+            step.load("slots", np.asarray(
+                [s.length % self.cache.page_size for s in seqs], np.int32))
+            self._load_plan(step, None, prids, B)
+        with self.tracer.launch():
+            logits = step()
         tokens = self._sample(logits,
                               [self.active[r].temperature for r in prids])
-        self.cache.commit_fused_round(rids, wrote_kv=self._has_attn)
-        if self._has_ssm:
-            self.cache.state.record_fused_write(rids)
-        self.stats["fused_dispatches"] += 1
-        return tokens[:B].cpu().numpy()
+        with span("engine.commit"):
+            self.cache.commit_fused_round(rids, wrote_kv=self._has_attn)
+            if self._has_ssm:
+                self.cache.state.record_fused_write(rids)
+            self.stats["fused_dispatches"] += 1
+        return self._readback(tokens[:B])
 
     def _decode_block(self, max_allowed: int) -> int:
         """Up to ``decode_block_rounds`` decode rounds in one launch,
@@ -1086,76 +1140,90 @@ class PagedEngine:
         if max(steps) <= 1:
             self._decode_round()
             return 1
-        for r, n in zip(rids, steps):
-            self.cache.reserve_tokens(self.cache.seqs[r], n)
-        self._reserved_tails.clear()
-        self.cache.flush_pending()
-        B = len(rids)
-        Bp = _bucket_pow2(B)
-        idx = _pad_index(B, Bp)                 # pad rows duplicate row 0
-        prids = [rids[i] for i in idx]
-        ps = self.cache.page_size
-        # (round, row): each round's page and slot list is one contiguous
-        # row, copied into the round step's inputs
-        pages = np.zeros((K, Bp), np.int32)
-        slots = np.zeros((K, Bp), np.int32)
-        last = np.zeros((Bp,), np.int64)
-        steps_arr = np.zeros((Bp,), np.int32)
-        eos = np.full((Bp,), -1, np.int32)
-        temps = np.zeros((Bp,), np.float32)
-        for row, i in enumerate(idx):
-            r = rids[i]
-            req, seq, n = self.active[r], self.cache.seqs[r], steps[i]
-            for t in range(K):
-                pos = seq.length + min(t, n - 1)
-                pages[t, row] = seq.pages[pos // ps]
-                slots[t, row] = pos % ps
-            last[row] = req.out_tokens[-1]
-            steps_arr[row] = n
-            if req.eos_token_id is not None:
-                eos[row] = req.eos_token_id
-            temps[row] = req.temperature
-        # the table spans the reserved pages; lens stay the committed
-        # lengths, carried forward round by round on the device
-        bt, lens = self.cache.block_table_host(prids)
-        self.rng_ctr += K
-        seeds = [self._seed(self.rng_ctr - K + 1 + t)
-                 for t in range(max(steps))]
-        step = self._steps.get("block_jit_traces", (Bp, bt.shape[1]),
-                               self._block_body,
-                               self._specs(Bp, bt.shape[1], block=True))
-        step.load("bt", bt)
-        rowmap = self._tensor(idx, torch.long)
-        if self._has_ssm:
-            step.load("srows", np.asarray(
-                self.cache.state.rows_for(prids), np.int32))
-            step.load("rowmap", rowmap)
-        tokens = _run_block(
-            step, self._tensor(last, torch.long), self._tensor(steps_arr),
-            self._tensor(lens), self._tensor(pages), self._tensor(slots),
-            self._tensor(eos), seeds, temps, rowmap, self._choose)
-        toks_np = tokens[:B].cpu().numpy()    # the block's one transfer
-        counts = []
-        for i, r in enumerate(rids):
-            req = self.active[r]
-            n_i = 0
-            for t in range(steps[i]):
-                tok = int(toks_np[i, t])
-                if tok < 0:                # the row had stopped
-                    break
-                req.out_tokens.append(tok)
-                n_i += 1
-                if req.eos_token_id is not None and tok == req.eos_token_id:
-                    break
-            counts.append(n_i)
-        consumed = max(counts)
-        self.cache.commit_fused_block(rids, counts, rounds=consumed,
-                                      wrote_kv=self._has_attn)
-        if self._has_ssm:
-            self.cache.state.record_fused_write(rids, rounds=consumed)
-        self.stats["decode_rounds"] += consumed
-        self.stats["tokens_out"] += sum(counts)
-        self.stats["multi_round_blocks"] += 1
+        with self.tracer.span("engine.block"):
+            return self._block(rids, steps)
+
+    def _block(self, rids: List[int], steps: List[int]) -> int:
+        """The K-block of :meth:`_decode_block` over ``rids``, row ``i``
+        running up to ``steps[i]`` rounds; returns the rounds consumed."""
+        span = self.tracer.span
+        K = self.decode_block_rounds
+        with span("engine.reserve"):
+            for r, n in zip(rids, steps):
+                self.cache.reserve_tokens(self.cache.seqs[r], n)
+            self._reserved_tails.clear()
+            self.cache.flush_pending()
+        with span("engine.operands"):
+            B = len(rids)
+            Bp = _bucket_pow2(B)
+            idx = _pad_index(B, Bp)             # pad rows duplicate row 0
+            prids = [rids[i] for i in idx]
+            ps = self.cache.page_size
+            # (round, row): each round's page and slot list is one
+            # contiguous row, copied into the round step's inputs
+            pages = np.zeros((K, Bp), np.int32)
+            slots = np.zeros((K, Bp), np.int32)
+            last = np.zeros((Bp,), np.int64)
+            steps_arr = np.zeros((Bp,), np.int32)
+            eos = np.full((Bp,), -1, np.int32)
+            temps = np.zeros((Bp,), np.float32)
+            for row, i in enumerate(idx):
+                r = rids[i]
+                req, seq, n = self.active[r], self.cache.seqs[r], steps[i]
+                for t in range(K):
+                    pos = seq.length + min(t, n - 1)
+                    pages[t, row] = seq.pages[pos // ps]
+                    slots[t, row] = pos % ps
+                last[row] = req.out_tokens[-1]
+                steps_arr[row] = n
+                if req.eos_token_id is not None:
+                    eos[row] = req.eos_token_id
+                temps[row] = req.temperature
+            # the table spans the reserved pages; lens stay the committed
+            # lengths, carried forward round by round on the device
+            bt, lens = self.cache.block_table_host(prids)
+            self.rng_ctr += K
+            seeds = [self._seed(self.rng_ctr - K + 1 + t)
+                     for t in range(max(steps))]
+            step = self._steps.get("block_jit_traces", (Bp, bt.shape[1]),
+                                   self._block_body,
+                                   self._specs(Bp, bt.shape[1], block=True))
+            step.load("bt", bt)
+            rowmap = self._tensor(idx, torch.long)
+            if self._has_ssm:
+                step.load("srows", np.asarray(
+                    self.cache.state.rows_for(prids), np.int32))
+                step.load("rowmap", rowmap)
+            carry = [self._tensor(last, torch.long),
+                     self._tensor(steps_arr), self._tensor(lens),
+                     self._tensor(pages), self._tensor(slots),
+                     self._tensor(eos)]
+        tokens = _run_block(step, *carry, seeds, temps, rowmap,
+                            self._choose, self.tracer)
+        toks_np = self._readback(tokens[:B])    # the block's one transfer
+        with span("engine.commit"):
+            counts = []
+            for i, r in enumerate(rids):
+                req = self.active[r]
+                n_i = 0
+                for t in range(steps[i]):
+                    tok = int(toks_np[i, t])
+                    if tok < 0:                # the row had stopped
+                        break
+                    req.out_tokens.append(tok)
+                    n_i += 1
+                    if (req.eos_token_id is not None
+                            and tok == req.eos_token_id):
+                        break
+                counts.append(n_i)
+            consumed = max(counts)
+            self.cache.commit_fused_block(rids, counts, rounds=consumed,
+                                          wrote_kv=self._has_attn)
+            if self._has_ssm:
+                self.cache.state.record_fused_write(rids, rounds=consumed)
+            self.stats["decode_rounds"] += consumed
+            self.stats["tokens_out"] += sum(counts)
+            self.stats["multi_round_blocks"] += 1
         return consumed
 
     def _decode_round_eager(self, rids: List[int]) -> np.ndarray:
@@ -1184,7 +1252,7 @@ class PagedEngine:
             self.cache.state.write(rids, state.new_conv, state.new_ssm)
         tokens = self._sample(logits,
                               [self.active[r].temperature for r in rids])
-        return tokens.cpu().numpy()
+        return self._readback(tokens)
 
 
 # ---------------------------------------------------------------------- #
@@ -1670,7 +1738,7 @@ def _fused_block_round(cfg: ModelConfig, pcfg: ParallelConfig, params,
 
 
 def _run_block(step, last, steps, lens, pages, slots, eos, seeds, temps,
-               rowmap, choose: Callable) -> torch.Tensor:
+               rowmap, choose: Callable, tracer: Tracer) -> torch.Tensor:
     """Up to K decode rounds with one host transfer at the end: a Python
     loop over ``len(seeds)`` rounds (the block's longest row), each one
     call of ``step`` (:func:`_fused_block_round` on the round's inputs,
@@ -1681,20 +1749,25 @@ def _run_block(step, last, steps, lens, pages, slots, eos, seeds, temps,
     with ``rowmap`` folding pad rows onto row 0, then the stop rule (a
     row stops after ``steps`` tokens or its EOS).  pages, slots: (K,
     Bp).  Tokens after a row stopped are -1; a row that stopped early
-    only runs masked.  Returns the (B, K) tokens."""
+    only runs masked.  ``tracer`` records each round's loads, replay and
+    choice (with the carry's update) as spans.  Returns the (B, K)
+    tokens."""
     K, Bp = pages.shape
     alive = steps > 0
     toks = torch.full((Bp, K), -1, dtype=torch.long, device=last.device)
     for t, seed in enumerate(seeds):
-        for name, value in (("last", last), ("lens", lens),
-                            ("pages", pages[t]), ("slots", slots[t]),
-                            ("alive", alive)):
-            step.load(name, value)
-        logits = step()
-        raw = choose(logits, temps, seed, rowmap=rowmap).long()
-        toks[:, t] = torch.where(alive, raw, -1)
-        lens = lens + alive.to(lens.dtype)
-        last = torch.where(alive, raw, last)
-        hit_eos = alive & (eos >= 0) & (raw == eos)
-        alive = alive & ((t + 1) < steps) & ~hit_eos
+        with tracer.span("engine.operands"):
+            for name, value in (("last", last), ("lens", lens),
+                                ("pages", pages[t]), ("slots", slots[t]),
+                                ("alive", alive)):
+                step.load(name, value)
+        with tracer.launch():
+            logits = step()
+        with tracer.span("engine.choose"):
+            raw = choose(logits, temps, seed, rowmap=rowmap).long()
+            toks[:, t] = torch.where(alive, raw, -1)
+            lens = lens + alive.to(lens.dtype)
+            last = torch.where(alive, raw, last)
+            hit_eos = alive & (eos >= 0) & (raw == eos)
+            alive = alive & ((t + 1) < steps) & ~hit_eos
     return toks

@@ -57,7 +57,8 @@ What a replay relies on, and how it is kept:
 ``pool_bytes`` is the growth of the allocator's reserved bytes across the
 captures: what the graphs' shared pool holds.  ``first_use_seconds`` and
 ``capture_seconds`` are the host seconds of the eager first calls and of
-the captures.
+the captures: the totals of the ``graphs.first_use`` and
+``graphs.capture`` spans (:mod:`.spans`) in ``stats``.
 
 Without capture (on the CPU, where the port runs its plain versions, or
 ``PagedEngine(cuda_graphs=False)``) the cache keeps the same keys and
@@ -67,7 +68,6 @@ counts, and a call runs the body eagerly on the inputs it was given.
 from __future__ import annotations
 
 import contextlib
-import time
 import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -76,6 +76,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, count_launch
 from repro_torch.kernels.rowclone.ops import upload
+from .spans import Tracer
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]
 
@@ -120,8 +121,10 @@ class Step:
             return self.body(**self.inputs)
         if self.graph is None:
             if self.calls == 1:
-                return self._first_use()
-            self._capture()
+                with self.cache.tracer.span("graphs.first_use"):
+                    return self._first_use()
+            with self.cache.tracer.span("graphs.capture"):
+                self._capture()
         ptrs = self.cache.arena_ptrs()
         if ptrs != self.arena_ptrs:
             raise RuntimeError(
@@ -136,7 +139,6 @@ class Step:
         """Run the body eagerly on the side stream (the warm-up of the
         capture that a second use makes); its result is this call's."""
         cache = self.cache
-        t0 = time.perf_counter()
         main = torch.cuda.current_stream(cache.device)
         side = cache.side_stream()
         side.wait_stream(main)
@@ -146,14 +148,12 @@ class Step:
         # for main again, so the blocks of ``out`` are not reused under
         # main's reads
         main.wait_stream(side)
-        cache.first_use_seconds += time.perf_counter() - t0
         return out
 
     def _capture(self) -> None:
         """Capture the body over the static buffers; nothing runs on the
         card until the first replay."""
         cache = self.cache
-        t0 = time.perf_counter()
         main = torch.cuda.current_stream(cache.device)
         side = cache.side_stream()
         side.wait_stream(main)
@@ -180,26 +180,24 @@ class Step:
         LAUNCHES.update(before)       # the capture ran nothing on the card
         self.arena_ptrs = cache.arena_ptrs()
         self.graph = graph
-        cache.capture_seconds += time.perf_counter() - t0
 
 
 class StepCache:
     """Steps keyed by ``(counter, *key)``; ``counter`` names the
-    ``stats`` entry a miss bumps."""
+    ``stats`` entry a miss bumps (the owner's, ``tracer.stats``, where
+    the first uses' and captures' spans total too)."""
 
     def __init__(self, device: torch.device, *, capture: bool,
-                 stats: Dict[str, float],
+                 tracer: Tracer,
                  arenas: Callable[[], Sequence[torch.Tensor]]) -> None:
         self.device = device
         self.capture = capture and device.type == "cuda"
-        self.stats = stats
+        self.tracer = tracer
+        self.stats = tracer.stats
         self._arenas = weakref.WeakMethod(arenas)
         self._steps: Dict[tuple, Step] = {}
         self._pool = None
         self._side: Optional[torch.cuda.Stream] = None
-        #: host seconds of the eager first calls and of the captures
-        self.first_use_seconds = 0.0
-        self.capture_seconds = 0.0
         #: reserved bytes the captures added (the graphs' pool)
         self.pool_bytes = 0
 
@@ -222,6 +220,16 @@ class StepCache:
             steps = self._steps[full] = tuple(
                 Step(self, body, specs) for body, specs in parts)
         return steps
+
+    @property
+    def first_use_seconds(self) -> float:
+        """Host seconds of the eager first calls."""
+        return self.stats["first_use_seconds"]
+
+    @property
+    def capture_seconds(self) -> float:
+        """Host seconds of the captures."""
+        return self.stats["capture_seconds"]
 
     def arena_ptrs(self) -> Tuple[int, ...]:
         return tuple(a.data_ptr() for a in self._arenas()())

@@ -78,6 +78,7 @@ from repro_torch.kernels.rowclone.ops import upload, upload_index
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import transformer as T
 from .prefix_cache import RadixPrefixCache
+from .spans import Tracer
 from .trace import PimTrace
 
 
@@ -338,6 +339,10 @@ class PagedKVCache:
             self.prefix = RadixPrefixCache(
                 page_size, retain=_weakly(self._retain_page),
                 release=_weakly(self._release_evicted_prefix_page))
+        # host spans (serving/spans.py): an engine binds its own tracer,
+        # whose totals land in the engine's stats; a cache on its own
+        # keeps them apart from ``stats``
+        self.tracer = Tracer({})
         self.trace: Optional[PimTrace] = None
         if record_trace:
             self.trace = PimTrace(num_pages=num_pages, num_slabs=num_slabs,
@@ -432,7 +437,8 @@ class PagedKVCache:
 
     def flush_pending(self) -> None:
         """Drain the op queue: one coalesced launch per pending op kind."""
-        self.lib.flush()
+        with self.tracer.span("pim.flush"):
+            self.lib.flush()
 
     # --------------------- Ambit zero-compare scan --------------------- #
 
@@ -455,12 +461,14 @@ class PagedKVCache:
             return np.zeros((0,), bool)
         self.flush_pending()
         k, v = self.lib.buffers
-        flags = amb_ops.pim_page_zero_scan_pair(k, v, idx)
-        if self.mesh is not None:
-            # a page is zero when every rank's head slice is
-            t = torch.from_numpy(flags.astype(np.uint8)).to(k.device)
-            self.mesh.all_reduce(t, "model", op="min")
-            flags = t.cpu().numpy().astype(bool)
+        # the scan's one launch, then its wait for the card
+        with self.tracer.wait():
+            flags = amb_ops.pim_page_zero_scan_pair(k, v, idx)
+            if self.mesh is not None:
+                # a page is zero when every rank's head slice is
+                t = torch.from_numpy(flags.astype(np.uint8)).to(k.device)
+                self.mesh.all_reduce(t, "model", op="min")
+                flags = t.cpu().numpy().astype(bool)
         self.queue.count_external("page_zero_scan", len(self.lib.buffers))
         if self.trace is not None:
             self.trace.record_zero_scan(idx)
@@ -656,19 +664,20 @@ class PagedKVCache:
         RowClone-Init launch per arena.  With the zero scan on, the
         sequence's exclusive pages are zero-compared first (one launch
         per arena) and those already zero skip their init."""
-        seq = self.seqs.pop(seq_id)
-        if self.zero_scan:
-            excl = [p for p in seq.pages if self.refcount[p] == 1]
-            if excl:
-                flags = self.scan_zero_pages(excl)
-                self._known_zero.update(
-                    p for p, z in zip(excl, flags) if z)
-        for p in seq.pages:
-            self._release_page(p)
-        if self.state is not None and seq_id in self.state.rows:
-            self.state.free(seq_id)   # init-on-free rides the same flush
-            self.stats["state_pages"] = self.state.rows_in_use
-        self.flush_pending()
+        with self.tracer.span("kv.free", seq_id):
+            seq = self.seqs.pop(seq_id)
+            if self.zero_scan:
+                excl = [p for p in seq.pages if self.refcount[p] == 1]
+                if excl:
+                    flags = self.scan_zero_pages(excl)
+                    self._known_zero.update(
+                        p for p, z in zip(excl, flags) if z)
+            for p in seq.pages:
+                self._release_page(p)
+            if self.state is not None and seq_id in self.state.rows:
+                self.state.free(seq_id)  # init-on-free rides the same flush
+                self.stats["state_pages"] = self.state.rows_in_use
+            self.flush_pending()
 
     def clear_prefix(self) -> int:
         """Drop the whole radix prefix cache (shutdown, leak audit): every
