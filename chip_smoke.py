@@ -815,6 +815,7 @@ def parity(dev) -> dict:
                  words_bound_ms=nb_w)
     rows.update(ambit_parity(dev, randn, L, P, S, E))
     rows.update(ssm_parity(dev))
+    rows.update(ssd_step_parity(dev))
     rows["attention_hybrid_heads"] = attention_heads_parity(dev, randn)
     rows["per_rank_minitron_world2"] = rank_shapes_parity(dev, randn)
     rows["attention_build"] = attention_build_info()
@@ -1191,6 +1192,92 @@ def ssm_parity(dev) -> dict:
     del work, flat, arenas, news
     rows_out.update(state_pair_rows(dev, gen, L, R))
     return {"state_scatter": row, "state_rows": rows_out}
+
+
+def ssd_step_parity(dev) -> dict:
+    """``ssd_step`` on mamba2-1.3b's decode shape, one Mamba sublayer: 64
+    heads x 64 x 128 float32 state rows (2 MiB) in a 96-row arena, 64
+    batch rows (60 real and 4 pads folded onto row 0, the bench's decode
+    bucket) and 8 (7 and a pad); x, B and C bf16 views of one conv
+    output.  The new state bit for bit against the plain ops (the
+    gather, the SSD step, the alive mask with a dead row, the row fold),
+    y within float32's bound for two 128-term dot products.  Timed
+    without the mask, as a decode round runs it: the wrapper (``ms``),
+    its bare launch (``kernel_only_ms``), the plain ops (``plain_ms``).
+    Bound: each batch row's state read once and written once, x, B, C,
+    dt and y beside."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.kernels.ssm_scan import ref as ss_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    H, P, N, R = 64, 64, 128, 96
+    arena = torch.randn((R, H, P, N), generator=gen, device=dev)
+    lib = _build.load("ssm_scan")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out_rows = {}
+    for Bp, n in ((64, 60), (8, 7)):
+        order = torch.randperm(R, generator=gen, device=dev)[:n].tolist()
+        rows = torch.tensor(order + [order[0]] * (Bp - n),
+                            dtype=torch.int32, device=dev)
+        rowmap = torch.tensor(list(range(n)) + [0] * (Bp - n), device=dev)
+        alive = torch.ones(Bp, dtype=torch.bool, device=dev)
+        alive[1] = False
+        xbc = torch.randn((Bp, 1, H * P + 2 * N), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        xx, B, C = torch.split(xbc, [H * P, N, N], dim=-1)
+        ops = dict(arena=arena, rows=rows, rowmap=rowmap, alive=alive,
+                   x=xx.reshape(Bp, 1, H, P)[:, 0],
+                   dt=torch.rand((Bp, H), generator=gen, device=dev) * 0.5,
+                   A=-torch.rand(H, generator=gen, device=dev) * 2 - 0.1,
+                   B=B[:, 0], C=C[:, 0],
+                   out=torch.empty((Bp, H, P, N), device=dev))
+        want_out = torch.empty_like(ops["out"])
+        for mask in (alive, None):
+            ops["alive"] = mask
+            y = ss_ops.ssd_step_rows(**ops)
+            want_y = ss_ref.ssd_step_rows(**{**ops, "out": want_out})
+            torch.cuda.synchronize()
+            if not same_bits(ops["out"], want_out):
+                bad = (ops["out"] != want_out).sum().item()
+                raise AssertionError(f"ssd_step ({Bp} rows): {bad} state "
+                                     "values differ from the plain ops")
+            new = ss_ref.ssd_step(ops["x"][:, None], ops["dt"][:, None],
+                                  ops["A"], ops["B"][:, None],
+                                  ops["C"][:, None],
+                                  arena[rows.long()])[1]
+            mag = torch.einsum("bn,bhpn->bhp", ops["C"].float().abs(),
+                               new.abs())
+            err = (y - want_y).abs()
+            rel = float((err / mag.clamp_min(1e-30)).max())
+            if rel > 2 * N * 2.0 ** -24:
+                raise AssertionError(f"ssd_step ({Bp} rows): y off by "
+                                     f"{rel:.3g} of sum |C new|")
+            del new, mag
+        bare = (arena.data_ptr(), rows.data_ptr(), rowmap.data_ptr(), None,
+                ops["x"].data_ptr(), ops["x"].stride(0), ops["dt"].data_ptr(),
+                ops["A"].data_ptr(), ops["B"].data_ptr(), ops["B"].stride(0),
+                ops["C"].data_ptr(), ops["C"].stride(0),
+                ops["out"].data_ptr(), y.data_ptr(), Bp, H, P, N, 1, stream)
+        nb, by = bound(2 * Bp * H * P * N * 4 + Bp * (H * P * 2 + 4 * N
+                                                      + H * 4 + H * P * 4),
+                       0)
+        k_ms = time_ms(lambda: lib.ss_ssd_step(*bare))
+        out_rows[f"rows_{Bp}"] = dict(
+            shape=[Bp, H, P, N], pads=Bp - n, max_abs_err=0.0,
+            y_rel_err=rel,
+            ms=time_ms(lambda: ss_ops.ssd_step_rows(**ops)),
+            ms_least=time_ms_least(lambda: ss_ops.ssd_step_rows(**ops)),
+            kernel_only_ms=k_ms,
+            plain_ms=time_ms(lambda: ss_ref.ssd_step_rows(
+                **{**ops, "out": want_out})),
+            bound_ms=nb, bound_by=by, bound_share=nb / k_ms,
+            library_ms=None)
+        del ops, want_out, y, want_y, xbc
+    row = dict(out_rows["rows_64"])
+    row["rows_8"] = out_rows["rows_8"]
+    del arena
+    return {"ssd_step": row}
 
 
 def state_pair_rows(dev, gen, L, R) -> dict:
@@ -5257,6 +5344,9 @@ KERNELS = {
                        "src/repro/kernels/ambit/ambit.py:135"),
     "state_scatter": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                       "src/repro/kernels/ssm_scan/ssm_scan.py:35"),
+    # no Pallas kernel: XLA fuses the JAX package's decode step
+    "ssd_step": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "none (src/repro/models/ssm.py:158, fused by XLA)"),
     "copy_2d": ("src/repro_torch/kernels/csrc/rowclone.cu",
                 "src/repro/kernels/rowclone/rowclone.py:56"),
     "init_2d": ("src/repro_torch/kernels/csrc/rowclone.cu",
@@ -5274,10 +5364,12 @@ CHUNKED_KERNELS = ("kv_scatter", "page_init_batched", "paged_attention",
 PREFIX_KERNELS = ("kv_scatter", "page_init_batched", "paged_attention",
                   "flash_attention_prefix", "page_zero_scan")
 LIB_KERNELS = ("page_bitwise_batched", "page_not_batched")
-SSM_KERNELS = ("state_scatter", "page_copy_batched", "page_init_batched")
-SSM_CHUNKED_KERNELS = ("state_scatter", "page_init_batched", "random_u32")
+SSM_KERNELS = ("state_scatter", "ssd_step", "page_copy_batched",
+               "page_init_batched")
+SSM_CHUNKED_KERNELS = ("state_scatter", "ssd_step", "page_init_batched",
+                       "random_u32")
 HYBRID_KERNELS = ("kv_scatter", "paged_attention", "flash_attention_prefix",
-                  "state_scatter", "page_init_batched")
+                  "state_scatter", "ssd_step", "page_init_batched")
 MOE_KERNELS = ("kv_scatter", "paged_attention", "flash_attention",
                "page_init_batched")
 SWEEP_KERNELS = ("copy_2d", "init_2d", "page_copy", "page_init",

@@ -28,6 +28,8 @@ LAUNCHES: Dict[str, int] = {
     "page_not_batched": 0,
     "page_zero_scan": 0,
     "state_scatter": 0,
+    # the paged decode's SSD state update, one launch a Mamba sublayer
+    "ssd_step": 0,
     # the RowClone API's single-buffer movers (copy_2d, init_2d) and
     # one-layer page ops (page_copy, page_init)
     "copy_2d": 0,
@@ -66,6 +68,7 @@ DEVICE_KERNEL = {
     "page_not_batched": "page_rows(_cluster)?_kernel.*NotOp",
     "page_zero_scan": "zero_scan_kernel",
     "state_scatter": "state_scatter_kernel",
+    "ssd_step": "ssd_step_kernel",
     "copy_2d": "copy_flat_kernel",
     "init_2d": "fill_flat_kernel",
 }

@@ -79,6 +79,8 @@ SIGNATURES = {
     },
     "ssm_scan": {
         "ss_state_scatter": [_P, _I, _P, _P, _I, _P],
+        "ss_ssd_step": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _L, _P, _L, _P,
+                        _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -9,6 +9,11 @@ return it.  On a CPU tensor each runs its plain version; on a CUDA
 tensor it launches its kernel or raises.  An empty batch launches
 nothing.
 
+``ssd_step_rows`` is the paged decode's SSD state update: one Mamba
+sublayer's recurrence of one token on arena rows, its new state written
+straight into the round's new-state buffer, in one launch of
+``ssd_step`` (no JAX counterpart: XLA fuses the JAX package's step).
+
 ``state_scatter_pair_inline`` is the state write of the fused steps and
 of the ``ssm_state_write`` flush: the whole depth of the model, conv
 window and SSD state together, in one launch of the ``state_scatter``
@@ -24,7 +29,7 @@ page kernels, as in the JAX package: a state row is a page of the
 from __future__ import annotations
 
 from array import array
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -38,6 +43,10 @@ from repro_torch.kernels.rowclone.ops import (INLINE_ROWS, Index, _stream,
 from . import ref
 
 _MAX_LAYERS = 65535        # the kernel's grid y
+# state sizes n the ssd_step kernel is built for (its template's N), and
+# the most batch rows of a launch (its grid y)
+SSD_STATE_DIMS = (16, 32, 64, 128, 256)
+_MAX_STEP_ROWS = 65535
 
 Rows = Union[torch.Tensor, Sequence[int]]
 
@@ -202,3 +211,114 @@ def pim_state_init(arena: torch.Tensor, dst_rows: Index,
     batched init."""
     rc_ops.pim_page_init_batched(_flat3(arena), dst_rows, value)
     return arena
+
+
+def _rows_dense(t: torch.Tensor) -> bool:
+    """Whether ``t``'s dims after the first are dense (row-major, any
+    stride on a dim of size 1)."""
+    expect = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _step_operands(arena, rows, rowmap, alive, x, dt, A, B, C, out):
+    """Check :func:`ssd_step_rows`' operands against what its kernel
+    takes (shapes, dtypes, dense inner dims, one device); raises
+    ``ValueError``."""
+    if arena.dim() != 4 or rows.dim() != 1:
+        raise ValueError(f"arena {tuple(arena.shape)}, rows "
+                         f"{tuple(rows.shape)}: (R, h, p, n) and (Bp,)")
+    _, H, P, N = arena.shape
+    Bp = rows.shape[0]
+    want = {"rows": (rows, (Bp,), (torch.int32,)),
+            "rowmap": (rowmap, (Bp,), (torch.int64,)),
+            "x": (x, (Bp, H, P), (torch.bfloat16, torch.float32)),
+            "dt": (dt, (Bp, H), (torch.float32,)),
+            "A": (A, (H,), (torch.float32,)),
+            "B": (B, (Bp, N), (x.dtype,)),
+            "C": (C, (Bp, N), (x.dtype,)),
+            "out": (out, (Bp, H, P, N), (torch.float32,))}
+    if alive is not None:
+        want["alive"] = (alive, (Bp,), (torch.bool,))
+    if arena.dtype is not torch.float32:
+        raise ValueError(f"arena is {arena.dtype}: float32 state rows")
+    for name, (t, shape, dtypes) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)}: want {shape}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name} is {t.dtype}: want one of {dtypes}")
+        if t.device != arena.device:
+            raise ValueError(f"{name} is on {t.device}, the arena on "
+                             f"{arena.device}")
+    # x, B, C may be views of the conv's output: rows apart by a stride,
+    # their inner dims dense
+    for name, t in (("x", x), ("B", B), ("C", C)):
+        if not _rows_dense(t):
+            raise ValueError(f"{name} strides {t.stride()}: its inner "
+                             "dims must be dense")
+    for name, t in (("arena", arena), ("rows", rows), ("rowmap", rowmap),
+                    ("dt", dt), ("A", A), ("out", out), ("alive", alive)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ssd_step_rows(arena: torch.Tensor, rows: torch.Tensor,
+                  rowmap: torch.Tensor, alive: Optional[torch.Tensor],
+                  x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """One decode token's SSD recurrence on a Mamba sublayer's arena
+    rows, in one launch: row ``q``'s new state is ``arena[rows[q]] *
+    exp(dt[q] * A) + B[q] * (dt[q] * x[q])``; ``out[b]`` gets row
+    ``rowmap[b]``'s (its old state where ``alive`` is False).  Returns y:
+    (Bp, h, p) float32, ``C[b]`` against row ``b``'s new state.
+
+    arena: (R, h, p, n) float32, one sublayer's view of the SSD arena;
+    rows: (Bp,) int32 arena rows; rowmap: (Bp,) int64 (pad rows fold onto
+    row 0); alive: (Bp,) bool or None; x: (Bp, h, p) and B, C: (Bp, n)
+    in bf16 or float32, rows a stride apart and inner dims dense (views
+    of the conv's output are taken as they lie); dt: (Bp, h) and A: (h,)
+    float32; out: (Bp, h, p, n) float32.  On the CPU it runs the plain
+    version (the gather, the step, the mask and the fold as separate
+    ops); on the card the kernel, whose new state equals those ops bit
+    for bit and whose y sums over n in its own order.  Nothing is
+    allocated but y, so a captured step replays it."""
+    _step_operands(arena, rows, rowmap, alive, x, dt, A, B, C, out)
+    if arena.is_cuda:
+        return _launch_step(arena, rows, rowmap, alive, x, dt, A, B, C, out)
+    if arena.device.type != "cpu":
+        raise ValueError(f"no ssd_step kernel for device {arena.device}")
+    return ref.ssd_step_rows(arena, rows, rowmap, alive, x, dt, A, B, C, out)
+
+
+def _launch_step(arena, rows, rowmap, alive, x, dt, A, B, C,
+                 out) -> torch.Tensor:
+    """One ``ss_ssd_step`` launch on operands :func:`_step_operands`
+    passed: each pointer as it lies, x's, B's and C's row strides beside
+    theirs.  Returns y."""
+    global _lib
+    _, H, P, N = arena.shape
+    Bp = rows.shape[0]
+    if N not in SSD_STATE_DIMS:
+        raise ValueError(f"state size {N}: the ssd_step kernel is built for "
+                         f"{SSD_STATE_DIMS}")
+    if Bp > _MAX_STEP_ROWS:
+        raise ValueError(f"{Bp} rows: at most {_MAX_STEP_ROWS}")
+    if arena.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("arena and out must be 16-byte aligned")
+    y = torch.empty((Bp, H, P), dtype=torch.float32, device=arena.device)
+    if _lib is None:
+        _lib = _build.load("ssm_scan")
+    err = _lib.ss_ssd_step(
+        arena.data_ptr(), rows.data_ptr(), rowmap.data_ptr(),
+        None if alive is None else alive.data_ptr(), x.data_ptr(),
+        x.stride(0), dt.data_ptr(), A.data_ptr(), B.data_ptr(), B.stride(0),
+        C.data_ptr(), C.stride(0), out.data_ptr(), y.data_ptr(), Bp, H, P, N,
+        int(x.dtype is torch.bfloat16), _stream(arena))
+    if err:
+        _build.check(err, "ssd_step")
+    LAUNCHES["ssd_step"] += 1
+    return y

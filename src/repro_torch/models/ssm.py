@@ -8,7 +8,9 @@ contribution flows through a per-chunk state recurrence, a Python loop
 of length S/Q where the JAX package used ``lax.scan``.  Decode carries
 (conv_state, ssm_state) and costs O(1) a token.
 
-The JAX code is plain (no Pallas kernel), so this is plain PyTorch.  It
+The JAX code is plain (no Pallas kernel), so this is plain PyTorch,
+except the paged engine's decode (:func:`ssm_decode_rows`), whose SSD
+step runs as one hand-written kernel on the state arena's rows.  It
 keeps the JAX casts step by step: the projections in bf16, ``dt``,
 ``A`` and the SSD scan in float32, the ``d_skip`` term in the
 activation dtype and the gated RMSNorm on a bf16 product.  Every SSD
@@ -29,6 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.kernels.ssm_scan import ops as ss_ops
+# one token's SSD recurrence (s == 1): (y (b, 1, h, p) float32, new state)
+from repro_torch.kernels.ssm_scan.ref import ssd_step as _ssd_step
 from .layers import cast, rmsnorm, silu
 from .params import ParamDef
 
@@ -166,17 +171,6 @@ def _ssm_tail(cfg: ModelConfig, p: Dict[str, torch.Tensor], x, yh, xh, z,
     return rules.psum(yflat @ cast(p["out_proj"]))
 
 
-def _ssd_step(xh, dt, A, B, C, state):
-    """One token's SSD recurrence (s == 1): returns (y (b, 1, h, p) in
-    float32, the new state)."""
-    dA = torch.exp(dt[:, 0] * A[None, :])                      # (b,h)
-    dBx = (B[:, 0].float()[:, None, None, :]
-           * (dt[:, 0][:, :, None] * xh[:, 0].float())[..., None])
-    new_state = state * dA[:, :, None, None] + dBx
-    y = torch.einsum("bn,bhpn->bhp", C[:, 0].float(), new_state)
-    return y[:, None], new_state
-
-
 def ssm_layer(cfg: ModelConfig, pcfg: ParallelConfig,
               p: Dict[str, torch.Tensor], x: torch.Tensor, *, mode: str,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -217,6 +211,37 @@ def ssm_layer(cfg: ModelConfig, pcfg: ParallelConfig,
         new_cache = (new_conv, final) if mode == "prefill" else None
 
     return _ssm_tail(cfg, p, x, yh, xh, z, d_in), new_cache
+
+
+def ssm_decode_rows(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                    x: torch.Tensor, *, conv_state: torch.Tensor,
+                    arena: torch.Tensor, rows: torch.Tensor,
+                    rowmap: torch.Tensor, alive: Optional[torch.Tensor],
+                    out: torch.Tensor):
+    """:func:`ssm_layer`'s decode with the SSD state in an arena: the
+    paged engine's decode entry point.  The SSD step reads each row's
+    state from ``arena`` (one sublayer's (R, h, p, n) rows) at ``rows``
+    and writes the new state into ``out`` folded by ``rowmap`` (a dead
+    row's, ``alive`` False, left as it was), in one ``ssd_step`` launch
+    on the card (:func:`ss_ops.ssd_step_rows`); the conv window is the
+    caller's to fold.
+
+    x: (Bp, 1, d); conv_state: (Bp, W-1, ch), the rows' gathered windows.
+    Returns (out (Bp, 1, d), the new conv windows in the input's
+    dtype)."""
+    s_cfg = cfg.ssm
+    y = x @ cast(p["in_proj"])
+    z, xbc, dt, d_in, nheads = _split_in_proj(cfg, y)
+    dt = _softplus(dt.float() + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["a_log"].float())
+    xbc_conv, new_conv = _causal_conv(xbc, cast(p["conv_w"]), p["conv_b"],
+                                      conv_state)
+    xx, B, C = torch.split(xbc_conv, [d_in, s_cfg.state_dim,
+                                      s_cfg.state_dim], dim=-1)
+    xh = xx.reshape(*xx.shape[:2], nheads, s_cfg.head_dim)
+    yh = ss_ops.ssd_step_rows(arena, rows, rowmap, alive, xh[:, 0], dt[:, 0],
+                              A, B[:, 0], C[:, 0], out)
+    return _ssm_tail(cfg, p, x, yh[:, None], xh, z, d_in), new_conv
 
 
 def _ssm_rules(cfg: ModelConfig, p: Dict[str, torch.Tensor],

@@ -1439,23 +1439,28 @@ class _StateRound:
             p, h: torch.Tensor, lens: Optional[torch.Tensor]):
         """Mamba sublayer ``j`` of layer ``li`` on the normed input
         ``h``: decode one token (``lens`` None) or the length-masked
-        prefill from the rows' state.  Returns the sublayer's output."""
+        prefill from the rows' state.  Returns the sublayer's output.
+        A decode's SSD step reads its rows in the arena and writes the
+        new-state buffer itself (one ``ssd_step`` launch)."""
         conv_j = self.conv[li, j][self.idx]
-        ssm_j = self.ssm[li, j][self.idx]
         if lens is None:
-            out, (nc, ns) = ssm_mod.ssm_layer(cfg, pcfg, p, h, mode="decode",
-                                              cache=(conv_j, ssm_j))
+            out, nc = ssm_mod.ssm_decode_rows(
+                cfg, p, h, conv_state=conv_j, arena=self.ssm[li, j],
+                rows=self.rows, rowmap=self.rowmap, alive=self.alive,
+                out=self.new_ssm[li, j])
         else:
+            ssm_j = self.ssm[li, j][self.idx]
             out, (nc, ns) = ssm_mod.ssm_layer_paged(
                 cfg, pcfg, p, h, lengths=lens, conv_state=conv_j,
                 ssm_state=ssm_j)
+            ns = ns.to(self.ssm.dtype)
+            if self.alive is not None:
+                ns = torch.where(self.alive[:, None, None, None], ns, ssm_j)
+            torch.index_select(ns, 0, self.rowmap, out=self.new_ssm[li, j])
         nc = nc.to(self.conv.dtype)
-        ns = ns.to(self.ssm.dtype)
         if self.alive is not None:
             nc = torch.where(self.alive[:, None, None], nc, conv_j)
-            ns = torch.where(self.alive[:, None, None, None], ns, ssm_j)
         torch.index_select(nc, 0, self.rowmap, out=self.new_conv[li, j])
-        torch.index_select(ns, 0, self.rowmap, out=self.new_ssm[li, j])
         return out
 
     def scatter(self) -> None:
