@@ -33,11 +33,12 @@ PEAK_BYTES_PER_S = 3.35e12
 Work = Tuple[float, float]
 
 
-def least_seconds(work: Work) -> Tuple[float, str]:
-    """The least time for ``(flops, bytes)`` on one H100, and which bound
-    sets it ("flops" or "bytes")."""
+def least_seconds(work: Work, chips: int = 1) -> Tuple[float, str]:
+    """The least time for ``(flops, bytes)`` on ``chips`` H100s that
+    share it evenly, and which bound sets it ("flops" or "bytes")."""
     flops, nbytes = work
-    t_ops, t_mem = flops / PEAK_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / (PEAK_FLOPS * chips)
+    t_mem = nbytes / (PEAK_BYTES_PER_S * chips)
     return (t_ops, "flops") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -47,7 +48,7 @@ def add(*works: Work) -> Work:
 
 def weight_bytes(m: Model) -> float:
     """Bytes of every weight in bf16: what one step reads."""
-    return 2.0 * m.params()
+    return 2.0 * m.param_count
 
 
 def logits_flops(m: Model, rows: int) -> float:
@@ -56,38 +57,36 @@ def logits_flops(m: Model, rows: int) -> float:
 
 def _attn_flops(m: Model, keys: float) -> float:
     """Attention of queries whose key counts sum to ``keys``, over every
-    layer."""
-    return 4.0 * keys * m.heads * m.head_dim * m.layers
+    attention layer."""
+    return 4.0 * keys * m.heads * m.head_dim * m.attn_layers
 
 
 def _ssm_token_flops(m: Model) -> float:
+    """One token's SSD recurrence and conv over every SSM layer."""
     s = m.ssm
-    return m.layers * (5.0 * s.heads * s.head_dim * s.state
-                       + 2.0 * s.conv * s.conv_channels)
+    if s is None:
+        return 0.0
+    return m.ssm_layers * (5.0 * s.heads * s.head_dim * s.state
+                           + 2.0 * s.conv * s.conv_channels)
 
 
 def token_flops(m: Model, context: float) -> float:
     """One token through the layers (projections, attention over
-    ``context`` keys or the SSM recurrence); the logits excluded."""
-    f = 2.0 * m.matmul_params()
-    if m.family == "dense":
-        return f + _attn_flops(m, context)
-    return f + _ssm_token_flops(m)
+    ``context`` keys, the SSM recurrence); the logits excluded."""
+    return (2.0 * m.matmul_param_count + _attn_flops(m, context)
+            + _ssm_token_flops(m))
 
 
 def decode_rows(m: Model, contexts: Sequence[int]) -> Work:
     """The per-row work of one decode round: each row's token through
-    the layers and the logits, its K/V read and written (or its state
-    read and written back).  The weights are :func:`step_weights`'."""
+    the layers and the logits, its K/V read and written and its state
+    read and written back.  The weights are :func:`step_weights`'."""
     n = len(contexts)
     keys = float(sum(contexts))
-    flops = (2.0 * m.matmul_params() * n + logits_flops(m, n))
-    if m.family == "dense":
-        flops += _attn_flops(m, keys)
-        nbytes = m.kv_bytes_per_token() * (keys + n)
-    else:
-        flops += _ssm_token_flops(m) * n
-        nbytes = 2.0 * m.state_bytes_per_row() * n
+    flops = (2.0 * m.matmul_param_count * n + logits_flops(m, n)
+             + _attn_flops(m, keys) + _ssm_token_flops(m) * n)
+    nbytes = (m.kv_bytes_per_token() * (keys + n)
+              + 2.0 * m.state_bytes_per_row() * n)
     return flops, nbytes
 
 
@@ -95,16 +94,13 @@ def chunk(m: Model, q: int, prefix: int) -> Work:
     """A prefill chunk of ``q`` prompt tokens after ``prefix`` committed
     ones: the tokens through the layers, causal attention over the
     prefix and the chunk (the prefix's K/V read, the chunk's written),
-    or the state read and written once.  The logits of a finishing
+    and the state read and written once.  The logits of a finishing
     prompt are counted with the token it emits."""
-    flops = 2.0 * m.matmul_params() * q
-    if m.family == "dense":
-        keys = q * prefix + q * (q + 1) / 2.0
-        flops += _attn_flops(m, keys)
-        nbytes = m.kv_bytes_per_token() * (prefix + q)
-    else:
-        flops += _ssm_token_flops(m) * q
-        nbytes = 2.0 * m.state_bytes_per_row()
+    keys = q * prefix + q * (q + 1) / 2.0
+    flops = (2.0 * m.matmul_param_count * q + _attn_flops(m, keys)
+             + _ssm_token_flops(m) * q)
+    nbytes = (m.kv_bytes_per_token() * (prefix + q)
+              + 2.0 * m.state_bytes_per_row())
     return flops, nbytes
 
 
@@ -133,7 +129,7 @@ def paged_attention(m: Model, contexts: Sequence[int]) -> Work:
     keys = float(sum(contexts))
     n = len(contexts)
     flops = _attn_flops(m, keys)
-    nbytes = m.layers * (keys * m.kv_heads * m.head_dim * 2 * 2
+    nbytes = m.attn_layers * (keys * m.kv_heads * m.head_dim * 2 * 2
                          + n * m.heads * m.head_dim * 2 * 2)
     return flops, nbytes
 
@@ -144,7 +140,7 @@ def flash_prefix(m: Model, q: int, prefix: int) -> Work:
     K/V of the prefix and the chunk read, O written, in bf16)."""
     keys = q * prefix + q * (q + 1) / 2.0
     flops = _attn_flops(m, keys)
-    nbytes = m.layers * (2 * q * m.heads * m.head_dim * 2
+    nbytes = m.attn_layers * (2 * q * m.heads * m.head_dim * 2
                          + (prefix + q) * m.kv_heads * m.head_dim * 2 * 2)
     return flops, nbytes
 
@@ -154,3 +150,20 @@ def state_scatter(m: Model, rows: int) -> Work:
     over every layer) into the arena: each byte read once and written
     once."""
     return 0.0, 2.0 * rows * m.state_bytes_per_row()
+
+
+def ssd_step(m: Model, rows: int) -> Work:
+    """The decode step's SSD state update for ``rows`` rows over every
+    SSM layer: each row's float32 state read once from the arena and
+    its new state written once, its x, B and C read in bf16 and dt in
+    float32, and its y written in float32; the update's operations are
+    the recurrence's share of :func:`_ssm_token_flops` (the conv is
+    not the kernel's)."""
+    s = m.ssm
+    if s is None:
+        return 0.0, 0.0
+    hp = s.heads * s.head_dim
+    per_layer = (2 * hp * s.state * 4 + hp * 2 + s.heads * 4
+                 + 2 * s.state * 2 + hp * 4)
+    flops = rows * m.ssm_layers * 5.0 * hp * s.state
+    return flops, float(rows * m.ssm_layers * per_layer)

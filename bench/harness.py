@@ -16,22 +16,39 @@ The loops:
   its due time on the event loop (late by whatever the engine's round
   holds it), and timed from that due time.
 
-The loop runs ``warmup_seconds`` before the window opens, so every
-graph key the traffic meets often is captured and the loop is at its
-steady occupancy; the window then runs ``--seconds``; the window's
-requests are drained (a minute at most), the prefix cache cleared, and
-the arenas read back for zeros.  The reference then judges a sample of
-the window's greedy requests and one of its sampled requests.  With ``--trace 1`` a slice of the
-window is profiled: its last ``TRACE_SECONDS``, so that the profiler's
-stop falls after the window has closed.
+The loop runs ``warmup_seconds`` before the window opens, so every graph
+key the traffic meets often is captured and the loop is at its steady
+occupancy; the window then runs ``--seconds``; the window's requests are
+drained (a minute at most), the prefix cache cleared, and the arenas
+read back for zeros.  The reference then judges a sample of the window's
+greedy requests and one of its sampled requests.  With ``--trace 1`` a
+slice of the window is profiled: its last ``TRACE_SECONDS``, so that the
+profiler's stop falls after the window has closed.
+
+A cell whose ``chips`` is above 1 runs in rank mode
+(:func:`run_on_ranks`): one process a card, each building the engine
+tensor-parallel over a ``model`` axis of ``chips`` ranks and running the
+same closed loop.  Rank 0 owns the clock: at each engine call it sends
+the others the phase word (go on, the window opens, stop) for the call
+after, over a CPU ``gloo`` group and without waiting (:class:`Ahead`),
+so every rank submits the same requests and makes the same calls.
+Rank 0 also owns the trace (its card's) and the result line, and judges
+alone unless the family draws each rank's share of the weights
+(``model.draws_shares``): then every rank computes the reference with
+it.  The readers divide by ``chips`` cards' peaks.  An open mix is
+refused there: the program's front door runs its own engine loop and
+knows nothing of ranks.
 """
 
 from __future__ import annotations
 
 import asyncio
 import gc
+import hashlib
 import importlib.util
 import json
+import os
+import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -40,8 +57,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from bench import counts, model as model_mod, reference, system, traffic
-from bench import weights as weights_mod
+from bench import counts, guard, model as model_mod, reference, system
+from bench import traffic, weights as weights_mod
+from bench.model import SOLO, Ranks
 from bench.trace import Slice
 
 BENCH = Path(__file__).resolve().parent
@@ -64,6 +82,10 @@ MISS_KEYS = ("jit_traces", "block_jit_traces", "prefill_jit_traces",
 PIM_KERNELS = ("kv_scatter", "page_copy_batched", "page_init_batched",
                "page_bitwise_batched", "page_not_batched", "page_zero_scan",
                "state_scatter")
+# rank mode: the phase word rank 0 sends a call ahead, and the ranks'
+# time limit (a checkout's first run builds the kernels)
+GO, OPEN, STOP = 0, 1, 2
+RANKS_TIMEOUT = 1150.0
 
 
 def now_ms() -> float:
@@ -218,8 +240,10 @@ class Window:
     def __init__(self, m, kind: str, calls: List[Call],
                  requests: List[Live], seconds: float, setup_s: float,
                  missing_ms: float, sl: Optional[Slice],
-                 slice_calls: List[Call]):
+                 slice_calls: List[Call], chips: int = 1):
         self.model = m
+        # the cards that share the work (the slice is rank 0's card)
+        self.chips = chips
         self.kind = kind
         self.calls = calls
         self.requests = requests
@@ -279,11 +303,13 @@ class Run:
     """The state of one run (built by :func:`run`)."""
 
     def __init__(self, m, w, mix, seed: int, seconds: float, trace: bool,
-                 device, engine_kw: Dict):
+                 device, engine_kw: Dict, ranks: Ranks = SOLO, mesh=None):
         self.m, self.w, self.mix = m, w, mix
         self.seed, self.seconds, self.trace = seed, seconds, trace
+        self.ranks = ranks
         self.device = torch.device(device)
-        self.eng = system.engine(m, w, seed, self.device, **engine_kw)
+        self.eng = system.engine(m, w, seed, self.device, mesh=mesh,
+                                 ranks=ranks, **engine_kw)
         self._prewarm()
         self.rec = Recorder(self.eng, self._on_call)
         self.stream = traffic.requests(mix, seed, m.vocab)
@@ -368,18 +394,30 @@ class Run:
             with span("submit"):
                 eng.submit(lv.req)
 
+        def phase(t: float) -> int:
+            if self.window_t0 is None and t >= warm_end:
+                return OPEN
+            if (self.window_t0 is not None
+                    and t >= self.window_t0 + self.seconds * 1e3):
+                return STOP
+            return GO
+
         for _ in range(self.mix["clients"]):
             send()
         warm_end = now_ms() + self.mix["warmup_seconds"] * 1e3
+        ahead = Ahead(self.ranks) if self.ranks.world > 1 else None
         while True:
             t = now_ms()
-            if self.window_t0 is None and t >= warm_end:
+            # in rank mode, rank 0's word for this call, sent a call ago
+            word = phase(t) if ahead is None else ahead.take()
+            if word == OPEN:
                 self.window_t0 = t
-            elif (self.window_t0 is not None
-                  and t >= self.window_t0 + self.seconds * 1e3):
+            elif word == STOP:
                 self.window_t1 = t
                 self.stop_trace()
                 break
+            if ahead is not None:
+                ahead.send(phase(t))
             rounds = K if eng.prefill_backlog_tokens() == 0 else 1
             finished = eng.run(max_rounds=rounds)
             for _ in finished:
@@ -508,7 +546,7 @@ def _uniforms(rows: List[torch.Tensor], seed: int) -> List[torch.Tensor]:
 
 
 def judge(m, w, greedy: List[Live], drawn: List[Live], seed: int,
-          control: bool = False) -> Dict:
+          control: bool = False, ranks: Ranks = SOLO) -> Dict:
     """The reference over each judged request's prompt and served tokens
     (teacher-forced): the widest gap of a greedy token below the
     reference's best, and how the sampled tokens fall in the reference's
@@ -524,12 +562,12 @@ def judge(m, w, greedy: List[Live], drawn: List[Live], seed: int,
     if not seqs:
         return {"readings": _readings([], [], [], seed),
                 "served_tokens": 0}
-    ref = reference.logits(m, w, seqs)
+    ref = reference.logits(m, w, seqs, ranks=ranks)
     toks = [torch.as_tensor(lv.req.out_tokens) for lv in greedy + drawn]
     prog = _readings(ref, toks[:len(greedy)], toks[len(greedy):], seed)
     if not control:
         return {"readings": prog, "served_tokens": served}
-    ctl = reference.logits(m, w, seqs, precision="fp8")
+    ctl = reference.logits(m, w, seqs, precision="fp8", ranks=ranks)
     g = len(greedy)
     rows = ref[g:]
     u = _uniforms(rows, seed)
@@ -569,11 +607,15 @@ def load_cell(bench: Dict, name: str) -> Dict:
 def run(bench: Dict, name: str, seed: int, seconds: float, trace: bool, *,
         t_start: float, device="cuda", model: Optional[Dict] = None,
         mix: Optional[Dict] = None, limits: Optional[Dict] = None,
-        engine_kw: Optional[Dict] = None, control: bool = False) -> Dict:
+        engine_kw: Optional[Dict] = None, control: bool = False,
+        ranks: Ranks = SOLO, mesh=None) -> Optional[Dict]:
     """One run of cell ``name``; returns the result line.  ``model``,
     ``mix``, ``limits`` and ``engine_kw`` replace the cell's files (the
     CPU tests run the harness at a small size with them); ``control``
-    judges the float8 control in the program's place (see ``judge``)."""
+    judges the float8 control in the program's place (see ``judge``).
+    In rank mode (``ranks``, ``mesh``: see :func:`run_on_ranks`) every
+    rank calls this, and only rank 0 returns the line (the others
+    None)."""
     cell = load_cell(bench, name)
     cfg = model or json.loads(
         (BENCH / "configs" / f"{cell['config']}.json").read_text())
@@ -582,12 +624,14 @@ def run(bench: Dict, name: str, seed: int, seconds: float, trace: bool, *,
     limits = limits or json.loads(
         (BENCH / "limits" / f"{name}.json").read_text())
     dev = torch.device(device)
+    lead = ranks.rank == 0
     timing = {"start": now_ms() / 1e3 - t_start}
-    w = weights_mod.make(m, seed, dev)
+    w = weights_mod.make(m, seed, dev, ranks)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     timing["weights"] = now_ms() / 1e3 - t_start
-    r = Run(m, w, mix, seed, seconds, trace, dev, engine_kw or {})
+    r = Run(m, w, mix, seed, seconds, trace and lead, dev, engine_kw or {},
+            ranks, mesh)
     timing["engine"] = now_ms() / 1e3 - t_start
     if mix["loop"] == "closed":
         r.closed()
@@ -602,26 +646,44 @@ def run(bench: Dict, name: str, seed: int, seconds: float, trace: bool, *,
     residue = system.arena_residue(r.eng)
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    sl = Slice.from_profiler(r.prof) if r.profiled else None
-    win = Window(m, mix["loop"], calls, wreqs,
-                 (r.window_t1 - r.window_t0) / 1e3, setup_s, missing, sl,
-                 r.slice_calls)
-    metrics = {}
-    for spec in cell_metrics(bench, name, trace):
-        value = load_metric(spec["name"])(win)
-        if value is not None:
-            metrics[spec["name"]] = {"value": value, "unit": spec["unit"]}
-    unfinished = sum(not finished(lv) for lv in wreqs)
-    short = sum(finished(lv) and len(lv.req.out_tokens) != lv.spec.max_new
-                for lv in wreqs)
     greedy, drawn = sample(wreqs, seed, True), sample(wreqs, seed, False)
+    differ = 0
+    if ranks.world > 1:
+        # every rank's arena share, the fullest card, every rank's
+        # token streams against rank 0's, and rank 0's sample
+        residue = int(reduce(ranks, residue, "sum"))
+        peak = int(reduce(ranks, peak, "max"))
+        digests = gather(ranks, streams_digest(r.lives))
+        differ = sum(d != digests[0] for d in digests)
+        by_rid = {lv.rid: lv for lv in r.lives}
+        picked = share(ranks, ([lv.rid for lv in greedy],
+                               [lv.rid for lv in drawn]))
+        greedy, drawn = ([by_rid[i] for i in ids] for ids in picked)
+    if lead:
+        sl = Slice.from_profiler(r.prof) if r.profiled else None
+        win = Window(m, mix["loop"], calls, wreqs,
+                     (r.window_t1 - r.window_t0) / 1e3, setup_s, missing, sl,
+                     r.slice_calls, chips=ranks.world)
+        metrics = {}
+        for spec in cell_metrics(bench, name, trace):
+            value = load_metric(spec["name"])(win)
+            if value is not None:
+                metrics[spec["name"]] = {"value": value, "unit": spec["unit"]}
+        unfinished = sum(not finished(lv) for lv in wreqs)
+        short = sum(finished(lv) and len(lv.req.out_tokens) != lv.spec.max_new
+                    for lv in wreqs)
     del r.rec, r.eng
     r.eng = None
     gc.collect()
+    if not (lead or model_mod.draws_shares(m, ranks)):
+        # whole weights: rank 0 judges alone
+        return None
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = now_ms()
-    verdict = judge(m, w, greedy, drawn, seed, control=control)
+    verdict = judge(m, w, greedy, drawn, seed, control=control, ranks=ranks)
+    if not lead:
+        return None
     timing["reference_s"] = (now_ms() - t_ref) / 1e3
     checks = {k: {"value": verdict["readings"][k], "limit": limits[k]}
               for k in READINGS}
@@ -630,11 +692,13 @@ def run(bench: Dict, name: str, seed: int, seconds: float, trace: bool, *,
         "wrong_length_outputs": {"value": short, "limit": 0},
         "arena_nonzero_after_free": {"value": residue, "limit": 0},
     })
+    if ranks.world > 1:
+        checks["ranks_streams_differ"] = {"value": differ, "limit": 0}
     correct = all(c["value"] is not None and c["value"] <= c["limit"]
                   for c in checks.values())
     out = {"correct": correct, "attempted": len(wreqs),
            "failed": unfinished, "metrics": metrics,
-           "device": device_info(dev, peak, sl)}
+           "device": device_info(dev, peak, sl, ranks.world)}
     if sl is not None:
         out["breakdown"] = sl.breakdown()
         out["kernel_names"] = sl.kernel_names()
@@ -658,12 +722,113 @@ def run(bench: Dict, name: str, seed: int, seconds: float, trace: bool, *,
     return out
 
 
-def device_info(dev: torch.device, peak: int, sl: Optional[Slice]) -> Dict:
+# ------------------------------ rank mode ------------------------------ #
+
+
+class Ahead:
+    """Rank 0's phase word, one engine call ahead: at each call every
+    rank takes the word sent at the call before and sends (rank 0) or
+    receives (the others) the next call's, a broadcast that completes
+    while the call runs.  So no rank waits for another's host at the
+    call's start, and every rank still opens and closes the window at
+    the same call, one call after rank 0's clock says."""
+
+    def __init__(self, ranks: Ranks):
+        self.ranks = ranks
+        self.send(GO)
+
+    def send(self, word: int) -> None:
+        self.buf = torch.tensor([word], dtype=torch.int64)
+        self.work = torch.distributed.broadcast(
+            self.buf, 0, group=self.ranks.group, async_op=True)
+
+    def take(self) -> int:
+        self.work.wait()
+        return int(self.buf[0])
+
+
+def reduce(ranks: Ranks, value: float, op: str) -> float:
+    """``value`` summed (``op`` "sum") or at its largest ("max") over the
+    ranks, on every rank."""
+    dist = torch.distributed
+    buf = torch.tensor([value], dtype=torch.float64)
+    kind = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    dist.all_reduce(buf, kind, group=ranks.group)
+    return float(buf[0])
+
+
+def gather(ranks: Ranks, obj) -> List:
+    """Every rank's ``obj``, in rank order, on every rank."""
+    out = [None] * ranks.world
+    torch.distributed.all_gather_object(out, obj, group=ranks.group)
+    return out
+
+
+def share(ranks: Ranks, obj):
+    """Rank 0's ``obj``, on every rank."""
+    box = [obj]
+    torch.distributed.broadcast_object_list(box, 0, group=ranks.group)
+    return box[0]
+
+
+def streams_digest(lives: List[Live]) -> str:
+    """One digest of every request's id and served tokens."""
+    h = hashlib.sha256()
+    for lv in lives:
+        if lv.req is not None:
+            h.update(np.asarray([lv.rid, *lv.req.out_tokens],
+                                dtype=np.int64).tobytes())
+    return h.hexdigest()
+
+
+def _on_rank(rank: int, world: int, kw: Dict) -> Dict:
+    """One rank of :func:`run_on_ranks`: its CPU group, its mesh, its
+    card, the run; returns rank 0's line and the forbidden modules this
+    process holds once its window has closed."""
+    group = torch.distributed.new_group(backend="gloo")
+    mesh = system.mesh(world)
+    kw = dict(kw)
+    if kw.pop("device") == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device("cpu")
+    out = run(**kw, device=dev, ranks=Ranks(rank, world, group), mesh=mesh)
+    return {"result": out, "offenders": guard.offenders(sys.modules)}
+
+
+def run_on_ranks(bench: Dict, name: str, seed: int, seconds: float,
+                 trace: bool, *, t_start: float, device="cuda",
+                 backend: str = "nccl", mix: Optional[Dict] = None,
+                 **kw) -> Tuple[Dict, List[str]]:
+    """One run of a cell whose ``chips`` is above 1: ``chips`` ranks
+    (the program's ``run_ranks``, over ``backend``: ``nccl`` on the
+    cards, ``gloo`` on the CPU), each running :func:`run`; returns rank
+    0's line and the forbidden modules any rank held.  ``kw`` as
+    :func:`run` takes it."""
+    cell = load_cell(bench, name)
+    mix = mix or traffic.load(BENCH / "traffic" / f"{cell['traffic']}.json")
+    if mix["loop"] != "closed":
+        raise ValueError(
+            f"{name}: an {mix['loop']} mix on {cell['chips']} chips; the "
+            "rank mode runs closed mixes only (the program's AsyncServer "
+            "runs its own engine loop and knows nothing of ranks)")
+    world = cell["chips"]
+    args = dict(kw, bench=bench, name=name, seed=seed, seconds=seconds,
+                trace=trace, t_start=t_start, device=device, mix=mix)
+    threads = max(1, min(8, (os.cpu_count() or 1) // world))
+    outs = system.run_ranks(_on_rank, world, backend=backend, args=(args,),
+                            timeout=RANKS_TIMEOUT, threads=threads)
+    bad = sorted({b for o in outs for b in o["offenders"]})
+    return outs[0]["result"], bad
+
+
+def device_info(dev: torch.device, peak: int, sl: Optional[Slice],
+                chips: int) -> Dict:
     if dev.type == "cuda":
         info = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-                "count": 1, "memory_peak_bytes": int(peak)}
+                "count": chips, "memory_peak_bytes": int(peak)}
     else:
-        info = {"platform": "cpu", "kind": "cpu", "count": 1,
+        info = {"platform": "cpu", "kind": "cpu", "count": chips,
                 "memory_peak_bytes": 0}
     if sl is not None:
         info["busy_s"] = sl.busy_s

@@ -3,17 +3,23 @@ the sizes the yardstick works with.
 
 The file keeps the source's own key names (Hugging Face ``config.json``
 for Granite, ``MambaConfig`` for Mamba-2), so each value can be checked
-against its source; :func:`load` maps them onto one :class:`Model`, the
-only description of a model that the counts, the weights and the plain
-reference read.  Nothing here imports the program.
+against its source.  Its ``model_type`` names the family module that
+reads it, ``bench/families/<model_type>.py`` (:func:`family`), whose
+``read`` maps the keys onto one :class:`Model`: the only description of
+a model that the counts, the weights and the plain reference read.
+Nothing here imports the program.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional
+from types import ModuleType
+from typing import Any, Dict, Optional
+
+FAMILIES = Path(__file__).resolve().parent / "families"
 
 
 @dataclass(frozen=True)
@@ -33,12 +39,22 @@ class SSM:
 
 @dataclass(frozen=True)
 class Model:
+    """A model as the shared counts read it.  ``family`` is the
+    configuration's ``model_type`` (its module under ``families/``);
+    ``param_count`` and ``matmul_param_count`` are the family's counts
+    of every parameter and of those a token multiplies through in the
+    layers; ``attn_layers`` and ``ssm_layers`` are the layers that run
+    attention and the SSD recurrence, which the kernel counts charge."""
     name: str
-    family: str         # "dense" (GQA attention + SwiGLU) or "ssm"
+    family: str
     layers: int
     d_model: int
     vocab: int
     norm_eps: float
+    param_count: int
+    matmul_param_count: int
+    attn_layers: int = 0
+    ssm_layers: int = 0
     heads: int = 0
     kv_heads: int = 0
     head_dim: int = 0
@@ -48,90 +64,56 @@ class Model:
     engine: Dict = field(default_factory=dict, compare=False, hash=False)
     raw: Dict = field(default_factory=dict, compare=False, hash=False)
 
-    # ------------------------- parameter counts ------------------------ #
-
-    def layer_params(self) -> int:
-        """Parameters of one layer, its norms included."""
-        d = self.d_model
-        if self.family == "dense":
-            attn = d * self.head_dim * (2 * self.heads + 2 * self.kv_heads)
-            return attn + 3 * d * self.d_ff + 2 * d
-        s = self.ssm
-        in_proj = d * (2 * s.d_inner + 2 * s.state + s.heads)
-        conv = (s.conv + 1) * s.conv_channels
-        return (in_proj + conv + 3 * s.heads + s.d_inner
-                + s.d_inner * d + d)
-
-    def params(self) -> int:
-        """Every parameter: the tied table once, the layers, the final
-        norm."""
-        return (self.vocab * self.d_model + self.layers * self.layer_params()
-                + self.d_model)
-
-    def matmul_params(self) -> int:
-        """Parameters a token multiplies through in the layers (the
-        projections; norms, conv taps and per-head scalars excluded)."""
-        d = self.d_model
-        if self.family == "dense":
-            attn = d * self.head_dim * (2 * self.heads + 2 * self.kv_heads)
-            return self.layers * (attn + 3 * d * self.d_ff)
-        s = self.ssm
-        return self.layers * (d * (2 * s.d_inner + 2 * s.state + s.heads)
-                              + s.d_inner * d)
-
     def kv_bytes_per_token(self) -> int:
-        """Bytes of one token's K and V over every layer, in bf16."""
-        if self.family != "dense":
-            return 0
-        return 2 * self.layers * self.kv_heads * self.head_dim * 2
+        """Bytes of one token's K and V over every attention layer, in
+        bf16."""
+        return 2 * self.attn_layers * self.kv_heads * self.head_dim * 2
 
     def state_bytes_per_row(self) -> int:
-        """Bytes of one sequence's recurrent state over every layer: the
-        conv window in bf16 and the SSD state in float32."""
+        """Bytes of one sequence's recurrent state over every SSM layer:
+        the conv window in bf16 and the SSD state in float32."""
         if self.ssm is None:
             return 0
         s = self.ssm
         conv = (s.conv - 1) * s.conv_channels * 2
         ssd = s.heads * s.head_dim * s.state * 4
-        return self.layers * (conv + ssd)
+        return self.ssm_layers * (conv + ssd)
 
 
-def _dense(name: str, c: Dict) -> Model:
-    d = c["hidden_size"]
-    heads = c["num_attention_heads"]
-    return Model(
-        name=name, family="dense", layers=c["num_hidden_layers"], d_model=d,
-        vocab=c["vocab_size"], norm_eps=c["rms_norm_eps"], heads=heads,
-        kv_heads=c["num_key_value_heads"],
-        head_dim=c.get("head_dim", d // heads), d_ff=c["intermediate_size"],
-        rope_theta=c["rope_theta"], engine=c["engine"], raw=c)
+@dataclass(frozen=True)
+class Ranks:
+    """Where a family's hooks run: this process's ``rank`` of ``world``
+    (one a card), and a CPU ``gloo`` group over them (None alone)."""
+    rank: int = 0
+    world: int = 1
+    group: Any = None
 
 
-def _ssm(name: str, c: Dict) -> Model:
-    d = c["d_model"]
-    s = c["ssm_cfg"]
-    d_in = s["expand"] * d
-    ssm = SSM(state=s["d_state"], head_dim=s["headdim"], expand=s["expand"],
-              conv=s["d_conv"], chunk=s["chunk_size"], d_inner=d_in,
-              heads=d_in // s["headdim"])
-    # the tied table's rows: the vocabulary padded as the checkpoint pads it
-    pad = c.get("pad_vocab_size_multiple", 1)
-    vocab = -(-c["vocab_size"] // pad) * pad
-    return Model(name=name, family="ssm", layers=c["n_layer"], d_model=d,
-                 vocab=vocab, norm_eps=c["norm_epsilon"], ssm=ssm,
-                 engine=c["engine"], raw=c)
+SOLO = Ranks()
 
 
-_FAMILIES = {"granite": _dense, "mamba2": _ssm}
+def draws_shares(m: Model, ranks: Ranks) -> bool:
+    """Whether each rank draws only its share of ``m``'s weights: where
+    its family module sets ``SHARES = True`` and more than one rank
+    serves.  Each rank then draws from its own stream, the token table
+    is cut by rows over the ranks, and every rank computes the
+    reference together (``reference.logits``); otherwise every rank
+    draws the whole model from the seed and rank 0 alone judges."""
+    return ranks.world > 1 and getattr(family(m.family), "SHARES", False)
+
+
+def family(name: str) -> ModuleType:
+    """The module ``bench.families.<name>``."""
+    if not (FAMILIES / f"{name}.py").is_file():
+        found = sorted(f.name for f in FAMILIES.glob("*.py")
+                       if not f.name.startswith("_"))
+        raise ValueError(f"model_type {name!r}: no bench/families/{name}.py; "
+                         f"the benchmark has {found}")
+    return importlib.import_module(f"bench.families.{name}")
 
 
 def from_dict(c: Dict) -> Model:
-    try:
-        build = _FAMILIES[c["model_type"]]
-    except KeyError:
-        raise ValueError(f"model_type {c.get('model_type')!r}: the "
-                         f"benchmark reads {sorted(_FAMILIES)}") from None
-    return build(c["name"], c)
+    return family(c["model_type"]).read(c["name"], c)
 
 
 def load(path: Path) -> Model:

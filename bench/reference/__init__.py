@@ -1,8 +1,10 @@
-"""The plain reference: the two configurations' forward passes in plain
+"""The plain reference: the configurations' forward passes in plain
 PyTorch and float32, written from the published descriptions, with no
 kernel, cache or batching of the program's.  It imports nothing of the
 program and takes only the benchmark's weights (``bench.weights``) and
-token ids.
+token ids.  What every family shares is here (the token table, the
+final norm, the logits, the control's rounding and the judging); each
+family's layers are in its module under ``bench/families/``.
 
 ``logits(m, w, seqs, precision=...)`` runs each sequence whole (prompt
 and served tokens, teacher-forced) and returns the logits at the
@@ -15,10 +17,16 @@ first, the step a lower-precision serving path would take.
 at temperature 1 by how they fall in the reference's distributions, and
 ``draw`` makes such tokens (the control's, and the planted faults').
 
-Departures from the published models, the same in the program: Granite
-runs without its muP multipliers (embedding, residual, logits) and with
-softmax scaled by 1/sqrt(head_dim); RMSNorm's epsilon and the bf16
-residual stream of Mamba-2 are as the configuration file states.
+A family module states its departures from the published model, the
+same in the program.
+
+Where each rank holds only its share of the weights
+(``model.draws_shares``), every rank runs :func:`logits` together: the
+token table's rows and the output table are cut over the ranks, so a
+lookup is summed over them and the logits gathered; a family's layer
+sums its partial outputs by :func:`all_sum`.  These collectives use the
+default process group, the engine's (``nccl`` on the cards).  The
+control's float8 scales are then each share's own.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
-from bench.model import Model
+from bench.model import SOLO, Model, Ranks, family
 
 FP8_MAX = 448.0
 HEADS_AT_ONCE = 8
@@ -60,12 +68,40 @@ def full_float32():
         torch.backends.cudnn.allow_tf32 = c
 
 
-def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * w.float()
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
+def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def all_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks, in place."""
+    torch.distributed.all_reduce(x)
+    return x
+
+
+def all_cat(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x``, in rank order, along the last dimension."""
+    parts = [torch.empty_like(x) for _ in range(
+        torch.distributed.get_world_size())]
+    torch.distributed.all_gather(parts, x.contiguous())
+    return torch.cat(parts, dim=-1)
+
+
+def embed(m: Model, table: torch.Tensor, tokens: torch.Tensor,
+          ranks: Ranks) -> torch.Tensor:
+    """The rows of ``tokens`` in the token table, in float32: the whole
+    table, or this rank's block of rows, each rank adding the rows it
+    holds (a sum with zeros, exact)."""
+    if table.shape[0] == m.vocab:
+        return table[tokens].float()
+    n = table.shape[0]
+    local = tokens - ranks.rank * n
+    held = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)].float() * held[:, None]
+    return all_sum(x)
 
 
 class _Lin:
@@ -84,129 +120,36 @@ class _Lin:
         return self.q(x) @ wt
 
 
-# ------------------------------ Granite -------------------------------- #
-
-
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding, the half-split (GPT-NeoX) form, positions 0..S-1.
-    x: (S, heads, hd)."""
-    S, _, hd = x.shape
-    inv = 1.0 / theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
-                                       device=x.device) / hd)
-    ang = torch.arange(S, dtype=torch.float32, device=x.device)[:, None] * inv
-    sin, cos = torch.sin(ang)[:, None, :], torch.cos(ang)[:, None, :]
-    x1, x2 = x[..., :hd // 2], x[..., hd // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def _attention(q, k, v, q8) -> torch.Tensor:
-    """Causal softmax attention, grouped-query: q (S, H, hd), k and v
-    (S, kvh, hd); query head h reads KV head h // (H / kvh)."""
-    S, H, hd = q.shape
-    g = H // k.shape[1]
-    q, k, v = q8(q), q8(k), q8(v)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    out = torch.empty_like(q)
-    for h0 in range(0, H, HEADS_AT_ONCE):
-        hs = range(h0, min(H, h0 + HEADS_AT_ONCE))
-        qh = q[:, hs].transpose(0, 1)                          # (h, S, hd)
-        kh = k[:, [h // g for h in hs]].transpose(0, 1)
-        vh = v[:, [h // g for h in hs]].transpose(0, 1)
-        s = (qh @ kh.transpose(1, 2)) / hd ** 0.5
-        s = s.masked_fill(~mask, float("-inf"))
-        out[:, hs] = (torch.softmax(s, dim=-1) @ vh).transpose(0, 1)
-    return out
-
-
-_GRANITE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-
-
-def _granite_layer(m: Model, w, lw, l: int, x: torch.Tensor,
-                   lin) -> torch.Tensor:
-    S = x.shape[0]
-    H, kvh, hd = m.heads, m.kv_heads, m.head_dim
-    h = _rms(x, w["attn_norm"][l], m.norm_eps)
-    q = _rope(lin(h, lw["wq"]).view(S, H, hd), m.rope_theta)
-    k = _rope(lin(h, lw["wk"]).view(S, kvh, hd), m.rope_theta)
-    v = lin(h, lw["wv"]).view(S, kvh, hd)
-    o = _attention(q, k, v, lin.q).reshape(S, H * hd)
-    x = x + lin(o, lw["wo"])
-    h = _rms(x, w["mlp_norm"][l], m.norm_eps)
-    return x + lin(_silu(lin(h, lw["w_gate"])) * lin(h, lw["w_up"]),
-                   lw["w_down"])
-
-
-# ------------------------------ Mamba-2 -------------------------------- #
-
-
-def _ssd(xs, dt, A, B, C) -> torch.Tensor:
-    """The SSD recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t,
-    y_t = C_t h_t, in its quadratic (attention-like) form:
-    y_t = sum_{s<=t} exp(A sum_{r=s+1..t} dt_r) (C_t . B_s) dt_s x_s.
-    xs (S, heads, P); dt (S, heads); A (heads,); B, C (S, N)."""
-    S, H, P = xs.shape
-    cum = torch.cumsum(dt.double() * A.double()[None, :], dim=0)   # (S, H)
-    G = C @ B.t()                                                  # (S, S)
-    mask = torch.ones((S, S), dtype=torch.bool, device=xs.device).tril()
-    y = torch.empty_like(xs)
-    for h0 in range(0, H, HEADS_AT_ONCE):
-        hs = slice(h0, min(H, h0 + HEADS_AT_ONCE))
-        c = cum[:, hs].t()                                         # (h, S)
-        seg = (c[:, :, None] - c[:, None, :]).masked_fill(~mask, -float("inf"))
-        Mh = torch.exp(seg).float() * G[None] * dt[:, hs].t()[:, None, :]
-        y[:, hs] = torch.einsum("hts,shp->thp", Mh, xs[:, hs])
-    return y
-
-
-_MAMBA = ("in_proj", "out_proj")
-
-
-def _mamba_layer(m: Model, w, lw, l: int, x: torch.Tensor,
-                 lin) -> torch.Tensor:
-    s = m.ssm
-    S = x.shape[0]
-    h = _rms(x, w["norm"][l], m.norm_eps)
-    zxbcdt = lin(h, lw["in_proj"])
-    z, xbc, dt = torch.split(zxbcdt, [s.d_inner, s.conv_channels, s.heads],
-                             dim=-1)
-    # depthwise causal conv over time: out_t = sum_i w_i x_{t-(W-1)+i} + b
-    xp = torch.cat([xbc.new_zeros((s.conv - 1, xbc.shape[1])), xbc])
-    cw = w["conv_w"][l].float()
-    conv = sum(cw[i] * xp[i:i + S] for i in range(s.conv))
-    xbc = _silu(conv + w["conv_b"][l].float())
-    xs, B, C = torch.split(xbc, [s.d_inner, s.state, s.state], dim=-1)
-    xs = xs.reshape(S, s.heads, s.head_dim)
-    dt = torch.nn.functional.softplus(dt + w["dt_bias"][l].float())
-    A = -torch.exp(w["a_log"][l].float())
-    y = _ssd(xs, dt, A, B, C) + w["d_skip"][l].float()[None, :, None] * xs
-    y = y.reshape(S, s.d_inner) * _silu(z)
-    return x + lin(_rms(y, w["out_norm"][l], m.norm_eps), lw["out_proj"])
-
-
-_LAYER = {"dense": (_granite_layer, _GRANITE), "ssm": (_mamba_layer, _MAMBA)}
-
-
 def logits(m: Model, w: Dict[str, torch.Tensor],
            seqs: Sequence[Tuple[Sequence[int], int]],
-           precision: str = "float32") -> List[torch.Tensor]:
+           precision: str = "float32",
+           ranks: Ranks = SOLO) -> List[torch.Tensor]:
     """For each ``(tokens, first)``: the float32 logits (n, vocab) at
     positions ``first .. len(tokens) - 1``, each the distribution over
     the token after it.  ``precision``: "float32" (the reference) or
-    "fp8" (the control)."""
+    "fp8" (the control).  The layers are the family's
+    (``families/<model_type>.py``: ``layer(m, w, lw, l, x, lin, ranks)``
+    over the weights it names in ``LAYER_WEIGHTS``); the output table is
+    ``head`` where the family draws one, else the token table.  With
+    the weights cut over the ranks, every rank calls this and gets the
+    whole logits."""
     lin = _Lin({"float32": _same, "fp8": _fp8}[precision])
-    layer, names = _LAYER[m.family]
+    fam = family(m.family)
     dev = w["embed"].device
     with torch.no_grad(), full_float32():
-        xs = [w["embed"][torch.as_tensor(list(t), dtype=torch.long,
-                                         device=dev)].float()
+        xs = [embed(m, w["embed"], torch.as_tensor(list(t), dtype=torch.long,
+                                                   device=dev), ranks)
               for t, _ in seqs]
         for l in range(m.layers):
-            lw = lin.layer(w, l, names)
-            xs = [layer(m, w, lw, l, x, lin) for x in xs]
+            lw = lin.layer(w, l, fam.LAYER_WEIGHTS)
+            xs = [fam.layer(m, w, lw, l, x, lin, ranks) for x in xs]
             del lw
-        table = lin.q(w["embed"].float()).t()
-        return [lin(_rms(x[first:], w["final_norm"], m.norm_eps), table)
-                for x, (_, first) in zip(xs, seqs)]
+        table = lin.q(w.get("head", w["embed"]).float()).t()
+        out = [lin(rms(x[first:], w["final_norm"], m.norm_eps), table)
+               for x, (_, first) in zip(xs, seqs)]
+        if table.shape[1] == m.vocab:
+            return out
+        return [all_cat(o) for o in out]
 
 
 def widest_gap(ref: torch.Tensor, chosen: torch.Tensor) -> float:

@@ -4,12 +4,14 @@
       --seed 12345 --seconds 30 --trace 0
 
 From the root of a checkout on a machine with the card(s) the cell asks
-for.  The last line of standard output is one JSON object (``correct``,
-``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
-``breakdown``, and last ``checks``: each number compared beside its
-limit, which also close standard error).  Exits non-zero with no result
-when the card is missing, the program is missing, or the process holds a
-module of JAX or of the JAX package.
+for.  A cell on more than one card runs one process a card
+(``harness.run_on_ranks``); this process prints rank 0's line.  The last
+line of standard output is one JSON object (``correct``, ``attempted``,
+``failed``, ``metrics``, ``device``, with ``--trace 1`` ``breakdown``,
+and last ``checks``: each number compared beside its limit, which also
+close standard error).  Exits non-zero with no result when the card is
+missing, the program is missing, or the process (or, in rank mode, any
+rank) holds a module of JAX or of the JAX package.
 """
 
 import time
@@ -60,10 +62,21 @@ def main(argv=None) -> int:
         return 3
     from bench import guard, harness
 
-    result = harness.run(bench_spec, args.workload, args.seed, args.seconds,
-                         bool(args.trace), t_start=T_START, device="cuda",
-                         control=args.control)
-    bad = guard.offenders(sys.modules)
+    run_args = (bench_spec, args.workload, args.seed, args.seconds,
+                bool(args.trace))
+    if need == 1:
+        result = harness.run(*run_args, t_start=T_START, device="cuda",
+                             control=args.control)
+        bad = guard.offenders(sys.modules)
+    else:
+        try:
+            result, bad = harness.run_on_ranks(
+                *run_args, t_start=T_START, device="cuda", backend="nccl",
+                control=args.control)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 2
+        bad = sorted(set(bad) | set(guard.offenders(sys.modules)))
     if bad:
         print(f"the run loaded {bad}: no module of JAX or of the JAX "
               "package may run", file=sys.stderr)

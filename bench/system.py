@@ -1,92 +1,72 @@
 """The system under test: ``repro_torch``'s paged engine and its async
 front door, built from a configuration file and the benchmark's
-weights.  The only module of the benchmark that imports the program.
+weights.  With the families' program mappings (``program_config`` and
+``program_params`` in ``bench/families/<model_type>.py``, which import
+it inside those functions), the only module of the benchmark that
+imports the program.
 
 It uses the program's public surface: ``ModelConfig``/``SSMConfig``,
 ``transformer.model_defs`` (to check the weights' layout),
 ``PagedEngine`` (``submit``, ``run``, ``has_work``,
-``prefill_backlog_tokens``, ``stats``, ``cache``), ``Request``,
-``AsyncServer``/``TokenStream`` and ``kernels.LAUNCHES``.
+``prefill_backlog_tokens``, ``stats``, ``cache``; ``mesh=`` in rank
+mode), ``Request``, ``AsyncServer``/``TokenStream``,
+``kernels.LAUNCHES`` and ``launch.mesh`` (``Mesh``, ``run_ranks``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
-from bench.model import Model
+from bench.model import SOLO, Model, Ranks, family
 
 
 def program_config(m: Model):
-    """The program's ``ModelConfig`` for ``m``."""
-    from repro_torch.configs.base import ModelConfig, SSMConfig
-
-    if m.family == "dense":
-        return ModelConfig(
-            name=m.name, family="dense", num_layers=m.layers,
-            d_model=m.d_model, num_heads=m.heads, num_kv_heads=m.kv_heads,
-            head_dim=m.head_dim, d_ff=m.d_ff, vocab_size=m.vocab,
-            activation="swiglu", norm_eps=m.norm_eps,
-            rope_theta=m.rope_theta, tie_embeddings=True)
-    s = m.ssm
-    # an attention-free model has no KV heads; the engine still keeps a
-    # full-depth KV arena for it, sized by these fields alone
-    kv = m.raw["phantom_kv"]
-    return ModelConfig(
-        name=m.name, family="ssm", num_layers=m.layers, d_model=m.d_model,
-        num_heads=kv["num_kv_heads"], num_kv_heads=kv["num_kv_heads"],
-        head_dim=kv["head_dim"], d_ff=0, vocab_size=m.vocab, activation="swiglu",
-        norm_eps=m.norm_eps, tie_embeddings=True,
-        ssm=SSMConfig(state_dim=s.state, head_dim=s.head_dim,
-                      expand=s.expand, conv_width=s.conv,
-                      chunk_size=s.chunk),
-        supports_long_context=True)
+    """The program's ``ModelConfig`` for ``m`` (the family's mapping)."""
+    return family(m.family).program_config(m)
 
 
-def program_params(m: Model, w: Dict[str, torch.Tensor], cfg) -> Dict:
-    """The program's parameter tree over the benchmark's weights (views:
-    the two sides read the same memory), checked leaf by leaf against
-    the shapes the program defines."""
+def program_params(m: Model, w: Dict[str, torch.Tensor], cfg,
+                   ranks: Ranks = SOLO, mesh=None) -> Dict:
+    """The program's parameter tree over the benchmark's weights (the
+    family's mapping, views: the two sides read the same memory),
+    checked leaf by leaf against the shapes the program defines: each
+    leaf whole, or, over ``mesh``, this rank's block of it as the
+    program's tensor-parallel layout cuts it."""
+    from repro_torch.distributed.sharding import local_shape
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.params import param_specs_for_mesh, tree_leaves
 
-    L, d = m.layers, m.d_model
-    if m.family == "dense":
-        H, kvh, hd = m.heads, m.kv_heads, m.head_dim
-        group = {
-            "0_attn": {"norm": w["attn_norm"], "attn": {
-                "wq": w["wq"].view(L, d, H, hd),
-                "wk": w["wk"].view(L, d, kvh, hd),
-                "wv": w["wv"].view(L, d, kvh, hd),
-                "wo": w["wo"].view(L, H, hd, d)}},
-            "1_mlp": {"norm": w["mlp_norm"], "mlp": {
-                "up": w["w_up"], "gate": w["w_gate"], "down": w["w_down"]}}}
-    else:
-        group = {"0_mamba": {"norm": w["norm"], "ssm": {
-            k: w[k] for k in ("in_proj", "conv_w", "conv_b", "a_log",
-                              "dt_bias", "d_skip", "out_norm", "out_proj")}}}
-    params = {"embed": {"tok": w["embed"]}, "final_norm": w["final_norm"],
-              "group0": group}
-    want = {p: tuple(d_.shape) for p, d_ in tree_leaves(T.model_defs(cfg))}
+    params = family(m.family).program_params(m, w, ranks)
+    defs = T.model_defs(cfg)
+    want = {p: {tuple(d_.shape)} for p, d_ in tree_leaves(defs)}
+    if mesh is not None:
+        for p, spec in tree_leaves(param_specs_for_mesh(defs, mesh)):
+            want[p].add(local_shape(next(iter(want[p])), spec, mesh))
     have = {p: tuple(t.shape) for p, t in tree_leaves(params)}
-    if want != have:
-        raise ValueError(f"weights do not fit the program's layout: "
-                         f"{sorted(set(want.items()) ^ set(have.items()))}")
+    bad = sorted((p, have.get(p), sorted(want.get(p, ())))
+                 for p in set(want) | set(have)
+                 if have.get(p) not in want.get(p, ()))
+    if bad:
+        raise ValueError(f"weights do not fit the program's layout "
+                         f"(leaf, shape, shapes it may have): {bad}")
     return params
 
 
 def engine(m: Model, w: Dict[str, torch.Tensor], seed: int, device,
-           **override):
+           mesh=None, ranks: Ranks = SOLO, **override):
     """A ``PagedEngine`` for ``m`` with the configuration file's engine
-    settings (``override`` replaces some, for the CPU tests)."""
+    settings (``override`` replaces some, for the CPU tests), over
+    ``mesh`` in rank mode (the engine cuts whole weights to this rank's
+    share, and keeps a share as it is)."""
     from repro_torch.serving.engine import PagedEngine
 
     cfg = program_config(m)
     kw = dict(m.engine, **override)
     zero_scan = kw.pop("zero_scan", False)
-    eng = PagedEngine(cfg, program_params(m, w, cfg), seed=seed,
-                      device=device, **kw)
+    eng = PagedEngine(cfg, program_params(m, w, cfg, ranks, mesh),
+                      seed=seed, device=device, mesh=mesh, **kw)
     if zero_scan:
         eng.cache.enable_zero_scan()
     return eng
@@ -105,6 +85,25 @@ def server(m: Model, eng):
     from repro_torch.serving.server import AsyncServer
 
     return AsyncServer(eng, ttft_slo_ms=None, **m.raw.get("front_door", {}))
+
+
+def mesh(world: int):
+    """A mesh of one ``model`` axis over the ``world`` ranks of the
+    default process group."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh({"model": world})
+
+
+def run_ranks(fn, world: int, *, backend: str, args, timeout: float,
+              threads: int) -> List:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes that
+    form one process group over ``backend``; their results in rank
+    order (the program's ``launch.mesh.run_ranks``)."""
+    from repro_torch.launch.mesh import run_ranks as spawn
+
+    return spawn(fn, world, backend=backend, args=args, timeout=timeout,
+                 threads=threads)
 
 
 def launches() -> Dict[str, int]:

@@ -1,7 +1,10 @@
 """``bench/counts`` pinned against figures worked out by hand from the
 configurations' widths (granite-3-8b: 40 layers, d 4096, 32 q and 8 KV
 heads of 128, d_ff 12800, vocab 49155; mamba2-1.3b: 48 layers, d 2048,
-64 heads of 64, state 128, conv 4 over 4352 channels)."""
+64 heads of 64, state 128, conv 4 over 4352 channels), and the kernel
+counts charging only the layers that run the kernel."""
+
+import dataclasses
 
 import pytest
 
@@ -20,13 +23,13 @@ LOGITS_ROW = 2 * 49155 * 4096
 
 
 def test_parameter_counts():
-    assert GRANITE.params() == GRANITE_PARAMS == 8170848256
-    assert GRANITE.matmul_params() == GRANITE_MATMUL
+    assert GRANITE.param_count == GRANITE_PARAMS == 8170848256
+    assert GRANITE.matmul_param_count == GRANITE_MATMUL
     assert GRANITE.kv_bytes_per_token() == KV_TOKEN
     # mamba2: in_proj 2048*(2*4096 + 2*128 + 64), conv (4+1)*4352, A, dt
     # bias, D 3*64, gated norm 4096, out_proj 4096*2048, norm 2048
     layer = 2048 * 8512 + 5 * 4352 + 192 + 4096 + 4096 * 2048 + 2048
-    assert MAMBA.params() == 48 * layer + 50288 * 2048 + 2048
+    assert MAMBA.param_count == 48 * layer + 50288 * 2048 + 2048
 
 
 def test_granite_decode_round_at_64_rows():
@@ -89,7 +92,50 @@ def test_whole_mixed_step():
 def test_mamba2_decode_round_is_memory_bound():
     flops, nbytes = counts.call(MAMBA, 1, [1000] * 64, [], 0)
     ssm = 48 * (5 * 64 * 64 * 128 + 2 * 4 * 4352)
-    row = 2 * MAMBA.matmul_params() + 2 * 50288 * 2048 + ssm
+    row = 2 * MAMBA.matmul_param_count + 2 * 50288 * 2048 + ssm
     assert flops == 64 * row
-    assert nbytes == 2 * MAMBA.params() + 13045334016
+    assert nbytes == 2 * MAMBA.param_count + 13045334016
     assert counts.least_seconds((flops, nbytes))[1] == "bytes"
+
+
+def test_mamba2_ssd_step():
+    """64 decode rows of the SSD state update over 48 layers: a row's
+    float32 state (64 x 64 x 128, 2 MiB) read and written, x (4096 bf16,
+    8 KiB), dt (64 float32), B and C (128 bf16 each) read and y (4096
+    float32, 16 KiB) written: 4,219,648 B a layer, 13.0 GB in all;
+    memory bound, 3.87 ms."""
+    per_layer = 2 * 2097152 + 8192 + 256 + 512 + 16384
+    assert per_layer == 4219648
+    flops, nbytes = counts.ssd_step(MAMBA, 64)
+    assert flops == 64 * 48 * 5 * 4096 * 128 == 8053063680
+    assert nbytes == 64 * 48 * per_layer == 12962758656
+    t, bound = counts.least_seconds((flops, nbytes))
+    assert bound == "bytes" and t == pytest.approx(12962758656 / 3.35e12)
+
+
+def test_kernel_counts_charge_only_the_layers_that_run_them():
+    """Granite runs no SSD step and Mamba-2 no attention; a model with
+    half its layers of each kind is charged half of each."""
+    assert counts.ssd_step(GRANITE, 64) == (0.0, 0.0)
+    assert counts.paged_attention(MAMBA, [1024] * 64) == (0.0, 0.0)
+    half = dataclasses.replace(MAMBA, ssm_layers=24)
+    assert counts.ssd_step(half, 64) == tuple(
+        x / 2 for x in counts.ssd_step(MAMBA, 64))
+    assert half.state_bytes_per_row() * 2 == MAMBA.state_bytes_per_row()
+    half = dataclasses.replace(GRANITE, attn_layers=20)
+    assert counts.paged_attention(half, [1024] * 64) == tuple(
+        x / 2 for x in counts.paged_attention(GRANITE, [1024] * 64))
+    assert half.kv_bytes_per_token() * 2 == GRANITE.kv_bytes_per_token()
+
+
+@pytest.mark.parametrize("chips", [1, 2, 4])
+def test_least_seconds_on_several_chips(chips):
+    """``chips`` cards share the work evenly: the least time is one
+    card's for ``1/chips`` of it, and at one card the same number as
+    before the rank mode."""
+    work = counts.call(GRANITE, 1, [1024] * 64, [(256, 1024)], 1)
+    t, bound = counts.least_seconds(work, chips)
+    assert bound == "bytes"
+    assert t == pytest.approx(27299315712 / 3.35e12 / chips)
+    if chips == 1:
+        assert t == work[1] / counts.PEAK_BYTES_PER_S

@@ -94,9 +94,11 @@ class Slice:
             tr = e.time_range
             row = (e.name, float(tr.start), float(tr.end))
             if e.device_type == DeviceType.CUDA:
-                # the device timeline also carries the harness's spans
-                # (user annotations), which are not device work
-                if not e.name.startswith(SPAN_PREFIX):
+                # the device timeline also carries user annotations (the
+                # harness's spans; ``nccl:all_reduce`` around each NCCL
+                # kernel), which are not device work of their own
+                if not (getattr(e, "is_user_annotation", False)
+                        or e.name.startswith(SPAN_PREFIX)):
                     device.append(row)
             elif e.device_type == DeviceType.CPU:
                 host.append(row)
